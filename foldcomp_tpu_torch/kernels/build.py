@@ -1,0 +1,112 @@
+"""Build and load the CUDA kernels: nvcc into a plain C shared library,
+bound with ctypes.
+
+The library is compiled on first use from csrc/fused_decode.cu into
+kernels/build/, named by a hash of the source and the flags, so an edited
+source or flag set builds a new library and never loads a stale one. The
+build writes to a temporary name and renames it into place, so processes
+that build at once do not see each other's half-written file.
+
+Flags: sm_90a (Hopper), -O3, and -fmad=false with no --use_fast_math, so
+the float operation order of the JAX reference holds (no contraction into
+FMA, IEEE division and square root, full-precision sinf/cosf).
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import subprocess
+import threading
+import time
+
+import numpy as np
+import torch
+
+from ..backend import nvcc_path
+from ..core import tables
+
+CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc",
+                    "fused_decode.cu")
+BUILD_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
+              "-fmad=false", "-std=c++17", "-shared", "-Xcompiler", "-fPIC")
+
+_LOCK = threading.Lock()
+_LIB = None
+_TABLES_ON = set()       # CUDA device indices whose constant tables are set
+BUILD_SECONDS = None     # wall time of the build this process ran, if any
+
+
+class KernelBuildError(RuntimeError):
+    pass
+
+
+def library_path() -> str:
+    with open(CSRC, "rb") as fh:
+        src = fh.read()
+    key = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    return os.path.join(BUILD_DIR, f"libfused_decode_{key[:16]}.so")
+
+
+def build() -> str:
+    """Compile the library unless this source and flag set is built.
+    Raises KernelBuildError with nvcc's output on failure."""
+    global BUILD_SECONDS
+    path = library_path()
+    if os.path.exists(path):
+        return path
+    nvcc = nvcc_path()
+    if nvcc is None:
+        raise KernelBuildError("nvcc not found (CUDA_HOME, /usr/local/cuda "
+                               "or PATH): cannot build the CUDA kernels")
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    tmp = f"{path}.{os.getpid()}.tmp"
+    cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, CSRC]
+    t0 = time.perf_counter()
+    res = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
+    if res.returncode != 0:
+        raise KernelBuildError(
+            f"nvcc failed ({res.returncode}): {' '.join(cmd)}\n"
+            f"{res.stderr}{res.stdout}")
+    os.replace(tmp, path)
+    BUILD_SECONDS = time.perf_counter() - t0
+    return path
+
+
+def _bind(lib):
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    lib.fd_set_tables.argtypes = [vp, vp, vp, vp, ci]
+    lib.fd_tails.argtypes = [vp] * 8 + [ci, ci, vp]
+    lib.fd_backbone.argtypes = [vp] * 10 + [ci, ci, vp]
+    lib.fd_sidechain.argtypes = [vp] * 7 + [ci, ci, ci, vp]
+    for fn in (lib.fd_set_tables, lib.fd_tails, lib.fd_backbone,
+               lib.fd_sidechain):
+        fn.restype = ci
+    return lib
+
+
+def load(device=None):
+    """The bound library, built, with its constant tables set on `device`
+    (a CUDA torch.device or index; None: the current device). __constant__
+    memory is per device, so the tables are copied to each device the first
+    time it is asked for. Raises on any failure; there is no fallback."""
+    global _LIB
+    dev = torch.device("cuda" if device is None else device)
+    idx = torch.cuda.current_device() if dev.index is None else dev.index
+    with _LOCK:
+        if _LIB is None:
+            _LIB = _bind(ctypes.CDLL(build()))
+        if idx not in _TABLES_ON:
+            arrs = [np.ascontiguousarray(tables.PRED32, np.int32),
+                    np.ascontiguousarray(tables.BLEN32, np.float32),
+                    np.ascontiguousarray(tables.BANG32, np.float32),
+                    np.ascontiguousarray(tables.KERNEL_CONSTS, np.float32)]
+            with torch.cuda.device(idx):
+                err = _LIB.fd_set_tables(*(a.ctypes.data for a in arrs),
+                                         len(tables.KERNEL_CONSTS))
+            if err != 0:
+                raise RuntimeError(f"fd_set_tables on cuda:{idx} failed: "
+                                   f"cudaError {err}")
+            _TABLES_ON.add(idx)
+    return _LIB

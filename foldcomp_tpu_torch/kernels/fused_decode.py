@@ -1,0 +1,352 @@
+"""Fused ragged-lane decode: k1 tails, seed roll, k2 backbone, k3 side
+chains.
+
+Counterpart of foldcomp_tpu/kernels/pallas_decode.py `decode_seg_fused`
+(full wire): the same inputs (the arrays of codec/batch.py
+pack_decode_batch_lanes) and the same output contract. Each kernel has
+
+- a plain PyTorch version (`*_plain`), operation for operation the Pallas
+  kernel's math: the CPU path and the CUDA kernel's oracle;
+- a wrapper (`tails`, `backbone`, `sidechain`) that runs the plain
+  version for CPU tensors, and for CUDA tensors checks its inputs and
+  launches the hand-written kernel of csrc/fused_decode.cu, or raises.
+  There is no fallback from a CUDA tensor to the plain version;
+- a launch counter (K1_LAUNCHES, K2_LAUNCHES, K3_LAUNCHES), raised by one
+  where the wrapper launches its kernel and nowhere else.
+
+Layouts are lane-minor ([rows, NL]) as in the pack. Nothing here needs
+autograd or randomness.
+"""
+from __future__ import annotations
+
+import torch
+
+from ..core import tables as T
+from .geometry import bond_angle_cs, place_atom_c, place_atom_cs
+
+F32 = torch.float32
+
+K1_LAUNCHES = 0
+K2_LAUNCHES = 0
+K3_LAUNCHES = 0
+
+_C_TO_N = float(T.C_TO_N)
+_CA_TO_C = float(T.CA_TO_C)
+_N_TO_CA = float(T.N_TO_CA)
+_SC_CONT = float(T.SC_CONT)
+_SC_MIN = float(T.SC_MIN)
+
+
+def reset_launch_counts() -> None:
+    global K1_LAUNCHES, K2_LAUNCHES, K3_LAUNCHES
+    K1_LAUNCHES = K2_LAUNCHES = K3_LAUNCHES = 0
+
+
+def launch_counts() -> dict:
+    return {"k1": K1_LAUNCHES, "k2": K2_LAUNCHES, "k3": K3_LAUNCHES}
+
+
+# ---------------------------------------------------------------------------
+# _class_prep (pallas_decode.py:405-437)
+
+def class_prep(seg_records, mins_lane, cont_lane, sc_codes_seg, fwd9, rev9,
+               seg_m) -> dict:
+    """Kernel inputs from the pack's arrays: the residue-code plane
+    (byte0 >> 3), the per-residue N-CA length (proline's is shorter), the
+    quantizer rows in kernel field order, and tat = 3 * seg_m. Records and
+    side-chain codes stay packed u8; the kernels unpack them."""
+    dev = seg_records.device
+    code = (seg_records[0].to(torch.int32) >> 3).contiguous()   # [SEG, NL]
+    blca = torch.where(code == T.PRO_CODE,
+                       torch.tensor(float(T.PRO_N_TO_CA), dtype=F32,
+                                    device=dev),
+                       torch.tensor(float(T.N_TO_CA), dtype=F32,
+                                    device=dev))
+    cols = torch.as_tensor(T.FIELD_COLS, device=dev)
+    return dict(
+        recs=seg_records.contiguous(), blca=blca, code=code,
+        sct=sc_codes_seg.contiguous(),
+        fwd9=fwd9.contiguous(), rev9=rev9.contiguous(),
+        tat=(3 * seg_m).to(torch.int32).contiguous(),
+        mins6=mins_lane.t()[cols].contiguous(),
+        cont6=cont_lane.t()[cols].contiguous())
+
+
+# ---------------------------------------------------------------------------
+# plain versions
+
+def _unpack_ang6(recs, mins6, cont6):
+    """[8, SEG, NL] u8 byte planes -> [6, SEG, NL] f32 angles in field
+    order (psi, omega, phi, n_ca_c, ca_c_n, c_n_ca), q * cont + min
+    (_unpack_ang6_into, pallas_decode.py:127-151)."""
+    b = recs.to(torch.int32)
+    qs = ((b[2] << 4) | (b[3] >> 4),
+          ((b[0] & 0x7) << 8) | b[1],
+          ((b[3] & 0xF) << 8) | b[4],
+          b[7], b[5], b[6])
+    return torch.stack([q.to(F32) * cont6[f] + mins6[f]
+                        for f, q in enumerate(qs)])
+
+
+def _forward_rows(ang6, blca, seed):
+    """Forward NeRF rows [3*SEG, NL] x3 from a [9, NL] seed
+    (_fwd_scan_into, pallas_decode.py:154-183)."""
+    seg = ang6.shape[1]
+    ax, ay, az, bx, by, bz, cx, cy, cz = seed.unbind(0)
+    xs, ys, zs = [ax, bx, cx], [ay, by, cy], [az, bz, cz]
+    for k in range(seg - 1):
+        psi, omega, phi, ncac, cacn, cnca = ang6[:, k]
+        nx, ny, nz = place_atom_c(ax, ay, az, bx, by, bz, cx, cy, cz,
+                                  _C_TO_N, cacn, psi)
+        kx, ky, kz = place_atom_c(bx, by, bz, cx, cy, cz, nx, ny, nz,
+                                  blca[k], cnca, omega)
+        qx, qy, qz = place_atom_c(cx, cy, cz, nx, ny, nz, kx, ky, kz,
+                                  _CA_TO_C, ncac, phi)
+        xs += [nx, kx, qx]
+        ys += [ny, ky, qy]
+        zs += [nz, kz, qz]
+        ax, ay, az, bx, by, bz, cx, cy, cz = (nx, ny, nz, kx, ky, kz,
+                                              qx, qy, qz)
+    return torch.stack(xs), torch.stack(ys), torch.stack(zs)
+
+
+def tails_plain(recs, blca, seed, ranc, tat, mins6, cont6):
+    """k1: forward scan + blended tail, [9, NL] rows comp*3 + kk
+    (_make_tails_kernel, pallas_decode.py:186-224)."""
+    rows = _forward_rows(_unpack_ang6(recs, mins6, cont6), blca, seed)
+    t = rows[0].shape[0]
+    tf = torch.clamp_min(tat.to(F32), 1.0)
+    out = [None] * 9
+    for kk in range(3):
+        r = tat.to(torch.int64) - 3 + kk
+        hit = (r >= 0) & (r < t)
+        idx = r.clamp(0, t - 1)[None]
+        w_r = (tat - 3 + kk).to(F32)
+        w_f = tf - w_r
+        for comp in range(3):
+            acc = torch.where(hit, rows[comp].gather(0, idx)[0], 0.0)
+            out[comp * 3 + kk] = (acc * w_f + ranc[kk * 3 + comp] * w_r) / tf
+    return torch.stack(out)
+
+
+def backbone_plain(recs, blca, seed, ranc, tat, mins6, cont6):
+    """k2: forward scan from the seeds, reverse C->N sweep seeded by the
+    stored anchors, positional blend -> rows [3*SEG, NL] x3
+    (_make_backbone_kernel, pallas_decode.py:227-296)."""
+    ang6 = _unpack_ang6(recs, mins6, cont6)
+    fx, fy, fz = _forward_rows(ang6, blca, seed)
+    t = fx.shape[0]
+    zero = torch.zeros_like(fx[0])
+    v1 = v2 = v3 = (zero, zero, zero)
+    bls = (_C_TO_N, _CA_TO_C, _N_TO_CA)
+    rev = [None] * t
+    for i in range(t):
+        r = t - 1 - i
+        rc = min(r, t - 3)
+        cos_a, sin_a = bond_angle_cs(fx[rc], fy[rc], fz[rc],
+                                     fx[rc + 1], fy[rc + 1], fz[rc + 1],
+                                     fx[rc + 2], fy[rc + 2], fz[rc + 2])
+        p = place_atom_cs(*v3, *v2, *v1, bls[i % 3], cos_a, sin_a,
+                          ang6[r % 3, r // 3])
+        is_c, is_ca, is_n = r == tat - 1, r == tat - 2, r == tat - 3
+        active = r <= tat - 4
+        w = tuple(
+            torch.where(active, p[c],
+                        torch.where(is_c, ranc[6 + c],
+                                    torch.where(is_ca, ranc[3 + c],
+                                                torch.where(is_n, ranc[c],
+                                                            zero))))
+            for c in range(3))
+        rev[r] = w
+        v1, v2, v3 = w, v1, v2
+    tatf = tat.to(F32)
+    tf = torch.clamp_min(tatf, 1.0)
+    w_r = torch.arange(t, dtype=F32, device=fx.device)[:, None]
+    w_f = tatf[None] - w_r
+    return tuple((f * w_f + torch.stack([w[c] for w in rev]) * w_r) / tf
+                 for c, f in enumerate((fx, fy, fz)))
+
+
+def sidechain_plain(bx, by, bz, code, sct, nl_out=None):
+    """k3: side chains + compact wire (_make_sidechain_kernel,
+    pallas_decode.py:338-393) with the 32-code table lookup of
+    core/tables.py in place of the where-chains, written in the final
+    layout: off i16 [NL_out, SEG, 42] ((k, c)-major mA offsets from CA)
+    and ca f32 [NL_out, SEG, 3]."""
+    t, nl = bx.shape
+    seg = t // 3
+    nlo = nl if nl_out is None else min(int(nl_out), nl)
+    dev = bx.device
+    pred = torch.as_tensor(T.PRED32, device=dev).long()
+    blen = torch.as_tensor(T.BLEN32, device=dev)
+    bang = torch.as_tensor(T.BANG32, device=dev)
+    cd = code[:, :nlo].long()
+    planes = []
+    for b in (bx, by, bz):
+        p = torch.empty((14, seg, nlo), dtype=F32, device=dev)
+        p[:3] = b[:, :nlo].reshape(seg, 3, nlo).transpose(0, 1)
+        planes.append(p)
+    X, Y, Z = planes
+    for k in range(3, 14):
+        pk = pred[cd, k]                                    # [SEG, NLo, 3]
+        sel = [[P.gather(0, pk[..., j][None])[0] for P in planes]
+               for j in range(3)]
+        tor = sct[:, k - 3, :nlo].to(torch.int32).to(F32) * _SC_CONT \
+            + _SC_MIN
+        ox, oy, oz = place_atom_c(*sel[0], *sel[1], *sel[2],
+                                  blen[cd, k], bang[cd, k], tor)
+        X[k], Y[k], Z[k] = ox, oy, oz
+    off = torch.stack([X - X[1], Y - Y[1], Z - Z[1]])      # [3, 14, SEG, L]
+    off = torch.clamp(torch.round(off * 1000.0), -32767.0, 32767.0) \
+        .to(torch.int16)
+    off = off.permute(3, 2, 1, 0).reshape(nlo, seg, 42).contiguous()
+    ca = torch.stack([X[1], Y[1], Z[1]]).permute(2, 1, 0).contiguous()
+    return off, ca
+
+
+# ---------------------------------------------------------------------------
+# kernel wrappers
+
+def _cuda_lib(t):
+    """The CUDA library, with its tables set on the tensor's CUDA device;
+    ValueError for any other device type."""
+    if t.device.type != "cuda":
+        raise ValueError(f"no kernel for device {t.device}")
+    from .build import load
+    return load(t.device)
+
+
+def _check(name, t, dtype, shape, device):
+    if t.device != device:
+        raise ValueError(f"{name}: on {t.device}, expected {device}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name}: dtype {t.dtype}, expected {dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: shape {tuple(t.shape)}, expected "
+                         f"{tuple(shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: not contiguous")
+
+
+def _check_lane_inputs(recs, blca, seed, ranc, tat, mins6, cont6):
+    if recs.dim() != 3 or recs.shape[0] != 8:
+        raise ValueError(f"recs: shape {tuple(recs.shape)}, expected "
+                         "[8, SEG, NL]")
+    _, seg, nl = recs.shape
+    dev = recs.device
+    _check("recs", recs, torch.uint8, (8, seg, nl), dev)
+    _check("blca", blca, F32, (seg, nl), dev)
+    _check("seed", seed, F32, (9, nl), dev)
+    _check("ranc", ranc, F32, (9, nl), dev)
+    _check("tat", tat, torch.int32, (nl,), dev)
+    _check("mins6", mins6, F32, (6, nl), dev)
+    _check("cont6", cont6, F32, (6, nl), dev)
+    return seg, nl
+
+
+def _ptrs(*ts):
+    return [t.data_ptr() for t in ts]
+
+
+def _launch(fn, name, dev, *args):
+    """Launch on dev's current stream with dev made current (the launchers
+    run on the current device); raise on a non-zero cudaError."""
+    with torch.cuda.device(dev):
+        err = fn(*args, torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{name} launch failed: cudaError {err}")
+
+
+def tails(recs, blca, seed, ranc, tat, mins6, cont6):
+    """k1 -> [9, NL] blended tails."""
+    global K1_LAUNCHES
+    if recs.device.type == "cpu":
+        return tails_plain(recs, blca, seed, ranc, tat, mins6, cont6)
+    lib = _cuda_lib(recs)
+    seg, nl = _check_lane_inputs(recs, blca, seed, ranc, tat, mins6, cont6)
+    out = torch.empty((9, nl), dtype=F32, device=recs.device)
+    if nl:
+        _launch(lib.fd_tails, "k1 tails", recs.device,
+                *_ptrs(recs, blca, seed, ranc, tat, mins6, cont6, out), seg,
+                nl)
+        K1_LAUNCHES += 1
+    return out
+
+
+def backbone(recs, blca, seed, ranc, tat, mins6, cont6):
+    """k2 -> blended backbone rows [3*SEG, NL] x3."""
+    global K2_LAUNCHES
+    if recs.device.type == "cpu":
+        return backbone_plain(recs, blca, seed, ranc, tat, mins6, cont6)
+    lib = _cuda_lib(recs)
+    seg, nl = _check_lane_inputs(recs, blca, seed, ranc, tat, mins6, cont6)
+    outs = tuple(torch.empty((3 * seg, nl), dtype=F32, device=recs.device)
+                 for _ in range(3))
+    if nl and seg:
+        _launch(lib.fd_backbone, "k2 backbone", recs.device,
+                *_ptrs(recs, blca, seed, ranc, tat, mins6, cont6, *outs),
+                seg, nl)
+        K2_LAUNCHES += 1
+    return outs
+
+
+def sidechain(bx, by, bz, code, sct, nl_out=None):
+    """k3 -> (off i16 [NL_out, SEG, 42], ca f32 [NL_out, SEG, 3])."""
+    global K3_LAUNCHES
+    if bx.device.type == "cpu":
+        return sidechain_plain(bx, by, bz, code, sct, nl_out)
+    lib = _cuda_lib(bx)
+    t, nl = bx.shape
+    if t % 3:
+        raise ValueError(f"backbone rows {t}: not a multiple of 3")
+    seg = t // 3
+    dev = bx.device
+    for name, p in (("bx", bx), ("by", by), ("bz", bz)):
+        _check(name, p, F32, (t, nl), dev)
+    _check("code", code, torch.int32, (seg, nl), dev)
+    _check("sct", sct, torch.uint8, (seg, 11, nl), dev)
+    nlo = nl if nl_out is None else min(int(nl_out), nl)
+    off = torch.empty((nlo, seg, 42), dtype=torch.int16, device=dev)
+    ca = torch.empty((nlo, seg, 3), dtype=F32, device=dev)
+    if nlo and seg:
+        _launch(lib.fd_sidechain, "k3 sidechain", dev,
+                *_ptrs(bx, by, bz, code, sct, off, ca), seg, nl, nlo)
+        K3_LAUNCHES += 1
+    return off, ca
+
+
+# ---------------------------------------------------------------------------
+# the pipeline
+
+def refine_seeds(tails9, fwd9, is_first):
+    """Seed roll (pallas_decode.py:596-610): lane s is seeded with lane
+    s-1's blended tail unless it is its protein's first segment. Ragged
+    lanes are protein-contiguous, so the shift is a roll by one lane.
+    tails9 rows are comp*3 + atom; seeds rows atom*3 + comp."""
+    nl = tails9.shape[1]
+    rolled = torch.roll(tails9, 1, dims=1).reshape(3, 3, nl) \
+        .transpose(0, 1).reshape(9, nl)
+    return torch.where(is_first[None], fwd9, rolled).contiguous()
+
+
+def decode_seg_fused(seg_records, mins_lane, cont_lane, sc_codes_seg,
+                     fwd9, rev9, is_first, seg_m, refine_iters: int = 2,
+                     nl_out: int | None = None):
+    """Fused ragged-lane decode of pack_decode_batch_lanes tensors.
+
+    Returns per-lane compact rows (off i16 [NL, SEG, 42], ca f32
+    [NL, SEG, 3]), sliced to nl_out lanes: row [42] is the residue's
+    [14, 3] milli-angstrom offsets from its CA. The tensors' device picks
+    the path: CUDA kernels on a CUDA device, the plain versions on the
+    CPU."""
+    pr = class_prep(seg_records, mins_lane, cont_lane, sc_codes_seg,
+                    fwd9, rev9, seg_m)
+    args = (pr["recs"], pr["blca"])
+    rest = (pr["rev9"], pr["tat"], pr["mins6"], pr["cont6"])
+    if refine_iters >= 2:
+        seeds = refine_seeds(tails(*args, pr["fwd9"], *rest), pr["fwd9"],
+                             is_first)
+    else:
+        seeds = pr["fwd9"]
+    bx, by, bz = backbone(*args, seeds, *rest)
+    return sidechain(bx, by, bz, pr["code"], pr["sct"], nl_out)
