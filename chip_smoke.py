@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Smoke run of foldcomp_tpu_torch's `decompress --fast` on one CUDA card.
+"""Smoke run of foldcomp_tpu_torch's `decompress --fast` and
+`compress --fast` on one CUDA card.
 
     python3 chip_smoke.py          (from the repository root)
 
@@ -7,18 +8,20 @@ Phases, one JSON line each; a failing phase raises and the exit code is
 non-zero:
 
 1. setup: the card, the toolchain, and the build of the CUDA kernels
-   (kernels/csrc/fused_decode.cu, nvcc) from this checkout;
+   (kernels/csrc/fused_decode.cu and fused_encode.cu, one nvcc each, then
+   one link) from this checkout;
 2. kernels: k1, k2 and k3 against their plain PyTorch versions on the
    card, on the same inputs: a mixed batch of 512 entries (refine_iters 1
    and 2) and a corpus with segments wider than 96 residues; offsets
    within 1 i16 unit (1 mA), f32 coordinates within 1e-3 A; then the
    whole device decode against the plain versions on every visible card
-   (card 0 alone on a one-card machine), since each card holds its own copy of the kernels'
-   constant tables;
+   (card 0 alone on a one-card machine), since each card holds its own
+   copy of the kernels' constant tables;
 3. parity: the port's decode against the exact host decoder, per protein
    no farther than the JAX reference (tests/data/torch_port_ref_dev.json)
    + 1e-3 A, or the 5 mA / RMSD gates where FOLDCOMP_REF_TEST has
-   test.pdb (foldcomp_tpu_torch/verify.py);
+   test.pdb; and its encode, by each wire route, byte-identical to the
+   exact encoder (foldcomp_tpu_torch/verify.py);
 4. device: decode of B=8192 entries of bench.py's 8 synthetic lengths
    (~4.1M residues) through the kernels and through the plain versions,
    timed with CUDA events, with each kernel's time beside its plain
@@ -28,6 +31,24 @@ non-zero:
    outputs held to the phase-3 bound;
 6. main path: the same CLI entry point in this process with the kernel
    launch counters reset just before and read just after; each kernel
+   must have launched;
+7. encode_kernels: k4 against its plain version on the same inputs: a
+   mixed 256-entry batch of the 8 lengths by the compact wire and by the
+   f32 loader, a batch longer than 1536 residues, degenerate frames.
+   Cosines and bits bit-equal, relt/relb within 4 ulp (rsqrtf), the
+   epilogue's outputs identical;
+8. encode_parity: the port's batched encode against the exact encoder,
+   FCZ bytes identical for every entry of a fuzz corpus (8 lengths x 3
+   seeds, n_res < 4, degenerate and off-grid frames), with the share of
+   values flagged for host rescue;
+9. encode_device: one CLI batch, B=2048 entries of the 8 lengths packed
+   by the native wire: pack and H2D seconds, k4 against its plain
+   version, the epilogue and the whole device encode by CUDA events;
+10. e2e_compress: `python -m foldcomp_tpu_torch compress --fast <dir>
+   <db> --db` on 4096 PDB files in a subprocess, timed; every entry
+   byte-identical by name to the exact route's (`python -m foldcomp_tpu
+   compress <dir> <db> --db`); then the same entry point in this process
+   with the launch counters reset just before and read just after: k4
    must have launched.
 
 Then the kernel summary, the card's `nvidia-smi` name and power limit,
@@ -51,11 +72,19 @@ TOL_A = 1e-3
 TOL_I16 = 1
 # printed PDB coordinates carry 3 decimals: rounding adds <= 5e-4 A
 PRINT_SLACK_A = 5e-4
-SOURCE = "foldcomp_tpu_torch/kernels/csrc/fused_decode.cu"
+_DEC = "foldcomp_tpu_torch/kernels/csrc/fused_decode.cu"
+SOURCES = {"k1": _DEC, "k2": _DEC, "k3": _DEC,
+           "k4": "foldcomp_tpu_torch/kernels/csrc/fused_encode.cu"}
 REPLACES = {"k1": "foldcomp_tpu/kernels/pallas_decode.py:186",
             "k2": "foldcomp_tpu/kernels/pallas_decode.py:227",
-            "k3": "foldcomp_tpu/kernels/pallas_decode.py:338"}
-NAMES = {"k1": "k1_tails", "k2": "k2_backbone", "k3": "k3_sidechain"}
+            "k3": "foldcomp_tpu/kernels/pallas_decode.py:338",
+            "k4": "foldcomp_tpu/kernels/pallas_encode.py:147"}
+NAMES = {"k1": "k1_tails", "k2": "k2_backbone", "k3": "k3_sidechain",
+         "k4": "k4_merged_encode"}
+# relt/relb use rsqrtf, as the JAX kernel uses lax.rsqrt
+TOL_REL_ULP = 4
+ENC_BATCH = 2048        # one CLI batch (cli.FAST_BATCH)
+E2E_FILES = 4096
 
 
 def emit(phase, **kv):
@@ -81,17 +110,23 @@ def per_device_check():
     """decode_seg_fused through the kernels against the plain versions on
     each visible CUDA device, the last device first, after device 0 has
     loaded the library: __constant__ tables are per device, and a device
-    that decodes before its tables are set gets zeros. -> one dict per
-    device with the maxima; raises past the tolerances."""
+    that decodes before its tables are set gets zeros. Then k4 against
+    merged_plain on a small compact batch, by both loaders, with the gates
+    of phase 7 (k4's predecessor table is a per-device tensor). -> one dict
+    per device with the maxima; raises past the tolerances."""
     import torch
 
-    from foldcomp_tpu.codec.batch import pack_decode_batch_lanes
+    from foldcomp_tpu.codec.batch import (fragment_to_tensors,
+                                          pack_decode_batch_lanes)
     from foldcomp_tpu_torch import verify
     from foldcomp_tpu_torch.codec.batch import arrays_to_torch
     from foldcomp_tpu_torch.kernels import build
     from foldcomp_tpu_torch.kernels import fused_decode as FD
+    from foldcomp_tpu_torch.kernels import fused_encode as FE
 
     uniq = verify.synthetic_corpus(BENCH_LENGTHS[:3])
+    enc = [fragment_to_tensors(verify.on_milli_grid(a)) for a in
+           verify.synthetic_structures(BENCH_LENGTHS[:3]).values()] * 4
     arrays, _ = pack_decode_batch_lanes(
         [uniq[n] for n in BENCH_LENGTHS[:3] for _ in range(8)])
     keys = ("seg_records", "mins_lane", "cont_lane", "sc_codes_seg", "fwd9",
@@ -119,7 +154,379 @@ def per_device_check():
         if not (d_off <= TOL_I16 and d_ca <= TOL_A):
             raise AssertionError(f"cuda:{idx} kernels vs plain: off {d_off} "
                                  f"units, ca {d_ca} A")
+        # k4 and its per-card predecessor table, both loaders
+        bt = pack_batch(enc, dev)
+        out[-1]["k4_max_abs"] = 0.0
+        for loader in ("wire", "atom14"):
+            arg = {loader: bt[loader]}
+            _, _, bad, worst = hold_k4(f"cuda:{idx} {loader}",
+                                       FE.merged(bt["code"], **arg),
+                                       FE.merged_plain(bt["code"], **arg),
+                                       bt["code"], bt["n_res"])
+            if bad:
+                raise AssertionError(f"k4 vs plain: {bad}")
+            out[-1]["k4_max_abs"] = max(out[-1]["k4_max_abs"], worst)
     return out
+
+
+def synthesize(n, seed):
+    from test_property_roundtrip import synthesize as synth
+    return synth(n, seed)
+
+
+def degenerate_frames():
+    """Frames with a CA duplicated onto the atom before it (a zero-length
+    bond: NaN guards, ties, flagged rows), as tests/test_pallas_encode.py
+    builds them, at a residue inside the chain, at its first and at its
+    last residue."""
+    from foldcomp_tpu_torch.verify import on_milli_grid
+    out = []
+    for n, seed, at in ((30, 5, 10), (60, 6, 0), (45, 7, 44)):
+        a = on_milli_grid(synthesize(n, seed))
+        ca = [i for i, nm in enumerate(a.atom_name) if nm == "CA"]
+        a.coords[ca[at]] = a.coords[ca[at] - 1]
+        out.append(a)
+    return out
+
+
+def pack_batch(tensors, dev):
+    """What encode_submit hands k4 for these fragment tensors, on `dev`:
+    the native plane-major wire (None when the batch is off the compact
+    form) and the filled atom14, with the seconds of the pack and of the
+    H2D copies of the wire."""
+    import numpy as np
+    import torch
+
+    from foldcomp_tpu_torch.codec.batch import _pack_encode_wire
+
+    live = [(i, t[:3]) for i, t in enumerate(tensors)]
+    b = len(live)
+    n_res = np.asarray([t[0].shape[0] for t in tensors], np.int32)
+    l = -(-int(n_res.max()) // 32) * 32
+    res_code = np.zeros((b, l), np.int32)
+    for k, t in enumerate(tensors):
+        res_code[k, :n_res[k]] = t[1]
+    atom14 = np.empty((b, l, 14, 3), np.float32)
+    t0 = time.perf_counter()
+    wire = _pack_encode_wire(live, atom14)
+    pack_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    wire_t = tuple(torch.from_numpy(a).to(dev) for a in wire) \
+        if isinstance(wire, tuple) else None
+    torch.cuda.synchronize()
+    h2d_s = time.perf_counter() - t0
+    return dict(wire=wire_t, atom14=torch.from_numpy(atom14).to(dev),
+                code=torch.from_numpy(res_code).to(dev),
+                n_res=torch.from_numpy(n_res).to(dev), b=b, l=l,
+                residues=int(n_res.sum()), pack_seconds=pack_s,
+                h2d_seconds=h2d_s)
+
+
+PART_NAMES = ("tcos", "bcos", "tbits", "scc", "scb", "relt", "relb")
+
+
+def parts_diff(torch, kp, pp):
+    """k4 against merged_plain on identical inputs: per plane the count of
+    differing elements (NaN equal to NaN), and for the float planes the
+    largest |difference| and distance in ulps over finite elements."""
+    out = {}
+    for name, a, b in zip(PART_NAMES, kp, pp):
+        if a.dtype == torch.int32:
+            out[name] = {"mismatches": int((a != b).sum())}
+            continue
+        same = (a == b) | (torch.isnan(a) & torch.isnan(b))
+        fin = torch.isfinite(a) & torch.isfinite(b)
+        d = {"mismatches": int((~same).sum()), "max_abs": 0.0, "ulps": 0}
+        if bool(fin.any()):
+            d["max_abs"] = (a - b).abs()[fin].max().item()
+            d["ulps"] = (a.view(torch.int32).long()
+                         - b.view(torch.int32).long()).abs()[fin].max().item()
+        out[name] = d
+    return out
+
+
+def hold_k4(label, kp, pp, code, n_res):
+    """k4's parts against merged_plain's on identical inputs, and the
+    epilogue run on each: exact on tcos, bcos, tbits, scc, scb and on every
+    parity_tail output, relt/relb within TOL_REL_ULP. -> (parts diff, tail
+    mismatches, failed names, max |difference| over the float planes)."""
+    import torch
+
+    from foldcomp_tpu_torch.kernels import fused_encode as FE
+
+    diff = parts_diff(torch, kp, pp)
+    kt = FE.parity_tail(kp, code, n_res)
+    pt = FE.parity_tail(pp, code, n_res)
+    tail = {k: int((kt[k] != pt[k]).sum()) for k in kt}
+    bad = [n for n in PART_NAMES[:5] if diff[n]["mismatches"]]
+    bad += [n for n in ("relt", "relb") if diff[n]["ulps"] > TOL_REL_ULP]
+    bad += [k for k, v in tail.items() if v]
+    worst = max(diff[n]["max_abs"] for n in
+                ("tcos", "bcos", "scc", "relt", "relb"))
+    return diff, tail, [f"{label}: {b}" for b in bad], worst
+
+
+K4_TOL = {"exact": list(PART_NAMES[:5]) + ["parity_tail"],
+          "ulps": {"relt": TOL_REL_ULP, "relb": TOL_REL_ULP}}
+
+
+def encode_kernels(dev):
+    """Phase 7: k4 against merged_plain on the card. -> max |difference|
+    over the float planes; raises past the gates."""
+    import torch
+
+    from foldcomp_tpu.codec.batch import fragment_to_tensors
+    from foldcomp_tpu_torch.kernels import fused_encode as FE
+    from foldcomp_tpu_torch.verify import on_milli_grid
+
+    def tens(frames):
+        return [fragment_to_tensors(a) for a in frames]
+
+    uniq = dict(zip(BENCH_LENGTHS, tens(
+        [on_milli_grid(synthesize(n, n)) for n in BENCH_LENGTHS])))
+    rng = random.Random(3)
+    mixed = [uniq[rng.choice(BENCH_LENGTHS)] for _ in range(256)]
+    long_ = tens([on_milli_grid(synthesize(n, n)) for n in (1600, 2000)])
+    cases = (("mixed256", mixed, "wire"), ("mixed256_f32", mixed, "atom14"),
+             ("long", long_ * 4, "wire"),
+             ("degenerate", tens(degenerate_frames()), "wire"))
+    worst = 0.0
+    for label, tensors, loader in cases:
+        bt = pack_batch(tensors, dev)
+        if bt["wire"] is None:
+            raise AssertionError(f"{label}: batch is off the compact form")
+        arg = {loader: bt[loader]}
+        diff, tail, bad, got = hold_k4(
+            label, FE.merged(bt["code"], **arg),
+            FE.merged_plain(bt["code"], **arg), bt["code"], bt["n_res"])
+        torch.cuda.synchronize()
+        emit("encode_kernels", case=label, loader=loader, b=bt["b"],
+             l=bt["l"], parts=diff, tail_mismatches=tail, tol=K4_TOL)
+        if bad:
+            raise AssertionError(f"k4 vs plain: {bad}")
+        worst = max(worst, got)
+    return worst
+
+
+def encode_parity(dev):
+    """Phase 8: the port's batched encode on the card against the exact
+    encoder over a fuzz corpus; FCZ bytes identical for every entry."""
+    import numpy as np
+
+    from foldcomp_tpu.codec.batch import fragment_to_tensors
+    from foldcomp_tpu.codec.encoder import encode as encode_exact
+    from foldcomp_tpu.codec.fcz import serialize
+    from foldcomp_tpu.core.aatable import N_SC_TORSION
+    from foldcomp_tpu.core.codes import NUM_AA
+    from foldcomp_tpu_torch.codec.batch import encode_finish, encode_submit
+    from foldcomp_tpu_torch.verify import on_milli_grid
+
+    grid = [on_milli_grid(synthesize(n, 100 * s + n))
+            for n in BENCH_LENGTHS for s in range(3)]
+    grid += [on_milli_grid(synthesize(n, s)) for n in (2, 3) for s in (0, 1)]
+    grid += degenerate_frames()
+    off = [synthesize(n, 7 + n) for n in (3, 60, 480, 1080)]
+    off.append(degenerate_frames()[0])
+    off[-1].coords[0, 0] += np.float32(1e-4)     # one coordinate off grid
+    summary = {}
+    for label, frames, route in (("grid", grid, "native"),
+                                 ("off_grid", off, "f32")):
+        tensors = [fragment_to_tensors(a) for a in frames]
+        h = encode_submit([t[:3] for t in tensors], [t[3] for t in tensors],
+                          device=dev)
+        if h["wire"] != route:
+            raise AssertionError(f"{label}: route {h['wire']}, "
+                                 f"expected {route}")
+        parts = {k: v.cpu().numpy() for k, v in h["parts"].items()}
+        n_res = h["res_mask"].sum(axis=1)
+        rows = np.arange(h["res_mask"].shape[1])[None, :] \
+            < (n_res[:, None] - 1)
+        bb = np.unpackbits(parts["bb_flags"][rows][:, None], axis=1)
+        rc = h["res_code"]
+        counts = np.where(rc < NUM_AA,
+                          N_SC_TORSION[np.minimum(rc, NUM_AA - 1)], 0)
+        emitted = (np.arange(11)[None, None, :] < counts[..., None]) \
+            & h["res_mask"][..., None]
+        sc = ((parts["sc_flag_bits"][..., None] >> np.arange(11)) & 1) > 0
+        got = encode_finish(h)
+        bad = [i for i, (a, g) in enumerate(zip(frames, got))
+               if g is None or serialize(g) != serialize(encode_exact(a))]
+        summary[label] = dict(
+            entries=len(frames), route=route, mismatches=bad,
+            bb_values=int(rows.sum()) * 6,
+            bb_flagged_share=float(bb.sum()) / max(int(rows.sum()) * 6, 1),
+            sc_values=int(emitted.sum()),
+            sc_flagged_share=float((sc & emitted).sum())
+            / max(int(emitted.sum()), 1))
+    emit("encode_parity", **summary)
+    for label, v in summary.items():
+        if v["mismatches"]:
+            raise AssertionError(f"encode parity {label}: entries "
+                                 f"{v['mismatches']} differ")
+
+
+def encode_device(dev, card):
+    """Phase 9: one CLI batch through the kernels and the plain version,
+    timed with CUDA events and held against each other, then the same
+    batch through the CLI's host stages, timed on the host clock.
+    -> {"ms", "plain_ms", "max_abs_err"} of k4."""
+    import torch
+
+    from foldcomp_tpu.codec.batch import (encode_pdb_device,
+                                          fragment_to_tensors)
+    from foldcomp_tpu.codec.fcz import serialize
+    from foldcomp_tpu.io.pdb import format_pdb
+    from foldcomp_tpu_torch.codec.batch import encode_finish, encode_submit
+    from foldcomp_tpu_torch.kernels import fused_encode as FE
+    from foldcomp_tpu_torch.verify import on_milli_grid
+
+    frames = {n: on_milli_grid(synthesize(n, n)) for n in BENCH_LENGTHS}
+    uniq = {n: fragment_to_tensors(a) for n, a in frames.items()}
+    rng = random.Random(0)
+    picks = [rng.choice(BENCH_LENGTHS) for _ in range(ENC_BATCH)]
+    bt = pack_batch([uniq[n] for n in picks], dev)
+    code, n_res, wire = bt["code"], bt["n_res"], bt["wire"]
+
+    def kern():
+        return FE.merged(code, wire=wire)
+
+    def plain():
+        return FE.merged_plain(code, wire=wire)
+
+    p1 = cuda_ms(torch, plain, 2)
+    k1 = cuda_ms(torch, kern, 10)
+    k2 = cuda_ms(torch, kern, 10)
+    p2 = cuda_ms(torch, plain, 2)
+    # the timed batch is the main path's shape: hold it as phase 7 does
+    diff, tail, bad, worst = hold_k4("cli_batch", kern(), plain(), code,
+                                     n_res)
+    torch.cuda.synchronize()
+    emit("encode_device_kernels", entries=bt["b"], l=bt["l"], parts=diff,
+         tail_mismatches=tail, tol=K4_TOL)
+    if bad:
+        raise AssertionError(f"k4 vs plain: {bad}")
+    parts = kern()
+    tail_ms = min(cuda_ms(torch, lambda: FE.parity_tail(parts, code, n_res),
+                          5) for _ in range(2))
+    enc_ms = min(cuda_ms(torch, lambda: FE.encode_parity_fused_planar(
+        *wire, code, n_res), 5) for _ in range(2))
+    out = FE.encode_parity_fused_planar(*wire, code, n_res)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    host = {k: v.cpu().numpy() for k, v in out.items()}
+    d2h_s = time.perf_counter() - t0
+
+    # the CLI's stages for this batch: native PDB parse, submit (pack,
+    # H2D, launches), finish (D2H, sparse host rescue, FczData), serialize
+    texts = {n: format_pdb(a, f"L{n}").encode() for n, a in frames.items()}
+    stages = {}
+    t0 = time.perf_counter()
+    parsed = [encode_pdb_device(texts[n]) for n in picks]
+    stages["parse"] = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    h = encode_submit([t for ts, _ in parsed for t in ts],
+                      [m for _, ms in parsed for m in ms], device=dev)
+    torch.cuda.synchronize()
+    stages["submit"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    fczs = encode_finish(h)
+    stages["finish"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    blobs = [serialize(f) for f in fczs]
+    stages["serialize"] = time.perf_counter() - t0
+    if len(blobs) != ENC_BATCH or h["wire"] != "native":
+        raise AssertionError(f"{len(blobs)} entries by {h['wire']}")
+    slots = bt["b"] * bt["l"]
+    emit("encode_device", gpu=card, entries=bt["b"], l=bt["l"],
+         residues=bt["residues"], slots=slots,
+         padded_slots_per_residue=slots / bt["residues"],
+         pack_seconds=bt["pack_seconds"], h2d_seconds=bt["h2d_seconds"],
+         d2h_seconds=d2h_s,
+         d2h_bytes=sum(v.nbytes for v in host.values()),
+         k4_ms=min(k1, k2), k4_plain_ms=min(p1, p2),
+         k4_runs_ms=[p1, k1, k2, p2], epilogue_ms=tail_ms,
+         device_encode_ms=enc_ms,
+         device_encode_residues_per_s=bt["residues"] / (enc_ms * 1e-3),
+         host_stage_seconds=stages)
+    return {"ms": min(k1, k2), "plain_ms": min(p1, p2), "max_abs_err": worst}
+
+
+def e2e_compress(work, card, uniq):
+    """Phase 10: `compress --fast` through the CLI on E2E_FILES PDB files,
+    against the exact route, then in this process with the launch
+    counters around it. -> the main path's launch counts."""
+    import torch
+
+    from foldcomp_tpu.codec.decoder import decode as decode_exact
+    from foldcomp_tpu.io.db import DatabaseReader
+    from foldcomp_tpu.io.pdb import format_pdb
+    from foldcomp_tpu_torch import cli
+    from foldcomp_tpu_torch.kernels import fused_decode as FD
+    from foldcomp_tpu_torch.kernels import fused_encode as FE
+
+    texts = {n: format_pdb(decode_exact(f), f"L{n}")
+             for n, f in uniq.items()}
+    pdb_dir = work / "pdbs"
+    pdb_dir.mkdir()
+    rng = random.Random(4)
+    picks = [rng.choice(BENCH_LENGTHS) for _ in range(E2E_FILES)]
+    for i, n in enumerate(picks):
+        (pdb_dir / f"e{i}_L{n}.pdb").write_text(texts[n])
+    residues = sum(uniq[n].n_residue for n in picks)
+
+    def read_db(path):
+        reader = DatabaseReader(str(path))
+        try:
+            return {name: bytes(data) for _, name, data in reader.entries()}
+        finally:
+            reader.close()
+
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    env.pop("FOLDCOMP_TORCH_DEVICE", None)
+    walls = {}
+    for key, pkg, fast in (("fast", "foldcomp_tpu_torch", ["--fast"]),
+                           ("exact", "foldcomp_tpu", [])):
+        t0 = time.perf_counter()
+        r = subprocess.run(
+            [sys.executable, "-m", pkg, "compress", *fast, str(pdb_dir),
+             str(work / f"db_{key}"), "--db"], cwd=str(REPO), env=env,
+            capture_output=True, text=True, timeout=900)
+        walls[key] = time.perf_counter() - t0
+        if r.returncode != 0:
+            raise AssertionError(f"{key} compress rc {r.returncode}: "
+                                 f"{r.stderr[-4000:]}")
+    fast_db, exact_db = read_db(work / "db_fast"), read_db(work / "db_exact")
+    differ = sorted(n for n in exact_db if fast_db.get(n) != exact_db[n])
+    emit("e2e_compress", gpu=card, files=len(picks), residues=residues,
+         command="python -m foldcomp_tpu_torch compress --fast <dir> <db> "
+                 "--db", wall_seconds=walls["fast"],
+         residues_per_s=residues / walls["fast"],
+         exact_route_wall_seconds=walls["exact"],
+         exact_route_residues_per_s=residues / walls["exact"],
+         entries=len(fast_db), entries_exact=len(exact_db),
+         differing_entries=len(differ), first_differing=differ[:5])
+    if differ or len(fast_db) != len(exact_db) or len(fast_db) != len(picks):
+        raise AssertionError(f"compress --fast vs exact: {len(differ)} "
+                             f"entries differ, {len(fast_db)} vs "
+                             f"{len(exact_db)} entries")
+
+    FD.reset_launch_counts()
+    FE.reset_launch_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(sys.stderr):
+        rc = cli.main(["compress", "--fast", str(pdb_dir),
+                       str(work / "db_main"), "--db"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = {**FD.launch_counts(), **FE.launch_counts()}
+    emit("main_path_compress", rc=rc, launches=counts, wall_seconds=wall,
+         residues_per_s=residues / wall, gpu=card)
+    if rc != 0 or counts["k4"] <= 0:
+        raise AssertionError(f"compress main path rc {rc}, "
+                             f"launches {counts}")
+    return counts
 
 
 def main() -> int:
@@ -145,7 +552,7 @@ def main() -> int:
     from foldcomp_tpu_torch.codec.batch import arrays_to_torch
     from foldcomp_tpu_torch.kernels import build
     from foldcomp_tpu_torch.kernels import fused_decode as FD
-    from test_property_roundtrip import synthesize
+    from foldcomp_tpu_torch.kernels import fused_encode as FE
 
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
@@ -236,7 +643,7 @@ def main() -> int:
                  lanes=int(arrays["seg_records"].shape[2]), max_abs=got,
                  tol={"f32_A": TOL_A, "i16_units": TOL_I16})
     emit("kernels_per_device", devices=per_device_check(),
-         tol={"f32_A": TOL_A, "i16_units": TOL_I16})
+         tol={"f32_A": TOL_A, "i16_units": TOL_I16, "k4": K4_TOL})
     torch.cuda.set_device(dev)
 
     # ---- 3. absolute parity against the exact decoder ----
@@ -377,25 +784,36 @@ def main() -> int:
         # ---- 6. the main path, launch counters around it ----
         out2 = work / "pdb_db_main"
         FD.reset_launch_counts()
+        FE.reset_launch_counts()
         t0 = time.perf_counter()
         with contextlib.redirect_stdout(sys.stderr):
             rc = cli.main(["decompress", "--fast", str(db), str(out2),
                            "--db"])
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        counts = FD.launch_counts()
+        counts = {**FD.launch_counts(), **FE.launch_counts()}
         emit("main_path", rc=rc, launches=counts, wall_seconds=wall,
              residues_per_s=e2e_res / wall, gpu=card)
-        if rc != 0 or not all(v > 0 for v in counts.values()):
+        if rc != 0 or not all(counts[k] > 0 for k in ("k1", "k2", "k3")):
             raise AssertionError(f"main path rc {rc}, launches {counts}")
+        shutil.rmtree(work, ignore_errors=True)
+        work.mkdir()
+
+        # ---- 7-10. compress --fast ----
+        err["k4"] = encode_kernels(dev)
+        encode_parity(dev)
+        times["k4"] = encode_device(dev, card)
+        err["k4"] = max(err["k4"], times["k4"]["max_abs_err"])
+        torch.cuda.empty_cache()
+        counts["k4"] = e2e_compress(work, card, uniq)["k4"]
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
     print(json.dumps({"kernels": [
-        {"name": NAMES[k], "route": "cuda", "source": SOURCE,
+        {"name": NAMES[k], "route": "cuda", "source": SOURCES[k],
          "replaces": REPLACES[k], "launches": counts[k],
          "max_abs_err": err[k], "ms": times[k]["ms"],
-         "plain_ms": times[k]["plain_ms"]} for k in ("k1", "k2", "k3")]}),
+         "plain_ms": times[k]["plain_ms"]} for k in NAMES]}),
         flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

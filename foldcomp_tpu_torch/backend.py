@@ -33,7 +33,7 @@ def resolve_device(device=None) -> torch.device:
     if dev.type == "cuda":
         if not torch.cuda.is_available():
             raise DeviceUnavailable(
-                "the fast decode path needs a CUDA device and none is "
+                "the --fast device paths need a CUDA device and none is "
                 f"available (set {DEVICE_ENV}=cpu to run its plain "
                 "PyTorch version on the CPU)")
         if dev.index is None:

@@ -1,20 +1,30 @@
-"""The port's decode glue: ragged-lane pack -> device decode -> PDB text.
+"""The port's device glue: decode (ragged-lane pack -> device decode ->
+PDB text) and encode (fragment tensors -> compact wire -> device encode ->
+FczData).
 
 The host stages are foldcomp_tpu's own and shared, not copied: the
 ragged-lane pack (`pack_decode_batch_lanes`, native fcz_pack_lanes), the
 row gather `_gather_a14`, the protein assembly and the native PDB
-formatter (`_format_batch`, `format_atom14_native`). Only the device stage
-and what touches its tensors are here, mirroring foldcomp_tpu/codec/batch.py
-(`_seg_decode_arrays`, `_outs_to_host`, `decode_fcz_batch`,
-`decode_fcz_to_pdb_batch`, `decode_fcz_stream`).
+formatter (`_format_batch`, `format_atom14_native`); on the encode side the
+fragment tensors (`fragment_to_tensors`), the numpy compact wire
+(`_compact_coord_batch`), its scratch pool, and the sparse host finish with
+the FczData assembly (`encode_finish` -> `finish_encode_device`). Only the
+device stages and what touches their tensors are here, mirroring
+foldcomp_tpu/codec/batch.py (`_seg_decode_arrays`, `_outs_to_host`,
+`decode_fcz_batch`, `decode_fcz_to_pdb_batch`, `decode_fcz_stream`,
+`_pack_encode_wire_native`, `encode_submit`, `encode_finish`,
+`encode_tensor_batch`, `encode_fragment_batch`).
 
-Every entry point takes `device` (see backend.resolve_device). The pack
-runs with no segment-width cap: the CUDA backbone kernel takes any SEG,
-so there is no grid-core fallback to route wide segments to. Width
-classes and the backbone-only wire are not on this path.
+Every entry point takes `device` (see backend.resolve_device). The decode
+pack runs with no segment-width cap: the CUDA backbone kernel takes any
+SEG, so there is no grid-core fallback to route wide segments to. Width
+classes and the backbone-only wire are not on this path. The encode takes
+any length and needs no protein block: every batch goes through k4, by its
+compact or its f32 loader.
 """
 from __future__ import annotations
 
+import ctypes
 import os
 import queue
 import threading
@@ -23,12 +33,15 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 import torch
 
-from foldcomp_tpu.codec.batch import (_assemble_protein, _format_batch,
-                                      _gather_a14, pack_decode_batch_lanes,
-                                      seg_sort_key)
+from foldcomp_tpu.codec import batch as tpu_batch
+from foldcomp_tpu.codec.batch import (_POOL, _assemble_protein,
+                                      _compact_coord_batch, _format_batch,
+                                      _gather_a14, _round_up,
+                                      fragment_to_tensors,
+                                      pack_decode_batch_lanes, seg_sort_key)
 
 from ..backend import resolve_device
-from ..kernels import fused_decode
+from ..kernels import fused_decode, fused_encode
 
 # pack keys -> tensor dtype on the device
 _ARRAY_DTYPES = {
@@ -201,3 +214,162 @@ def decode_fcz_stream(payload_iter, batch_size: int = 2048,
         producer_thread.join(timeout=10)
         pool.shutdown(wait=True, cancel_futures=True)
         xfer.shutdown(wait=True)
+
+
+# ---------------------------------------------------------------------------
+# encode
+
+def _pack_encode_wire(live, atom14, native: bool = True):
+    """One-pass native fill of the padded atom14 batch and the plane-major
+    compact wire (native/fccodec.c fcz_pack_encode_wire): baseT i32
+    [3, B, L], deltaT i16 [42, B, L], present u16 [B, L], in pooled
+    buffers. The JAX package pads the proteins to its kernel's sublane
+    block; k4 needs none, so B is the live batch.
+
+    Returns the three arrays, "f32" when the batch is off the compact form
+    (atom14 is still filled), or None when `native` is False or the native
+    library is missing (the caller fills atom14 itself)."""
+    from foldcomp_tpu.native import get_lib
+    if not native:
+        return None
+    lib = get_lib()
+    if lib is None:
+        return None
+    b, l = atom14.shape[0], atom14.shape[1]
+    ptrs = (ctypes.c_void_p * b)()
+    ms = np.empty(b, np.int32)
+    keep = []
+    for k, (_, (a14, _rc, _tf)) in enumerate(live):
+        a = np.ascontiguousarray(a14, np.float32)
+        keep.append(a)
+        ptrs[k] = a.ctypes.data
+        ms[k] = a.shape[0]
+    baseT = _POOL.take((3, b, l), np.int32)
+    deltaT = _POOL.take((42, b, l), np.int16)
+    present = _POOL.take((b, l), np.uint16)
+    # the C pass releases the GIL: split big batches over a few threads
+    nt = min(4, os.cpu_count() or 1) if b >= 256 else 1
+    bounds = [(b * t // nt, b * (t + 1) // nt) for t in range(nt)]
+
+    def run(t):
+        k0, k1 = bounds[t]
+        sub = (ctypes.c_void_p * (k1 - k0))(*ptrs[k0:k1])
+        return lib.fcz_pack_encode_wire_range(
+            k0, k1 - k0, sub, ms[k0:k1], b, l, atom14, baseT, deltaT,
+            present, -1)
+    if nt == 1:
+        gots = [run(0)]
+    else:
+        with ThreadPoolExecutor(nt) as ex:
+            gots = list(ex.map(run, range(nt)))
+    if all(g == 1 for g in gots):
+        return baseT, deltaT, present
+    _POOL.give(baseT, deltaT, present)
+    return "f32" if all(g >= 0 for g in gots) else None
+
+
+def _h2d(a, dev):
+    return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+
+def encode_submit(frag_tensors, frag_meta, anchor_threshold: int = 25,
+                  l_bucket: int = 32, device=None,
+                  native_wire: bool = True):
+    """Stage 1 of the batched device encode: pad, pack, ship, launch.
+
+    Pads the live fragments into one batch and builds the compact wire:
+    natively and plane-major, or (native_wire=False, or no native library)
+    with the numpy pass and a plane-major permute on the device. A batch
+    off the millimetre grid ships f32 atom14 instead. Launches k4 and the epilogue without waiting for them
+    and returns a handle for encode_finish, so the caller can pack the
+    next batch while this one runs. handle["wire"] names the route:
+    "native", "numpy" or "f32"."""
+    dev = resolve_device(device)
+    live = [(i, t) for i, t in enumerate(frag_tensors) if t is not None]
+    if not live:
+        return dict(n=len(frag_tensors), live=[])
+    b = len(live)
+    l_pad = _round_up(max(t[0].shape[0] for _, t in live), l_bucket)
+    atom14 = _POOL.take((b, l_pad, 14, 3), np.float32)
+    res_code = np.zeros((b, l_pad), np.int32)
+    tf_ca = np.zeros((b, l_pad), np.float32)
+    res_mask = np.zeros((b, l_pad), bool)
+    n_res = np.zeros(b, np.int32)
+    for k, (_, (a14, rc, tf)) in enumerate(live):
+        m = a14.shape[0]
+        res_code[k, :m] = rc
+        tf_ca[k, :m] = tf
+        res_mask[k, :m] = True
+        n_res[k] = m
+    wire = _pack_encode_wire(live, atom14, native_wire)
+    compact, delta_buf, wire_bufs = None, None, ()
+    if wire is None:
+        atom14.fill(0)
+        for k, (_, (a14, _rc, _tf)) in enumerate(live):
+            atom14[k, :a14.shape[0]] = a14
+        compact = _compact_coord_batch(atom14)
+    code_t, nres_t = _h2d(res_code, dev), _h2d(n_res, dev)
+    if isinstance(wire, tuple):
+        route = "native"
+        planar = tuple(_h2d(a, dev) for a in wire)
+        wire_bufs = wire
+    elif compact is not None:
+        # the numpy wire is [B, L, ...]: make it plane-major on the device
+        route = "numpy"
+        base, delta, present = compact
+        planar = (_h2d(base, dev).permute(2, 0, 1).contiguous(),
+                  _h2d(delta, dev).reshape(b, l_pad, 42).permute(2, 0, 1)
+                  .contiguous(),
+                  _h2d(present, dev))
+        delta_buf = delta
+    else:
+        route = "f32"
+        planar = None
+    if planar is not None:
+        parts = fused_encode.encode_parity_fused_planar(*planar, code_t,
+                                                        nres_t)
+    else:
+        parts = fused_encode.encode_parity_f32(_h2d(atom14, dev), code_t,
+                                               nres_t)
+    # the H2D copies are done when .to() returns (pageable host memory),
+    # so encode_finish may recycle the pooled buffers
+    return dict(n=len(frag_tensors), live=live, frag_meta=list(frag_meta),
+                anchor_threshold=anchor_threshold, atom14=atom14,
+                res_code=res_code, tf_ca=tf_ca, res_mask=res_mask,
+                parts=parts, device_bb=True, delta_buf=delta_buf,
+                wire_bufs=wire_bufs, wire=route)
+
+
+def encode_finish(handle):
+    """Stage 2: copy the parts to the host (this waits for the device),
+    then foldcomp_tpu's own finish: exact quantizer extremes, rescue of
+    the flagged values, temperature factors and the FczData assembly.
+    Returns List[FczData | None] in the order of the submitted tensors."""
+    if handle["live"]:
+        handle["parts"] = {k: v.cpu().numpy()
+                           for k, v in handle["parts"].items()}
+    return tpu_batch.encode_finish(handle)
+
+
+def encode_tensor_batch(frag_tensors, frag_meta, anchor_threshold: int = 25,
+                        l_bucket: int = 32, device=None,
+                        native_wire: bool = True):
+    """Device-encode prepared fragment tensors -> List[FczData | None],
+    byte-identical to the exact encoder. Synchronous form of
+    encode_submit + encode_finish."""
+    return encode_finish(encode_submit(frag_tensors, frag_meta,
+                                       anchor_threshold, l_bucket, device,
+                                       native_wire))
+
+
+def encode_fragment_batch(fragments, anchor_threshold: int = 25,
+                          l_bucket: int = 32, device=None,
+                          native_wire: bool = True):
+    """Batched device encode of AtomArray fragments -> List[FczData].
+    Entries whose anchor count exceeds the uint8 header field come back
+    as None (the exact encoder raises on those too)."""
+    tensors = [fragment_to_tensors(a) for a in fragments]
+    return encode_tensor_batch([(a14, rc, tf) for a14, rc, tf, _ in tensors],
+                               [m for _, _, _, m in tensors],
+                               anchor_threshold, l_bucket, device,
+                               native_wire)

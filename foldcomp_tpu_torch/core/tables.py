@@ -1,4 +1,4 @@
-"""Decode constants and chemistry tables of the fused decode.
+"""Constants and chemistry tables of the fused decode and encode.
 
 Every number here is derived from the numpy arrays and constants of
 foldcomp_tpu/core/aatable.py, so the port, its CUDA kernels (which receive
@@ -70,3 +70,27 @@ BANG32 = _extend_codes(np.asarray(BOND_ANG, np.float32))   # [32, 14]
 # kernels/csrc/fused_decode.cu
 KERNEL_CONSTS = np.asarray([C_TO_N, CA_TO_C, N_TO_CA, RADK, SC_CONT,
                             SC_MIN], np.float32)
+
+# ---------------------------------------------------------------------------
+# encode constants, retyped from foldcomp_tpu/kernels/encode.py and
+# pallas_encode.py (both import JAX at their top); a CPU test holds each
+# one equal to the JAX module's value
+
+# quantizer bins of the backbone streams (encode.py:35-37)
+NBIN_PHI_PSI = np.float32(2 ** 12 - 1)
+NBIN_OMEGA = np.float32(2 ** 11 - 1)
+NBIN_BOND = np.float32(2 ** 8 - 1)
+# FixedAngleDiscretizer(255) factor of the side-chain torsions (encode.py:41)
+SC_DISC_F = np.float32(255.0 / 360.0)
+# err of a row the device cannot trust (encode.py:205), radians -> degrees
+# (encode.py:207)
+BIGERR = np.float32(1e4)
+DEG = np.float32(180.0 / np.pi)
+# masked-row sentinel of the lanes-layout epilogue (pallas_encode.py:69; the
+# XLA core's encode.py:206 uses 1e30, which changes no unmasked output)
+BIGF_LANES = np.float32(3.4e38)
+# relative parts-noise budget: the JAX CPU value (encode.py:217), used on
+# every device by the port, so relt/relb and tbits bit 32 always exist
+PARTS_EPS = float(64 * 2.0 ** -24)
+# PRED_IDX as the encode kernel reads it: codes clipped to 0..23
+PRED24 = np.ascontiguousarray(PRED_IDX, np.int32)             # [24, 14, 3]

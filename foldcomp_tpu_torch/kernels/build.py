@@ -1,11 +1,13 @@
 """Build and load the CUDA kernels: nvcc into a plain C shared library,
 bound with ctypes.
 
-The library is compiled on first use from csrc/fused_decode.cu into
-kernels/build/, named by a hash of the source and the flags, so an edited
-source or flag set builds a new library and never loads a stale one. The
-build writes to a temporary name and renames it into place, so processes
-that build at once do not see each other's half-written file.
+The library is compiled on first use from every csrc/*.cu source
+(fused_decode.cu: k1-k3, fused_encode.cu: k4) into kernels/build/, named by
+a hash of the sources and the flags, so an edited source or flag set builds
+a new library and never loads a stale one. One nvcc per source runs at
+once, then one link. The build writes to temporary names and renames the
+library into place, so processes that build at once do not see each
+other's half-written file.
 
 Flags: sm_90a (Hopper), -O3, and -fmad=false with no --use_fast_math, so
 the float operation order of the JAX reference holds (no contraction into
@@ -26,11 +28,12 @@ import torch
 from ..backend import nvcc_path
 from ..core import tables
 
-CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc",
-                    "fused_decode.cu")
-BUILD_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
+_HERE = os.path.dirname(os.path.abspath(__file__))
+SOURCES = tuple(os.path.join(_HERE, "csrc", f)
+                for f in ("fused_decode.cu", "fused_encode.cu"))
+BUILD_DIR = os.path.join(_HERE, "build")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
-              "-fmad=false", "-std=c++17", "-shared", "-Xcompiler", "-fPIC")
+              "-fmad=false", "-std=c++17", "-Xcompiler", "-fPIC")
 
 _LOCK = threading.Lock()
 _LIB = None
@@ -43,10 +46,33 @@ class KernelBuildError(RuntimeError):
 
 
 def library_path() -> str:
-    with open(CSRC, "rb") as fh:
-        src = fh.read()
-    key = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return os.path.join(BUILD_DIR, f"libfused_decode_{key[:16]}.so")
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in SOURCES:
+        with open(src, "rb") as fh:
+            h.update(os.path.basename(src).encode() + b"\0" + fh.read())
+    return os.path.join(BUILD_DIR,
+                        f"libfoldcomp_kernels_{h.hexdigest()[:16]}.so")
+
+
+def _run_all(cmds):
+    """Run the commands at once; raise KernelBuildError with the output of
+    the first that fails. None is left running when this returns."""
+    procs = []
+    try:
+        for c in cmds:
+            procs.append(subprocess.Popen(c, stdout=subprocess.PIPE,
+                                          stderr=subprocess.STDOUT,
+                                          text=True))
+        outs = [p.communicate(timeout=600)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for c, p, out in zip(cmds, procs, outs):
+        if p.returncode != 0:
+            raise KernelBuildError(
+                f"nvcc failed ({p.returncode}): {' '.join(c)}\n{out}")
 
 
 def build() -> str:
@@ -62,13 +88,16 @@ def build() -> str:
                                "or PATH): cannot build the CUDA kernels")
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{path}.{os.getpid()}.tmp"
-    cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, CSRC]
+    objs = [f"{tmp}.{i}.o" for i in range(len(SOURCES))]
     t0 = time.perf_counter()
-    res = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
-    if res.returncode != 0:
-        raise KernelBuildError(
-            f"nvcc failed ({res.returncode}): {' '.join(cmd)}\n"
-            f"{res.stderr}{res.stdout}")
+    try:
+        _run_all([[nvcc, *NVCC_FLAGS, "-c", "-o", o, src]
+                  for o, src in zip(objs, SOURCES)])
+        _run_all([[nvcc, *NVCC_FLAGS, "-shared", "-o", tmp, *objs]])
+    finally:
+        for o in objs:
+            if os.path.exists(o):
+                os.remove(o)
     os.replace(tmp, path)
     BUILD_SECONDS = time.perf_counter() - t0
     return path
@@ -80,8 +109,9 @@ def _bind(lib):
     lib.fd_tails.argtypes = [vp] * 8 + [ci, ci, vp]
     lib.fd_backbone.argtypes = [vp] * 10 + [ci, ci, vp]
     lib.fd_sidechain.argtypes = [vp] * 7 + [ci, ci, ci, vp]
+    lib.fe_merged.argtypes = [vp] * 13 + [ctypes.c_float, ci, ci, vp]
     for fn in (lib.fd_set_tables, lib.fd_tails, lib.fd_backbone,
-               lib.fd_sidechain):
+               lib.fd_sidechain, lib.fe_merged):
         fn.restype = ci
     return lib
 

@@ -179,14 +179,23 @@ def test_cli_decompress_fast_needs_a_card(tmp_path, mixed):
 
 
 def test_port_imports_no_jax():
+    """Importing every module of the port and encoding one batch on the
+    CPU loads no JAX."""
     code = (
         "import sys\n"
-        f"sys.path.insert(0, {str(REPO)!r})\n"
+        f"sys.path[:0] = [{str(REPO)!r}, {str(REPO / 'tests')!r}]\n"
         "import foldcomp_tpu_torch, foldcomp_tpu_torch.cli\n"
-        "import foldcomp_tpu_torch.codec.batch\n"
+        "import foldcomp_tpu_torch.codec.batch as cb\n"
         "import foldcomp_tpu_torch.kernels.fused_decode\n"
+        "import foldcomp_tpu_torch.kernels.fused_encode\n"
+        "import foldcomp_tpu_torch.kernels.encode\n"
+        "import foldcomp_tpu_torch.kernels.bitpack\n"
         "import foldcomp_tpu_torch.kernels.build, foldcomp_tpu_torch.verify\n"
         "import chip_smoke\n"
+        "from test_property_roundtrip import synthesize\n"
+        "assert 'jax' not in sys.modules\n"
+        "got = cb.encode_fragment_batch([synthesize(30, 1)], device='cpu')\n"
+        "assert got[0] is not None\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'jaxlib'))\n"
         "print(bad)\n"
