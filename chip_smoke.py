@@ -46,8 +46,10 @@ non-zero:
    version, the epilogue and the whole device encode by CUDA events;
 10. e2e_compress: `python -m foldcomp_tpu_torch compress --fast <dir>
    <db> --db` on 4096 PDB files in a subprocess, timed; every entry
-   byte-identical by name to the exact route's (`python -m foldcomp_tpu
-   compress <dir> <db> --db`); then the same entry point in this process
+   byte-identical by name to the port's exact route's (`python -m
+   foldcomp_tpu_torch compress <dir> <db> --db`, which the CPU tests hold
+   byte-identical to `python -m foldcomp_tpu compress`); then the same
+   entry point in this process
    with the launch counters reset just before and read just after: k4
    must have launched.
 
@@ -116,10 +118,10 @@ def per_device_check():
     per device with the maxima; raises past the tolerances."""
     import torch
 
-    from foldcomp_tpu.codec.batch import (fragment_to_tensors,
-                                          pack_decode_batch_lanes)
     from foldcomp_tpu_torch import verify
     from foldcomp_tpu_torch.codec.batch import arrays_to_torch
+    from foldcomp_tpu_torch.codec.batch_host import (fragment_to_tensors,
+                                                     pack_decode_batch_lanes)
     from foldcomp_tpu_torch.kernels import build
     from foldcomp_tpu_torch.kernels import fused_decode as FD
     from foldcomp_tpu_torch.kernels import fused_encode as FE
@@ -170,7 +172,7 @@ def per_device_check():
 
 
 def synthesize(n, seed):
-    from test_property_roundtrip import synthesize as synth
+    from foldcomp_tpu_torch.verify import synthesize as synth
     return synth(n, seed)
 
 
@@ -276,7 +278,7 @@ def encode_kernels(dev):
     over the float planes; raises past the gates."""
     import torch
 
-    from foldcomp_tpu.codec.batch import fragment_to_tensors
+    from foldcomp_tpu_torch.codec.batch_host import fragment_to_tensors
     from foldcomp_tpu_torch.kernels import fused_encode as FE
     from foldcomp_tpu_torch.verify import on_milli_grid
 
@@ -314,12 +316,12 @@ def encode_parity(dev):
     encoder over a fuzz corpus; FCZ bytes identical for every entry."""
     import numpy as np
 
-    from foldcomp_tpu.codec.batch import fragment_to_tensors
-    from foldcomp_tpu.codec.encoder import encode as encode_exact
-    from foldcomp_tpu.codec.fcz import serialize
-    from foldcomp_tpu.core.aatable import N_SC_TORSION
-    from foldcomp_tpu.core.codes import NUM_AA
     from foldcomp_tpu_torch.codec.batch import encode_finish, encode_submit
+    from foldcomp_tpu_torch.codec.batch_host import fragment_to_tensors
+    from foldcomp_tpu_torch.codec.encoder import encode as encode_exact
+    from foldcomp_tpu_torch.codec.fcz import serialize
+    from foldcomp_tpu_torch.core.aatable import N_SC_TORSION
+    from foldcomp_tpu_torch.core.codes import NUM_AA
     from foldcomp_tpu_torch.verify import on_milli_grid
 
     grid = [on_milli_grid(synthesize(n, 100 * s + n))
@@ -373,11 +375,11 @@ def encode_device(dev, card):
     -> {"ms", "plain_ms", "max_abs_err"} of k4."""
     import torch
 
-    from foldcomp_tpu.codec.batch import (encode_pdb_device,
-                                          fragment_to_tensors)
-    from foldcomp_tpu.codec.fcz import serialize
-    from foldcomp_tpu.io.pdb import format_pdb
     from foldcomp_tpu_torch.codec.batch import encode_finish, encode_submit
+    from foldcomp_tpu_torch.codec.batch_host import (encode_pdb_device,
+                                                     fragment_to_tensors)
+    from foldcomp_tpu_torch.codec.fcz import serialize
+    from foldcomp_tpu_torch.io.pdb import format_pdb
     from foldcomp_tpu_torch.kernels import fused_encode as FE
     from foldcomp_tpu_torch.verify import on_milli_grid
 
@@ -459,10 +461,10 @@ def e2e_compress(work, card, uniq):
     counters around it. -> the main path's launch counts."""
     import torch
 
-    from foldcomp_tpu.codec.decoder import decode as decode_exact
-    from foldcomp_tpu.io.db import DatabaseReader
-    from foldcomp_tpu.io.pdb import format_pdb
     from foldcomp_tpu_torch import cli
+    from foldcomp_tpu_torch.codec.decoder import decode as decode_exact
+    from foldcomp_tpu_torch.io.db import DatabaseReader
+    from foldcomp_tpu_torch.io.pdb import format_pdb
     from foldcomp_tpu_torch.kernels import fused_decode as FD
     from foldcomp_tpu_torch.kernels import fused_encode as FE
 
@@ -486,11 +488,11 @@ def e2e_compress(work, card, uniq):
     env = dict(os.environ, PYTHONPATH=str(REPO))
     env.pop("FOLDCOMP_TORCH_DEVICE", None)
     walls = {}
-    for key, pkg, fast in (("fast", "foldcomp_tpu_torch", ["--fast"]),
-                           ("exact", "foldcomp_tpu", [])):
+    for key, fast in (("fast", ["--fast"]), ("exact", [])):
         t0 = time.perf_counter()
         r = subprocess.run(
-            [sys.executable, "-m", pkg, "compress", *fast, str(pdb_dir),
+            [sys.executable, "-m", "foldcomp_tpu_torch", "compress", *fast,
+             str(pdb_dir),
              str(work / f"db_{key}"), "--db"], cwd=str(REPO), env=env,
             capture_output=True, text=True, timeout=900)
         walls[key] = time.perf_counter() - t0
@@ -539,17 +541,16 @@ def main() -> int:
               file=sys.stderr)
         return 2
     sys.path.insert(0, str(REPO))
-    sys.path.insert(0, str(REPO / "tests"))
     import numpy as np
 
-    from foldcomp_tpu.codec.batch import pack_decode_batch_lanes
-    from foldcomp_tpu.codec.decoder import decode as decode_exact
-    from foldcomp_tpu.codec.encoder import encode
-    from foldcomp_tpu.codec.fcz import serialize
-    from foldcomp_tpu.io.db import DatabaseReader, DatabaseWriter
     from foldcomp_tpu_torch import cli, verify
     from foldcomp_tpu_torch.backend import describe
     from foldcomp_tpu_torch.codec.batch import arrays_to_torch
+    from foldcomp_tpu_torch.codec.batch_host import pack_decode_batch_lanes
+    from foldcomp_tpu_torch.codec.decoder import decode as decode_exact
+    from foldcomp_tpu_torch.codec.encoder import encode
+    from foldcomp_tpu_torch.codec.fcz import serialize
+    from foldcomp_tpu_torch.io.db import DatabaseReader, DatabaseWriter
     from foldcomp_tpu_torch.kernels import build
     from foldcomp_tpu_torch.kernels import fused_decode as FD
     from foldcomp_tpu_torch.kernels import fused_encode as FE

@@ -2,13 +2,13 @@
 PDB text) and encode (fragment tensors -> compact wire -> device encode ->
 FczData).
 
-The host stages are foldcomp_tpu's own and shared, not copied: the
+The host stages are the port's own copies in codec/batch_host.py: the
 ragged-lane pack (`pack_decode_batch_lanes`, native fcz_pack_lanes), the
 row gather `_gather_a14`, the protein assembly and the native PDB
 formatter (`_format_batch`, `format_atom14_native`); on the encode side the
 fragment tensors (`fragment_to_tensors`), the numpy compact wire
 (`_compact_coord_batch`), its scratch pool, and the sparse host finish with
-the FczData assembly (`encode_finish` -> `finish_encode_device`). Only the
+the FczData assembly (`finish_encode` -> `finish_encode_device`). Only the
 device stages and what touches their tensors are here, mirroring
 foldcomp_tpu/codec/batch.py (`_seg_decode_arrays`, `_outs_to_host`,
 `decode_fcz_batch`, `decode_fcz_to_pdb_batch`, `decode_fcz_stream`,
@@ -33,15 +33,13 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 import torch
 
-from foldcomp_tpu.codec import batch as tpu_batch
-from foldcomp_tpu.codec.batch import (_POOL, _assemble_protein,
-                                      _compact_coord_batch, _format_batch,
-                                      _gather_a14, _round_up,
-                                      fragment_to_tensors,
-                                      pack_decode_batch_lanes, seg_sort_key)
-
 from ..backend import resolve_device
 from ..kernels import fused_decode, fused_encode
+from ..native import get_lib
+from .batch_host import (_POOL, _assemble_protein, _compact_coord_batch,
+                         _format_batch, _gather_a14, _round_up,
+                         finish_encode, fragment_to_tensors,
+                         pack_decode_batch_lanes, seg_sort_key)
 
 # pack keys -> tensor dtype on the device
 _ARRAY_DTYPES = {
@@ -229,7 +227,6 @@ def _pack_encode_wire(live, atom14, native: bool = True):
     Returns the three arrays, "f32" when the batch is off the compact form
     (atom14 is still filled), or None when `native` is False or the native
     library is missing (the caller fills atom14 itself)."""
-    from foldcomp_tpu.native import get_lib
     if not native:
         return None
     lib = get_lib()
@@ -342,13 +339,14 @@ def encode_submit(frag_tensors, frag_meta, anchor_threshold: int = 25,
 
 def encode_finish(handle):
     """Stage 2: copy the parts to the host (this waits for the device),
-    then foldcomp_tpu's own finish: exact quantizer extremes, rescue of
-    the flagged values, temperature factors and the FczData assembly.
-    Returns List[FczData | None] in the order of the submitted tensors."""
+    then the host finish (batch_host.finish_encode): exact quantizer
+    extremes, rescue of the flagged values, temperature factors and the
+    FczData assembly. Returns List[FczData | None] in the order of the
+    submitted tensors."""
     if handle["live"]:
         handle["parts"] = {k: v.cpu().numpy()
                            for k, v in handle["parts"].items()}
-    return tpu_batch.encode_finish(handle)
+    return finish_encode(handle)
 
 
 def encode_tensor_batch(frag_tensors, frag_meta, anchor_threshold: int = 25,

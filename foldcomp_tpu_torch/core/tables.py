@@ -1,9 +1,9 @@
 """Constants and chemistry tables of the fused decode and encode.
 
-Every number here is derived from the numpy arrays and constants of
-foldcomp_tpu/core/aatable.py, so the port, its CUDA kernels (which receive
-these arrays at load time, kernels/build.py) and the JAX reference read the
-same values.
+Every number here is derived from the numpy arrays and constants of the
+port's core/aatable.py (its copy of foldcomp_tpu/core/aatable.py), so the
+port, its CUDA kernels (which receive these arrays at load time,
+kernels/build.py) and the JAX reference read the same values.
 
 The JAX side-chain kernel selects per-residue values with where-chains
 grouped by value (pallas_decode._chain_const / _sel_pred): a TPU lane has
@@ -17,9 +17,8 @@ from __future__ import annotations
 
 import numpy as np
 
-from foldcomp_tpu.core.aatable import (BOND_ANG, BOND_LEN, C_TO_N_DIST,
-                                       CA_TO_C_DIST, N_TO_CA_DIST, PRED_IDX,
-                                       PRO_N_TO_CA_DIST)
+from .aatable import (BOND_ANG, BOND_LEN, C_TO_N_DIST, CA_TO_C_DIST,
+                      N_TO_CA_DIST, PRED_IDX, PRO_N_TO_CA_DIST)
 
 # backbone bond lengths (foldcomp_tpu/kernels/nerf.py:48-51)
 C_TO_N = np.float32(C_TO_N_DIST)

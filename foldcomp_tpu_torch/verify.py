@@ -24,23 +24,108 @@ synthetic proteins put on the millimetre grid for the two compact routes.
 Both run through the production glue (codec/batch.py), so on a CUDA
 device they go through the CUDA kernels. Each check that ran is named
 under `checked`.
+
+The gates, the fixture loader and the synthetic structures are the port's
+own copies: `_DEV_TOL_A`, `_RMSD_GOLD`, `_RMSD_TOL` and `_load_fragments`
+of foldcomp_tpu/verify.py:31-50, and `synthesize` of
+tests/test_property_roundtrip.py:21. The fixtures are read from the
+directory FOLDCOMP_REF_TEST names, when it is set.
 """
 from __future__ import annotations
 
 import json
+import os
 import pathlib
-import sys
 
 import numpy as np
 
-from foldcomp_tpu.core.aatable import N_ATOMS
-from foldcomp_tpu.core.codes import NUM_AA
-from foldcomp_tpu.verify import (_DEV_TOL_A, _RMSD_GOLD, _RMSD_TOL,
-                                 _load_fragments)
+from .codec.decoder import place_atom
+from .core.aatable import (AA_DATA, C_TO_N_DIST, CA_TO_C_DIST, N_ATOMS,
+                           N_TO_CA_DIST, PRO_N_TO_CA_DIST)
+from .core.codes import NUM_AA, THREE_LETTER
+from .io.structure import AtomArray
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
 REF_DEV_PATH = REPO / "tests" / "data" / "torch_port_ref_dev.json"
 REF_DEV_SLACK_A = 1e-3
+
+# build.sh:35-36 golden: all-atom RMSD of the test.pdb roundtrip
+_RMSD_GOLD = 0.0826751
+_RMSD_TOL = 1.5e-3
+_DEV_TOL_A = 5e-3        # vs exact decoder: compact wire quantum + ulps
+
+
+def _load_fragments():
+    """[(name, AtomArray)] of test.pdb and test_af.pdb's one fragment each,
+    from FOLDCOMP_REF_TEST; empty when it is unset or holds neither."""
+    from .io.pdb import parse_pdb
+    from .io.structure import (identify_chains,
+                               identify_discontinuous_fragments,
+                               remove_alternative_positions)
+    root = os.environ.get("FOLDCOMP_REF_TEST")
+    frags = []
+    for name in ("test.pdb", "test_af.pdb") if root else ():
+        p = pathlib.Path(root) / name
+        if not p.exists():
+            continue
+        atoms = remove_alternative_positions(parse_pdb(p.read_bytes()))
+        (cs, ce), = identify_chains(atoms)
+        (fs, fe), = identify_discontinuous_fragments(atoms, cs, ce)
+        frags.append((name, atoms.slice(fs, fe)))
+    return frags
+
+
+def synthesize(n_res: int, seed: int) -> AtomArray:
+    """Random single-chain all-atom protein with realistic geometry, built
+    with the NeRF recurrence from seeded torsions and bond angles."""
+    rng = np.random.default_rng(seed)
+    codes = rng.integers(0, 20, n_res)   # all 20, proline included
+    phi = rng.uniform(-160, -40, n_res)
+    psi = rng.uniform(-60, 170, n_res)
+    omega = rng.normal(179.0, 2.0, n_res)
+    n_ca_c = rng.normal(111.0, 2.0, n_res)
+    ca_c_n = rng.normal(116.5, 1.5, n_res)
+    c_n_ca = rng.normal(121.5, 1.5, n_res)
+
+    bb = [(0.0, 0.0, 0.0), (N_TO_CA_DIST, 0.0, 0.0)]
+    # place first C with an arbitrary reasonable angle
+    bb.append(place_atom((-1.0, 1.0, 0.0), bb[0], bb[1], CA_TO_C_DIST,
+                         111.0, -60.0))
+    for i in range(n_res - 1):
+        a, b, c = bb[-3], bb[-2], bb[-1]
+        # residue i+1's N-CA bond: proline is shorter (nerf.h:37-43)
+        n_ca = PRO_N_TO_CA_DIST if codes[i + 1] == 14 else N_TO_CA_DIST
+        n_xyz = place_atom(a, b, c, C_TO_N_DIST, ca_c_n[i], psi[i])
+        ca_xyz = place_atom(b, c, n_xyz, n_ca, c_n_ca[i], omega[i])
+        c_xyz = place_atom(c, n_xyz, ca_xyz, CA_TO_C_DIST, n_ca_c[i],
+                           phi[i])
+        bb.extend([n_xyz, ca_xyz, c_xyz])
+
+    names, rnames, chains, ridx, coords, temps = [], [], [], [], [], []
+    for r in range(n_res):
+        three = THREE_LETTER[int(codes[r])]
+        atoms_tbl, graph, lengths, angles, _ = AA_DATA[three]
+        slot = {"N": bb[3 * r], "CA": bb[3 * r + 1], "C": bb[3 * r + 2]}
+        for k, nm in enumerate(atoms_tbl):
+            if k >= 3:
+                p0, p1, p2 = graph[nm]
+                slot[nm] = place_atom(
+                    slot[p0], slot[p1], slot[p2],
+                    lengths[f"{p2}_{nm}"], angles[f"{p1}_{p2}_{nm}"],
+                    float(rng.uniform(-180, 180)))
+            names.append(nm)
+            rnames.append(three)
+            chains.append("A")
+            ridx.append(r + 1)
+            coords.append(slot[nm])
+            temps.append(float(rng.uniform(20, 95)))
+    n_total = len(names)
+    return AtomArray(names, rnames, chains,
+                     np.arange(1, n_total + 1, dtype=np.int32),
+                     np.asarray(ridx, np.int32),
+                     np.asarray(coords, np.float32),
+                     np.ones(n_total, np.float32),
+                     np.asarray(temps, np.float32), "synthetic")
 
 
 def protein_atoms(a14, res_code):
@@ -61,20 +146,15 @@ def max_deviation(a14, res_code, exact_coords) -> float:
 
 
 def synthetic_structures(lengths):
-    """{length: AtomArray} of synthesize(length, seed=length)
-    (tests/test_property_roundtrip.py), as bench.py builds its mixed
-    corpus."""
-    tests = str(REPO / "tests")
-    if tests not in sys.path:
-        sys.path.insert(0, tests)
-    from test_property_roundtrip import synthesize
+    """{length: AtomArray} of synthesize(length, seed=length), as bench.py
+    builds its mixed corpus."""
     return {n: synthesize(n, seed=n) for n in lengths}
 
 
 def synthetic_corpus(lengths):
     """{length: FczData} of synthetic_structures, default anchor
     interval."""
-    from foldcomp_tpu.codec.encoder import encode
+    from .codec.encoder import encode
     return {n: encode(a) for n, a in synthetic_structures(lengths).items()}
 
 
@@ -95,10 +175,9 @@ def encode_routes(frames, device):
     present) and "numpy" on every frame put on the millimetre grid, "f32"
     on the frames off it, as they are. Raises if a batch took another
     route than the one asked for."""
-    from foldcomp_tpu.codec.batch import fragment_to_tensors
-    from foldcomp_tpu.native import get_lib
-
     from .codec.batch import encode_finish, encode_submit
+    from .codec.batch_host import fragment_to_tensors
+    from .native import get_lib
 
     def run(idx, fr, want, native_wire):
         tensors = [fragment_to_tensors(a) for a in fr]
@@ -135,14 +214,13 @@ def device_parity_check(device=None) -> dict:
 
     Returns a dict with parity_ok, the checked corpus and per-protein
     detail; parity_ok is True only if every protein holds its gate."""
-    from foldcomp_tpu.codec.batch import _gather_a14
-    from foldcomp_tpu.codec.decoder import decode as decode_exact
-    from foldcomp_tpu.codec.encoder import encode as encode_exact
-    from foldcomp_tpu.codec.fcz import serialize
-    from foldcomp_tpu.core.exact import rmsd
-
     from .backend import resolve_device
     from .codec.batch import decode_fcz_host
+    from .codec.batch_host import _gather_a14
+    from .codec.decoder import decode as decode_exact
+    from .codec.encoder import encode as encode_exact
+    from .codec.fcz import serialize
+    from .core.exact import rmsd
 
     dev = resolve_device(device)
     out = {"device": str(dev), "failures": [], "checked": []}

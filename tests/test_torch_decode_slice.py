@@ -146,6 +146,31 @@ def _run_cli(args, cwd, **env):
                           text=True, timeout=600)
 
 
+def test_pad_rows_are_unread(mixed):
+    """Rows s >= seg_m of a lane are pack padding: the host stitch reads
+    none of them. Filled with a sentinel (off 32767, ca NaN) before the
+    stitch, they leave every PDB text unchanged. This is what lets k3
+    skip them."""
+    from foldcomp_tpu_torch.codec import batch_host
+    from foldcomp_tpu_torch.codec.batch import (_outs_to_host,
+                                                _seg_decode_arrays,
+                                                arrays_to_torch)
+    arrays, metas = batch_host.pack_decode_batch_lanes(mixed)
+    off, ca = _outs_to_host(_seg_decode_arrays(arrays_to_torch(arrays,
+                                                               "cpu")))
+    want = [t for _, t in batch_host._format_batch(mixed, metas, (off, ca),
+                                                   False)]
+    pad = np.arange(off.shape[1])[None, :] >= \
+        arrays["seg_m"][:off.shape[0], None]
+    assert pad.any() and not pad.all()
+    off, ca = off.copy(), ca.copy()
+    off[pad] = 32767
+    ca[pad] = np.nan
+    got = [t for _, t in batch_host._format_batch(mixed, metas, (off, ca),
+                                                  False)]
+    assert got == want
+
+
 def test_cli_decompress_fast_db_to_db(tmp_path, mixed):
     _db_of(mixed, tmp_path / "in_db")
     r = _run_cli(["decompress", "--fast", "in_db", "out_db", "--db"],
@@ -180,10 +205,10 @@ def test_cli_decompress_fast_needs_a_card(tmp_path, mixed):
 
 def test_port_imports_no_jax():
     """Importing every module of the port and encoding one batch on the
-    CPU loads no JAX."""
+    CPU loads no JAX and nothing of foldcomp_tpu."""
     code = (
         "import sys\n"
-        f"sys.path[:0] = [{str(REPO)!r}, {str(REPO / 'tests')!r}]\n"
+        f"sys.path[:0] = [{str(REPO)!r}]\n"
         "import foldcomp_tpu_torch, foldcomp_tpu_torch.cli\n"
         "import foldcomp_tpu_torch.codec.batch as cb\n"
         "import foldcomp_tpu_torch.kernels.fused_decode\n"
@@ -192,12 +217,14 @@ def test_port_imports_no_jax():
         "import foldcomp_tpu_torch.kernels.bitpack\n"
         "import foldcomp_tpu_torch.kernels.build, foldcomp_tpu_torch.verify\n"
         "import chip_smoke\n"
-        "from test_property_roundtrip import synthesize\n"
+        "from foldcomp_tpu_torch.verify import synthesize\n"
         "assert 'jax' not in sys.modules\n"
+        "assert 'foldcomp_tpu' not in sys.modules\n"
         "got = cb.encode_fragment_batch([synthesize(30, 1)], device='cpu')\n"
         "assert got[0] is not None\n"
+        "assert 'foldcomp_tpu' not in sys.modules\n"
         "bad = sorted(m for m in sys.modules\n"
-        "             if m.split('.')[0] in ('jax', 'jaxlib'))\n"
+        "             if m.split('.')[0] in ('jax', 'jaxlib', 'foldcomp_tpu'))\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n")
     r = subprocess.run([sys.executable, "-c", code], capture_output=True,
