@@ -53,9 +53,17 @@ non-zero:
    with the launch counters reset just before and read just after: k4
    must have launched.
 
-Then the kernel summary, the card's `nvidia-smi` name and power limit,
-and as the last line {"ok": true, "device": {...}}. Exits non-zero
-without a CUDA device or outside a checkout of the repository.
+Then the kernel summary (each kernel's launches on the main path, its
+largest difference from its plain version, its time and its plain
+version's, and its bound: the larger of the bytes it must move over the
+card's memory rate and its operations over the float32 rate, from this
+run's inputs), the card's `nvidia-smi` name and power limit, and as the
+last line {"ok": true, "device": {...}}. Exits non-zero without a CUDA
+device or outside a checkout of the repository.
+
+    python3 chip_smoke.py --quick       phases 1, 2 and 4 only, no last line
+    python3 chip_smoke.py --ptxas F.cu  also the ptxas report of another
+                                        source (an older k3, say) in phase 1
 """
 import contextlib
 import json
@@ -85,6 +93,82 @@ NAMES = {"k1": "k1_tails", "k2": "k2_backbone", "k3": "k3_sidechain",
          "k4": "k4_merged_encode"}
 # relt/relb use rsqrtf, as the JAX kernel uses lax.rsqrt
 TOL_REL_ULP = 4
+# one H100 SXM's published peaks (NVIDIA's data sheet, at a 700 W limit):
+# HBM bytes/s and float32 operations/s outside the tensor cores
+PEAK_BYTES_S = 3.35e12
+PEAK_F32_S = 67e12
+# float operations per residue row, counted from the CUDA sources (a
+# sinf/cosf/rsqrtf/sqrtf/division counts as one): a NeRF placement is 62
+# in place_frame, + 8 from a (cos, sin) pair (place_cs), + 3 more from an
+# angle in degrees (place_deg); a dequantized field is 2
+FLOPS_PER_ROW = {
+    "k1": 3 * 73 + 6 * 2,                        # forward step
+    "k2": 3 * 73 + 6 * 2 + 3 * (31 + 70 + 12 + 2),  # + reverse, blend
+    "k3": 11 * 66 + 42 * 5,                      # table frames, offsets
+}
+# bytes each decode kernel must move, per residue row and per lane (inputs
+# read once, outputs written once, real rows only): k1 reads 8 B of record
+# and 4 B of N-CA length a row, 124 B of lane state (seed, next anchor,
+# tat, 6 mins, 6 conts) and writes a 9-float tail; k2 reads the same and
+# writes 9 floats a row; k3 reads 9 backbone floats, a code and 11
+# torsion codes and writes 42 int16 and 3 floats a row
+BYTES_PER_ROW = {"k1": 12, "k2": 12 + 36, "k3": 36 + 4 + 11 + 84 + 12}
+BYTES_PER_LANE = {"k1": 124 + 36, "k2": 124, "k3": 0}
+# k4 (fused_encode.cu): 6 double-f32 cosines (a division, a square root
+# and ~20 operations each), 11 side-chain cosines (~25 each), the rescue
+# bounds and the division of the millimetre grid, per residue
+K4_FLOPS_PER_RES = 6 * 40 + 11 * 25 + 120
+
+
+def bound(n_bytes, n_flops):
+    """(bound ms, "bytes" or "operations"): the least time the card could
+    take to move n_bytes and to do n_flops float32 operations."""
+    t_b, t_f = n_bytes / PEAK_BYTES_S * 1e3, n_flops / PEAK_F32_S * 1e3
+    return (t_b, "bytes") if t_b >= t_f else (t_f, "operations")
+
+
+def ptxas_report(log):
+    """{kernel: {registers, stack_frame, spill_stores, spill_loads, smem}}
+    (bytes, but registers) from `nvcc -Xptxas -v` output."""
+    import re
+    out, cur = {}, None
+    for line in (log or "").splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties "
+                      r"for) '?(\w+)", line)
+        if m:
+            cur = next((k for k in ("k1_tails", "k2_backbone",
+                                    "k3_sidechain", "k3_tables",
+                                    "k4_merged") if k in m.group(1)),
+                       m.group(1))
+            out.setdefault(cur, {})
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m:
+            out[cur].update(stack_frame=int(m.group(1)),
+                            spill_stores=int(m.group(2)),
+                            spill_loads=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            out[cur]["registers"] = int(m.group(1))
+            s = re.search(r"(\d+) bytes smem", line)
+            out[cur]["smem"] = int(s.group(1)) if s else 0
+    return out
+
+
+def ptxas_of(src):
+    """ptxas_report of one CUDA source compiled with the build's flags."""
+    from foldcomp_tpu_torch.backend import nvcc_path
+    from foldcomp_tpu_torch.kernels import build
+    with tempfile.TemporaryDirectory() as d:
+        r = subprocess.run([nvcc_path(), *build.NVCC_FLAGS, "-c", "-o",
+                            os.path.join(d, "k.o"), src],
+                           capture_output=True, text=True, timeout=600)
+    if r.returncode != 0:
+        raise AssertionError(f"nvcc {src}: {r.stdout}{r.stderr}")
+    return ptxas_report(r.stdout + r.stderr)
 ENC_BATCH = 2048        # one CLI batch (cli.FAST_BATCH)
 E2E_FILES = 4096
 
@@ -441,8 +525,15 @@ def encode_device(dev, card):
     if len(blobs) != ENC_BATCH or h["wire"] != "native":
         raise AssertionError(f"{len(blobs)} entries by {h['wire']}")
     slots = bt["b"] * bt["l"]
+    # k4's bytes per slot of the padded [B, L] batch, in (wire, codes) and
+    # out (the parts), counted for the real residues only
+    per_slot = (sum(a.nbytes for a in wire) + code.nbytes
+                + sum(a.nbytes for a in parts)) / slots
+    n_bytes = per_slot * bt["residues"]
+    b_ms, b_by = bound(n_bytes, K4_FLOPS_PER_RES * bt["residues"])
     emit("encode_device", gpu=card, entries=bt["b"], l=bt["l"],
-         residues=bt["residues"], slots=slots,
+         residues=bt["residues"], slots=slots, k4_bytes=n_bytes,
+         k4_bound_ms=b_ms, k4_bound_share=b_ms / min(k1, k2),
          padded_slots_per_residue=slots / bt["residues"],
          pack_seconds=bt["pack_seconds"], h2d_seconds=bt["h2d_seconds"],
          d2h_seconds=d2h_s,
@@ -452,7 +543,8 @@ def encode_device(dev, card):
          device_encode_ms=enc_ms,
          device_encode_residues_per_s=bt["residues"] / (enc_ms * 1e-3),
          host_stage_seconds=stages)
-    return {"ms": min(k1, k2), "plain_ms": min(p1, p2), "max_abs_err": worst}
+    return {"ms": min(k1, k2), "plain_ms": min(p1, p2), "max_abs_err": worst,
+            "bound_ms": b_ms, "bound_by": b_by}
 
 
 def e2e_compress(work, card, uniq):
@@ -531,7 +623,17 @@ def e2e_compress(work, card, uniq):
     return counts
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    import argparse
+    ap = argparse.ArgumentParser(description="Smoke run of "
+                                 "foldcomp_tpu_torch on one CUDA card.")
+    ap.add_argument("--quick", action="store_true",
+                    help="phases 1, 2 and 4 only; no kernel line, no last "
+                         "line")
+    ap.add_argument("--ptxas", metavar="SRC",
+                    help="also report ptxas resource use of this CUDA "
+                         "source, compiled with the build's flags")
+    args = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -567,7 +669,11 @@ def main() -> int:
     emit("setup", describe=desc, library=os.path.relpath(path, REPO),
          nvcc_seconds=build.BUILD_SECONDS,
          build_and_load_seconds=time.perf_counter() - t0,
-         nvcc_flags=" ".join(build.NVCC_FLAGS))
+         nvcc_flags=" ".join(build.NVCC_FLAGS),
+         ptxas=ptxas_report(build.BUILD_LOG)
+         if build.BUILD_LOG is not None else "library built before")
+    if args.ptxas:
+        emit("ptxas_of", source=args.ptxas, ptxas=ptxas_of(args.ptxas))
 
     t0 = time.perf_counter()
     uniq = verify.synthetic_corpus(BENCH_LENGTHS)
@@ -606,7 +712,8 @@ def main() -> int:
         got["k2"] = max((a - b).abs()[own_rows].max().item()
                         for a, b in zip(bk, bp))
         nl_out = arrays["nl_out"]
-        ok_, ck = FD.sidechain(*bk, pr["code"], pr["sct"], nl_out)
+        ok_, ck = FD.sidechain(*bk, pr["code"], pr["sct"], nl_out,
+                               seg_m=ta["seg_m"])
         op, cp = FD.sidechain_plain(*bk, pr["code"], pr["sct"], nl_out)
         own_res = torch.arange(ok_.shape[1], device=dev)[None, :] \
             < ta["seg_m"][:ok_.shape[0], None]
@@ -700,22 +807,34 @@ def main() -> int:
                lambda: FD.tails_plain(*lane_args(pr, pr["fwd9"]))),
         "k2": (lambda: FD.backbone(*lane_args(pr, seeds)),
                lambda: FD.backbone_plain(*lane_args(pr, seeds))),
-        "k3": (lambda: FD.sidechain(*bb, pr["code"], pr["sct"], nl_out),
+        "k3": (lambda: FD.sidechain(*bb, pr["code"], pr["sct"], nl_out,
+                                    seg_m=ta["seg_m"]),
                lambda: FD.sidechain_plain(*bb, pr["code"], pr["sct"],
                                           nl_out)),
     }
+    # the rows each kernel must compute: the real lanes' residue rows
+    nl_real = sum(f.n_anchor - 1 for f in big)
+    rows = int(ta["seg_m"][:nl_real].sum())
     times = {}
     for k, (kern, plain) in per_kernel.items():
         p1 = cuda_ms(torch, plain, 2)
         k1 = cuda_ms(torch, kern, 10)
         k2 = cuda_ms(torch, kern, 10)
         p2 = cuda_ms(torch, plain, 2)
+        n_bytes = BYTES_PER_ROW[k] * rows + BYTES_PER_LANE[k] * nl_real
+        b_ms, b_by = bound(n_bytes, FLOPS_PER_ROW[k] * rows)
         times[k] = {"ms": min(k1, k2), "plain_ms": min(p1, p2),
-                    "runs_ms": [p1, k1, k2, p2]}
+                    "runs_ms": [p1, k1, k2, p2], "bytes": n_bytes,
+                    "bound_ms": b_ms, "bound_by": b_by,
+                    "bound_share": b_ms / min(k1, k2)}
+    # k3 over every row, the padding's too: what skipping it saves
+    times["k3"]["all_rows_ms"] = cuda_ms(
+        torch, lambda: FD.sidechain(*bb, pr["code"], pr["sct"], nl_out), 10)
     del bb, seeds
     ms_kern = min(ms_kern_a, ms_kern_b)
     ms_plain = min(ms_plain_a, ms_plain_b)
     emit("device", gpu=card, entries=len(big), residues=n_res,
+         lanes_real=nl_real, rows_real=rows,
          seg=int(arrays["seg_records"].shape[1]),
          lanes=int(arrays["seg_records"].shape[2]), nl_out=nl_out,
          pack_and_h2d_seconds=pack_s,
@@ -728,6 +847,8 @@ def main() -> int:
          per_kernel=times)
     del arrays, ta, pr, big
     torch.cuda.empty_cache()
+    if args.quick:
+        return 0
 
     # ---- 5. end to end through the CLI, in a subprocess ----
     work = pathlib.Path(tempfile.mkdtemp(prefix=".chip_smoke_", dir=REPO))
@@ -810,11 +931,14 @@ def main() -> int:
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
+    # no single PyTorch call computes any of k1-k4: library_ms is null
     print(json.dumps({"kernels": [
         {"name": NAMES[k], "route": "cuda", "source": SOURCES[k],
          "replaces": REPLACES[k], "launches": counts[k],
          "max_abs_err": err[k], "ms": times[k]["ms"],
-         "plain_ms": times[k]["plain_ms"]} for k in NAMES]}),
+         "plain_ms": times[k]["plain_ms"],
+         "bound_ms": times[k]["bound_ms"], "bound_by": times[k]["bound_by"],
+         "library_ms": None} for k in NAMES]}),
         flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

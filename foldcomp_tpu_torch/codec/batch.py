@@ -333,7 +333,7 @@ def encode_submit(frag_tensors, frag_meta, anchor_threshold: int = 25,
     return dict(n=len(frag_tensors), live=live, frag_meta=list(frag_meta),
                 anchor_threshold=anchor_threshold, atom14=atom14,
                 res_code=res_code, tf_ca=tf_ca, res_mask=res_mask,
-                parts=parts, device_bb=True, delta_buf=delta_buf,
+                parts=parts, delta_buf=delta_buf,
                 wire_bufs=wire_bufs, wire=route)
 
 

@@ -1150,10 +1150,10 @@ def _compact_coord_batch(atom14):
 
 
 def finish_encode(handle):
-    """Host half of the batched device encode's stage 2: the parts,
-    already host arrays, through the sparse host finish, then the FczData
-    assembly. Returns List[FczData | None] in the order of the submitted
-    tensors."""
+    """Host half of the batched device encode's stage 2: the parts of the
+    full device encode (backbone records too), already host arrays,
+    through the sparse host finish, then the FczData assembly. Returns
+    List[FczData | None] in the order of the submitted tensors."""
     results = [None] * handle["n"]
     live = handle["live"]
     if not live:
@@ -1162,10 +1162,8 @@ def finish_encode(handle):
     anchor_threshold = handle["anchor_threshold"]
     atom14, res_code = handle["atom14"], handle["res_code"]
     parts = {k: np.asarray(v) for k, v in handle["parts"].items()}
-    finish = finish_encode_device if handle["device_bb"] \
-        else finish_encode_host
-    out = finish(parts, atom14, res_code, handle["tf_ca"],
-                 handle["res_mask"])
+    out = finish_encode_device(parts, atom14, res_code, handle["tf_ca"],
+                               handle["res_mask"])
     # the device outputs are materialized, so the H2D transfer consumed
     # the pooled input buffers: recycle them for the next submit (pop so
     # a double-finish cannot hand the same buffer out twice)

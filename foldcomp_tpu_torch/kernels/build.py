@@ -11,7 +11,9 @@ other's half-written file.
 
 Flags: sm_90a (Hopper), -O3, and -fmad=false with no --use_fast_math, so
 the float operation order of the JAX reference holds (no contraction into
-FMA, IEEE division and square root, full-precision sinf/cosf).
+FMA, IEEE division and square root, full-precision sinf/cosf); -Xptxas -v,
+so the compilers' output (BUILD_LOG) gives each kernel's registers, stack
+frame, spills and shared memory.
 """
 from __future__ import annotations
 
@@ -33,12 +35,14 @@ SOURCES = tuple(os.path.join(_HERE, "csrc", f)
                 for f in ("fused_decode.cu", "fused_encode.cu"))
 BUILD_DIR = os.path.join(_HERE, "build")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
-              "-fmad=false", "-std=c++17", "-Xcompiler", "-fPIC")
+              "-fmad=false", "-std=c++17", "-Xcompiler", "-fPIC",
+              "-Xptxas", "-v")
 
 _LOCK = threading.Lock()
 _LIB = None
 _TABLES_ON = set()       # CUDA device indices whose constant tables are set
 BUILD_SECONDS = None     # wall time of the build this process ran, if any
+BUILD_LOG = None         # the compilers' output of that build
 
 
 class KernelBuildError(RuntimeError):
@@ -54,9 +58,10 @@ def library_path() -> str:
                         f"libfoldcomp_kernels_{h.hexdigest()[:16]}.so")
 
 
-def _run_all(cmds):
-    """Run the commands at once; raise KernelBuildError with the output of
-    the first that fails. None is left running when this returns."""
+def _run_all(cmds) -> str:
+    """Run the commands at once and return their output; raise
+    KernelBuildError with the output of the first that fails. None is
+    left running when this returns."""
     procs = []
     try:
         for c in cmds:
@@ -73,12 +78,13 @@ def _run_all(cmds):
         if p.returncode != 0:
             raise KernelBuildError(
                 f"nvcc failed ({p.returncode}): {' '.join(c)}\n{out}")
+    return "".join(outs)
 
 
 def build() -> str:
     """Compile the library unless this source and flag set is built.
     Raises KernelBuildError with nvcc's output on failure."""
-    global BUILD_SECONDS
+    global BUILD_SECONDS, BUILD_LOG
     path = library_path()
     if os.path.exists(path):
         return path
@@ -91,8 +97,8 @@ def build() -> str:
     objs = [f"{tmp}.{i}.o" for i in range(len(SOURCES))]
     t0 = time.perf_counter()
     try:
-        _run_all([[nvcc, *NVCC_FLAGS, "-c", "-o", o, src]
-                  for o, src in zip(objs, SOURCES)])
+        log = _run_all([[nvcc, *NVCC_FLAGS, "-c", "-o", o, src]
+                        for o, src in zip(objs, SOURCES)])
         _run_all([[nvcc, *NVCC_FLAGS, "-shared", "-o", tmp, *objs]])
     finally:
         for o in objs:
@@ -100,6 +106,7 @@ def build() -> str:
                 os.remove(o)
     os.replace(tmp, path)
     BUILD_SECONDS = time.perf_counter() - t0
+    BUILD_LOG = log
     return path
 
 
@@ -108,7 +115,7 @@ def _bind(lib):
     lib.fd_set_tables.argtypes = [vp, vp, vp, vp, ci]
     lib.fd_tails.argtypes = [vp] * 8 + [ci, ci, vp]
     lib.fd_backbone.argtypes = [vp] * 10 + [ci, ci, vp]
-    lib.fd_sidechain.argtypes = [vp] * 7 + [ci, ci, ci, vp]
+    lib.fd_sidechain.argtypes = [vp] * 8 + [ci, ci, ci, vp]
     lib.fe_merged.argtypes = [vp] * 13 + [ctypes.c_float, ci, ci, vp]
     for fn in (lib.fd_set_tables, lib.fd_tails, lib.fd_backbone,
                lib.fd_sidechain, lib.fe_merged):

@@ -60,19 +60,14 @@ __device__ __forceinline__ V3 load3(const float* __restrict__ p, size_t row,
   return v3(p[row * nl + l], p[(row + 1) * nl + l], p[(row + 2) * nl + l]);
 }
 
-// _place_atom_cs (pallas_decode.py:93-117): place the atom after c with
-// the bond angle given as (cos, sin).
-__device__ __forceinline__ V3 place_cs(V3 a, V3 b, V3 c, float bond_length,
-                                       float cos_ba, float sin_ba,
-                                       float torsion_deg) {
+// The frame of _place_atom_cs (pallas_decode.py:93-117): the atom after c
+// at offsets (dx, dy, dz) along (bc, n x bc, n), n the normal of (ab, bc).
+__device__ __forceinline__ V3 place_frame(V3 a, V3 b, V3 c, float dx,
+                                          float dy, float dz) {
   float abx = b.x - a.x, aby = b.y - a.y, abz = b.z - a.z;
   float bcx = c.x - b.x, bcy = c.y - b.y, bcz = c.z - b.z;
   float inv_bc = rsqrtf(fmaxf(bcx * bcx + bcy * bcy + bcz * bcz, 1e-30f));
   float bcnx = bcx * inv_bc, bcny = bcy * inv_bc, bcnz = bcz * inv_bc;
-  float ta = torsion_deg * c_k[K_RADK];
-  float dx = -bond_length * cos_ba;
-  float dy = bond_length * cosf(ta) * sin_ba;
-  float dz = bond_length * sinf(ta) * sin_ba;
   float nx = aby * bcnz - bcny * abz;
   float ny = abz * bcnx - bcnz * abx;
   float nz = abx * bcny - bcnx * aby;
@@ -86,6 +81,17 @@ __device__ __forceinline__ V3 place_cs(V3 a, V3 b, V3 c, float bond_length,
   return v3(bcnx * dx + mx * dy + nx * dz + c.x,
             bcny * dx + my * dy + ny * dz + c.y,
             bcnz * dx + mz * dy + nz * dz + c.z);
+}
+
+// _place_atom_cs (pallas_decode.py:93-117): place the atom after c with
+// the bond angle given as (cos, sin).
+__device__ __forceinline__ V3 place_cs(V3 a, V3 b, V3 c, float bond_length,
+                                       float cos_ba, float sin_ba,
+                                       float torsion_deg) {
+  float ta = torsion_deg * c_k[K_RADK];
+  return place_frame(a, b, c, -bond_length * cos_ba,
+                     bond_length * cosf(ta) * sin_ba,
+                     bond_length * sinf(ta) * sin_ba);
 }
 
 // place_atom_c (foldcomp_tpu/kernels/geometry.py:78-112): the bond angle
@@ -321,116 +327,301 @@ k2_backbone(const uint8_t* __restrict__ recs, const float* __restrict__ blca,
   }
 }
 
+// k3's tables, derived on the card from the __constant__ ones by
+// k3_tables (launched by fd_set_tables, once per device) and copied into
+// shared memory once by each persistent k3 block. Each value is computed
+// with the expression the per-placement code used (place_deg), so it is
+// the same float:
+//  - geo[code * 14 + atom]: (bond length, dx = -length * cosf(bond
+//    angle), sinf(bond angle), the three predecessor slots i0 | i1 << 8 |
+//    i2 << 16 as the float's bits), one 16-byte load;
+//  - tor[q]: (cosf, sinf) of the dequantized torsion of side-chain torsion
+//    code q, q * SC_CONT + SC_MIN degrees, for all 256 codes.
+// So k3 evaluates no trigonometric function.
+struct K3Tables {
+  float4 geo[N_CODES * MAX_ATOM];
+  float2 tor[256];
+};
+__device__ K3Tables g_k3;
+
+__global__ void k3_tables() {
+  const int i = threadIdx.x;
+  if (i < N_CODES * MAX_ATOM) {
+    const int* p = &c_pred[i * 3];
+    const float bl = c_blen[i];
+    const float ba = c_bang[i] * c_k[K_RADK];
+    g_k3.geo[i] = make_float4(bl, -bl * cosf(ba), sinf(ba),
+                              __int_as_float(p[0] | (p[1] << 8) |
+                                             (p[2] << 16)));
+  }
+  if (i < 256) {
+    // u8 -> int -> float, then cast*cont + min (pallas_decode.py:369-370)
+    const float tor = (float)i * c_k[K_SC_CONT] + c_k[K_SC_MIN];
+    const float ta = tor * c_k[K_RADK];
+    g_k3.tor[i] = make_float2(cosf(ta), sinf(ta));
+  }
+}
+
 // k3: side chains and the compact int16 wire.
 //
-// One thread per (lane, residue), in tiles of K3_TL lanes x K3_TS residues
-// per block: a warp holds 32 neighbouring lanes of one residue row, so the
-// reads of the backbone rows, codes and torsion codes are coalesced.
-// PRED_IDX, BOND_LEN and BOND_ANG are looked up by residue code (the TPU
-// kernel's where-chains, _chain_const/_sel_pred, exist only because a TPU
-// lane has no gather). The tile's residues write their [42] int16 rows
-// ((k, c)-major mA offsets from CA) and f32 CA into shared memory; the
-// block then copies each lane's run of K3_TS residues, which is contiguous
-// in the final [NL_out, SEG, 42] / [NL_out, SEG, 3] layout, with
-// neighbouring threads on neighbouring 4-byte words. So the TPU path's
-// epilogue transpose (pallas_decode.py:517-525) is gone.
+// Work: one thread per real residue row (lane l, row s < seg_m[l]); rows
+// s >= seg_m[l] are pack padding, neither computed nor written (their
+// output rows are left as allocated; the host stitch reads none of them).
+// A persistent grid of a few blocks per SM walks groups of K3_TL = 32
+// neighbouring lanes; each block copies the tables into shared memory
+// once. Lanes carry ~25 rows but SEG is the widest lane's (48 at the
+// default anchor interval), so a group's rows are split at m, the median
+// of its lanes' row counts:
+//  - dense steps, rows s < m, K3_TS = 4 rows at a time, one thread per
+//    (lane, row), a warp on 32 neighbouring lanes of one row: the reads of
+//    the backbone rows, codes and torsion codes are coalesced, and each
+//    lane's run of up to 4 rows is copied out with 16-byte stores when it
+//    starts 16-byte aligned (SEG % 4 == 0, as the pack's 8-row bucket
+//    gives; 84 * 4 = 336 = 21 * 16), else with 4-byte ones;
+//  - sparse steps, the rows m <= s < seg_m[l] of the longer lanes (the
+//    anchor tails), packed lane by lane onto consecutive threads, 128 at
+//    a time, and copied out row by row with 4-byte stores.
+// So no warp spends its issue slots on padding rows.
 //
-// Bound, measured on an H100 80GB HBM3 (700 W power limit) at B=8192: a
-// direct form of this kernel (one thread per residue, tables read from
-// __constant__, each thread storing its own 84-byte row with 2-byte
-// stores) took ~9.7 ms, against ~1.4 ms for this tiled form. Both of
-// its memory paths serialise: neighbouring lanes carry different residue
-// codes, and the constant cache serves one address per cycle to a warp,
-// so each table read is replayed per distinct code; and 2-byte stores
-// with a 4 KB stride between neighbouring threads touch a sector each.
-// The tables are therefore copied into shared memory (banked: distinct
-// addresses are served together) and the stores go through the staged
-// tile. What remains is 11 placements per residue (sinf/cosf x2, rsqrtf
-// x2) and 96 B of output per residue.
+// A residue's 14 atoms live in shared memory as [42][K3_T] float columns,
+// the thread's own column in its own bank, so the predecessor slots that
+// the table gives at run time index shared memory, not a local array.
+// After the placements each thread packs its [42] int16 row ((k, c)-major
+// mA offsets from CA) into registers; the columns are then reused as the
+// output stage, slot by slot in the order of the output rows, as they lie
+// in the final [NL_out, SEG, 42] / [NL_out, SEG, 3] layout. So the TPU
+// path's epilogue transpose (pallas_decode.py:517-525) is gone.
+//
+// Bound: bytes. Per real row 36 B of backbone, 4 B of code and 11 B of
+// torsion codes in, 84 B of offsets and 12 B of CA out (147 B); the 11
+// placements are ~66 flops and 2 rsqrtf each. The kernel's previous tiled
+// form took 1.41 ms at B=8192 on an H100 80GB HBM3 (700 W power limit):
+// it computed and stored the padding rows too (half the slots), evaluated
+// 4 full-precision sinf/cosf per placement, kept the atoms in a run-time
+// indexed local array and filled 9 KB of shared tables in each of 31.7k
+// blocks.
 #define K3_TL 32
-#define K3_TS 8
-__global__ void __launch_bounds__(K3_TL* K3_TS)
+#define K3_TS 4
+#define K3_T (K3_TL * K3_TS)
+#define K3_ROW (3 * MAX_ATOM)
+
+// Side chain and int16 offsets of row s of lane l: the thread's atom
+// column `col` (stride K3_T) ends up holding the 14 atoms; packed[w] holds
+// offsets 2w and 2w + 1, and ca the CA.
+__device__ __forceinline__ void k3_row(
+    const float* __restrict__ bx, const float* __restrict__ by,
+    const float* __restrict__ bz, const int* __restrict__ code,
+    const uint8_t* __restrict__ sct, const K3Tables& tab, float* col,
+    int l, int s, int nl, uint32_t* packed, float* ca) {
+#pragma unroll
+  for (int a = 0; a < 3; ++a) {
+    const size_t row = (size_t)(3 * s + a) * nl + l;
+    col[(3 * a) * K3_T] = bx[row];
+    col[(3 * a + 1) * K3_T] = by[row];
+    col[(3 * a + 2) * K3_T] = bz[row];
+  }
+  const int cd = code[(size_t)s * nl + l] & (N_CODES - 1);  // 5-bit code
+  // the 11 torsion codes, loaded at once before the placements, which
+  // would otherwise each wait for one: 4 to a register
+  const uint8_t* q = sct + (size_t)s * 11 * nl + l;
+  uint32_t tq4[3] = {0u, 0u, 0u};
+#pragma unroll
+  for (int i = 0; i < 11; ++i)
+    tq4[i >> 2] |= (uint32_t)q[(size_t)i * nl] << (8 * (i & 3));
+#pragma unroll 1
+  for (int k = 3; k < MAX_ATOM; ++k) {
+    const int i = k - 3;
+    const uint32_t w = i < 4 ? tq4[0] : (i < 8 ? tq4[1] : tq4[2]);
+    const float4 g = tab.geo[cd * MAX_ATOM + k];
+    const float2 tc = tab.tor[(w >> (8 * (i & 3))) & 0xffu];
+    const int p = __float_as_int(g.w);
+    const float* c0 = col + (3 * (p & 0xff)) * K3_T;
+    const float* c1 = col + (3 * ((p >> 8) & 0xff)) * K3_T;
+    const float* c2 = col + (3 * ((p >> 16) & 0xff)) * K3_T;
+    // (bond_length * cos t) * sin_ba, as place_cs rounds it
+    const V3 o = place_frame(v3(c0[0], c0[K3_T], c0[2 * K3_T]),
+                             v3(c1[0], c1[K3_T], c1[2 * K3_T]),
+                             v3(c2[0], c2[K3_T], c2[2 * K3_T]), g.y,
+                             g.x * tc.x * g.z, g.x * tc.y * g.z);
+    col[(3 * k) * K3_T] = o.x;
+    col[(3 * k + 1) * K3_T] = o.y;
+    col[(3 * k + 2) * K3_T] = o.z;
+  }
+  ca[0] = col[3 * K3_T];
+  ca[1] = col[4 * K3_T];
+  ca[2] = col[5 * K3_T];
+#pragma unroll
+  for (int j = 0; j < K3_ROW; j += 2) {
+    const float v0 = fminf(
+        fmaxf(rintf((col[j * K3_T] - ca[j % 3]) * 1000.0f), -32767.0f),
+        32767.0f);
+    const float v1 = fminf(
+        fmaxf(rintf((col[(j + 1) * K3_T] - ca[(j + 1) % 3]) * 1000.0f),
+              -32767.0f),
+        32767.0f);
+    packed[j / 2] = (uint32_t)(uint16_t)(int16_t)v0 |
+                    ((uint32_t)(uint16_t)(int16_t)v1 << 16);
+  }
+}
+
+// Writes a finished row to stage slot `slot` (int16 [K3_T][42], then
+// float [K3_T][3]).
+__device__ __forceinline__ void k3_stage(int16_t* s_off, float* s_ca,
+                                         int slot, const uint32_t* packed,
+                                         const float* ca) {
+  uint32_t* o = reinterpret_cast<uint32_t*>(s_off + slot * K3_ROW);
+#pragma unroll
+  for (int w = 0; w < K3_ROW / 2; ++w) o[w] = packed[w];
+  s_ca[slot * 3] = ca[0];
+  s_ca[slot * 3 + 1] = ca[1];
+  s_ca[slot * 3 + 2] = ca[2];
+}
+
+__global__ void __launch_bounds__(K3_T, 6)
 k3_sidechain(const float* __restrict__ bx, const float* __restrict__ by,
              const float* __restrict__ bz, const int* __restrict__ code,
-             const uint8_t* __restrict__ sct, int16_t* __restrict__ off,
-             float* __restrict__ ca, int seg, int nl, int nl_out) {
-  __shared__ int s_pred[N_CODES * MAX_ATOM * 3];
-  __shared__ float s_blen[N_CODES * MAX_ATOM];
-  __shared__ float s_bang[N_CODES * MAX_ATOM];
-  __shared__ __align__(16) int16_t s_off[K3_TL * K3_TS * 3 * MAX_ATOM];
-  __shared__ __align__(16) float s_ca[K3_TL * K3_TS * 3];
-  for (int i = threadIdx.x; i < N_CODES * MAX_ATOM * 3; i += blockDim.x)
-    s_pred[i] = c_pred[i];
-  for (int i = threadIdx.x; i < N_CODES * MAX_ATOM; i += blockDim.x) {
-    s_blen[i] = c_blen[i];
-    s_bang[i] = c_bang[i];
+             const uint8_t* __restrict__ sct, const int* __restrict__ seg_m,
+             int16_t* __restrict__ off, float* __restrict__ ca, int seg,
+             int nl, int nl_out) {
+  __shared__ K3Tables s_tab;
+  // atom columns; between a step's placements and its copy-out, the
+  // output stage: int16 [K3_T][42] then float [K3_T][3]
+  __shared__ __align__(16) float s_at[K3_ROW * K3_T];
+  __shared__ int s_rows[K3_TL];      // rows of each lane of the group
+  __shared__ int s_pre[K3_TL + 1];   // prefix of the lanes' sparse rows
+  __shared__ int s_med;              // m, the group's dense row count
+  __shared__ int s_dst[K3_T];        // output row of each sparse slot
+  {
+    const float4* src = reinterpret_cast<const float4*>(&g_k3);
+    float4* dst = reinterpret_cast<float4*>(&s_tab);
+    for (int i = threadIdx.x; i < (int)(sizeof(K3Tables) / 16);
+         i += blockDim.x)
+      dst[i] = src[i];
   }
-  __syncthreads();
-
-  const int l0 = blockIdx.x * K3_TL, s0 = blockIdx.y * K3_TS;
-  const int n_l = min(K3_TL, nl_out - l0), n_s = min(K3_TS, seg - s0);
+  int16_t* const s_off = reinterpret_cast<int16_t*>(s_at);
+  float* const s_ca = s_at + K3_T * K3_ROW / 2;
+  float* const col = s_at + threadIdx.x;  // this thread's atom column
   const int tl = threadIdx.x % K3_TL, ts = threadIdx.x / K3_TL;
-  const int l = l0 + tl, s = s0 + ts;
-  if (tl < n_l && ts < n_s) {
-    float X[MAX_ATOM], Y[MAX_ATOM], Z[MAX_ATOM];
-#pragma unroll
-    for (int a = 0; a < 3; ++a) {
-      const size_t row = (size_t)(3 * s + a) * nl + l;
-      X[a] = bx[row];
-      Y[a] = by[row];
-      Z[a] = bz[row];
-    }
-    const int cd = code[(size_t)s * nl + l] & (N_CODES - 1);  // 5-bit code
-    for (int k = 3; k < MAX_ATOM; ++k) {
-      const int* p = &s_pred[(cd * MAX_ATOM + k) * 3];
-      const int i0 = p[0], i1 = p[1], i2 = p[2];
-      // u8 -> int -> float, then cast*cont + min (pallas_decode.py:369-370)
-      const float tor =
-          (float)(int)sct[((size_t)s * 11 + (k - 3)) * nl + l] *
-              c_k[K_SC_CONT] +
-          c_k[K_SC_MIN];
-      const V3 o = place_deg(v3(X[i0], Y[i0], Z[i0]),
-                             v3(X[i1], Y[i1], Z[i1]),
-                             v3(X[i2], Y[i2], Z[i2]),
-                             s_blen[cd * MAX_ATOM + k],
-                             s_bang[cd * MAX_ATOM + k], tor);
-      X[k] = o.x;
-      Y[k] = o.y;
-      Z[k] = o.z;
-    }
-    // lane tl's residues are contiguous in the tile: slot tl * n_s + ts
-    const int slot = tl * n_s + ts;
-    const float cax = X[1], cay = Y[1], caz = Z[1];
-    s_ca[slot * 3] = cax;
-    s_ca[slot * 3 + 1] = cay;
-    s_ca[slot * 3 + 2] = caz;
-    int16_t* o = s_off + slot * (3 * MAX_ATOM);
-#pragma unroll
-    for (int k = 0; k < MAX_ATOM; ++k) {
-      o[k * 3] = (int16_t)fminf(
-          fmaxf(rintf((X[k] - cax) * 1000.0f), -32767.0f), 32767.0f);
-      o[k * 3 + 1] = (int16_t)fminf(
-          fmaxf(rintf((Y[k] - cay) * 1000.0f), -32767.0f), 32767.0f);
-      o[k * 3 + 2] = (int16_t)fminf(
-          fmaxf(rintf((Z[k] - caz) * 1000.0f), -32767.0f), 32767.0f);
-    }
-  }
-  __syncthreads();
+  const int n_groups = (nl_out + K3_TL - 1) / K3_TL;
+  uint32_t packed[K3_ROW / 2];
+  float cav[3];
 
-  // Each lane's n_s residues: n_s * 84 B of off (21 words a residue; the
-  // run starts at a multiple of 84 B, so 4-byte aligned) and n_s * 3
-  // floats of ca, contiguous in global and in the tile.
-  const int w_off = n_s * (3 * MAX_ATOM / 2), w_ca = n_s * 3;
-  const uint32_t* t_off = reinterpret_cast<const uint32_t*>(s_off);
-  for (int i = threadIdx.x; i < n_l * w_off; i += blockDim.x) {
-    const int lc = i / w_off, q = i - lc * w_off;
-    reinterpret_cast<uint32_t*>(
-        off + ((size_t)(l0 + lc) * seg + s0) * (3 * MAX_ATOM))[q] =
-        t_off[lc * w_off + q];
-  }
-  for (int i = threadIdx.x; i < n_l * w_ca; i += blockDim.x) {
-    const int lc = i / w_ca, q = i - lc * w_ca;
-    ca[((size_t)(l0 + lc) * seg + s0) * 3 + q] = s_ca[lc * w_ca + q];
+  for (int grp = blockIdx.x; grp < n_groups; grp += gridDim.x) {
+    const int l0 = grp * K3_TL;
+    __syncthreads();  // the previous group's copy-out is done
+    if (threadIdx.x < K3_TL) {
+      // warp 0: each lane's row count, their median m, and the prefix of
+      // the rows past m
+      const int lane = l0 + threadIdx.x;
+      const int r = lane < nl_out ? min(seg_m[lane], seg) : 0;
+      const bool valid = lane < nl_out;
+      int below = 0, same = 0, nv = 0;
+      for (int o = 0; o < K3_TL; ++o) {
+        const int ro = __shfl_sync(0xffffffffu, r, o);
+        const int vo = __shfl_sync(0xffffffffu, (int)valid, o);
+        nv += vo;
+        below += vo && ro < r;
+        same += vo && ro == r && o < (int)threadIdx.x;
+      }
+      // the valid lane of rank (nv - 1) / 2 holds the median
+      const bool is_med = valid && below + same == (nv - 1) / 2;
+      const unsigned who = __ballot_sync(0xffffffffu, is_med);
+      const int m = __shfl_sync(0xffffffffu, r, __ffs(who) - 1);
+      int e = max(r - m, 0);
+      s_rows[threadIdx.x] = r;
+      for (int o = 1; o < K3_TL; o <<= 1) {  // inclusive scan
+        const int v = __shfl_up_sync(0xffffffffu, e, o);
+        if ((int)threadIdx.x >= o) e += v;
+      }
+      s_pre[threadIdx.x + 1] = e;
+      if (threadIdx.x == 0) {
+        s_pre[0] = 0;
+        s_med = m;
+      }
+    }
+    __syncthreads();
+    const int m = s_med, n_sparse = s_pre[K3_TL];
+
+    // dense steps: rows s0 .. s0 + 3 of every lane, s < min(m, rows)
+    for (int s0 = 0; s0 < m; s0 += K3_TS) {
+      const int l = l0 + tl, s = s0 + ts;
+      const bool real = s < min(s_rows[tl], m);
+      __syncthreads();  // the previous step's copy-out is done
+      if (real) k3_row(bx, by, bz, code, sct, s_tab, col, l, s, nl, packed,
+                       cav);
+      __syncthreads();  // every column read before the stage overwrites it
+      if (real) k3_stage(s_off, s_ca, tl * K3_TS + ts, packed, cav);
+      __syncthreads();
+      // lane lc's n rows: one run of n * 84 B of off and n * 12 B of ca,
+      // in global memory and in the stage
+      if ((seg & 3) == 0) {
+        // (l * SEG + s0) % 4 == 0: both runs start 16-byte aligned; n * 84
+        // B is (n * 84) / 16 chunks and n % 4 words
+        const int c16 = K3_TS * K3_ROW * 2 / 16;
+        for (int i = threadIdx.x; i < K3_TL * (c16 + 3); i += K3_T) {
+          const int lc = i / (c16 + 3), j = i - lc * (c16 + 3);
+          const int n = min(max(min(s_rows[lc], m) - s0, 0), K3_TS);
+          const int nc = n * K3_ROW * 2 / 16;
+          int16_t* dst = off + ((size_t)(l0 + lc) * seg + s0) * K3_ROW;
+          const int16_t* src = s_off + lc * K3_TS * K3_ROW;
+          if (j < nc) {
+            reinterpret_cast<int4*>(dst)[j] =
+                reinterpret_cast<const int4*>(src)[j];
+          } else if (j >= c16 && j - c16 < (n & 3)) {
+            const int w = nc * 4 + (j - c16);  // the words past the chunks
+            reinterpret_cast<uint32_t*>(dst)[w] =
+                reinterpret_cast<const uint32_t*>(src)[w];
+          }
+        }
+      } else {
+        const int wl = K3_TS * K3_ROW / 2;  // words of a lane's stage
+        for (int i = threadIdx.x; i < K3_TL * wl; i += K3_T) {
+          const int lc = i / wl, j = i - lc * wl;
+          const int n = min(max(min(s_rows[lc], m) - s0, 0), K3_TS);
+          if (j < n * K3_ROW / 2)
+            reinterpret_cast<uint32_t*>(
+                off + ((size_t)(l0 + lc) * seg + s0) * K3_ROW)[j] =
+                reinterpret_cast<const uint32_t*>(
+                    s_off + lc * K3_TS * K3_ROW)[j];
+        }
+      }
+      for (int i = threadIdx.x; i < K3_TL * K3_TS * 3; i += K3_T) {
+        const int lc = i / (K3_TS * 3), j = i - lc * (K3_TS * 3);
+        const int n = min(max(min(s_rows[lc], m) - s0, 0), K3_TS);
+        if (j < n * 3)
+          ca[((size_t)(l0 + lc) * seg + s0) * 3 + j] =
+              s_ca[lc * K3_TS * 3 + j];
+      }
+    }
+
+    // sparse steps: rows m <= s < rows of each lane, lane by lane
+    for (int j0 = 0; j0 < n_sparse; j0 += K3_T) {
+      const int j = j0 + (int)threadIdx.x;
+      const bool real = j < n_sparse;
+      int lc = 0;
+      if (real)
+        while (s_pre[lc + 1] <= j) ++lc;
+      const int s = m + j - s_pre[lc];
+      __syncthreads();  // the previous step's copy-out is done
+      if (real) k3_row(bx, by, bz, code, sct, s_tab, col, l0 + lc, s, nl,
+                       packed, cav);
+      __syncthreads();
+      if (real) {
+        k3_stage(s_off, s_ca, threadIdx.x, packed, cav);
+        s_dst[threadIdx.x] = (l0 + lc) * seg + s;
+      }
+      __syncthreads();
+      // consecutive slots of one lane are consecutive output rows
+      const int n = min(n_sparse - j0, K3_T);
+      for (int i = threadIdx.x; i < n * (K3_ROW / 2); i += K3_T) {
+        const int sl = i / (K3_ROW / 2), w = i - sl * (K3_ROW / 2);
+        reinterpret_cast<uint32_t*>(off)[(size_t)s_dst[sl] * (K3_ROW / 2) +
+                                         w] =
+            reinterpret_cast<const uint32_t*>(s_off)[i];
+      }
+      for (int i = threadIdx.x; i < n * 3; i += K3_T)
+        ca[(size_t)s_dst[i / 3] * 3 + i % 3] = s_ca[i];
+    }
   }
 }
 
@@ -440,6 +631,8 @@ static unsigned blocks_for(size_t n, unsigned threads) {
 
 extern "C" {
 
+// Fills the current device's __constant__ tables, then derives k3's
+// tables from them on the device and waits for that.
 cudaError_t fd_set_tables(const int* pred32, const float* blen32,
                           const float* bang32, const float* consts,
                           int n_consts) {
@@ -448,6 +641,10 @@ cudaError_t fd_set_tables(const int* pred32, const float* blen32,
   if (e == cudaSuccess) e = cudaMemcpyToSymbol(c_blen, blen32, sizeof(c_blen));
   if (e == cudaSuccess) e = cudaMemcpyToSymbol(c_bang, bang32, sizeof(c_bang));
   if (e == cudaSuccess) e = cudaMemcpyToSymbol(c_k, consts, sizeof(c_k));
+  if (e != cudaSuccess) return e;
+  k3_tables<<<1, 512>>>();
+  e = cudaGetLastError();
+  if (e == cudaSuccess) e = cudaDeviceSynchronize();
   return e;
 }
 
@@ -470,13 +667,25 @@ cudaError_t fd_backbone(const uint8_t* recs, const float* blca,
   return cudaGetLastError();
 }
 
+// k3 on a persistent grid: as many blocks as fit on the device at once,
+// at most one per group of 32 lanes.
 cudaError_t fd_sidechain(const float* bx, const float* by, const float* bz,
-                         const int* code, const uint8_t* sct, int16_t* off,
-                         float* ca, int seg, int nl, int nl_out,
-                         cudaStream_t stream) {
-  const dim3 grid(blocks_for(nl_out, K3_TL), blocks_for(seg, K3_TS));
-  k3_sidechain<<<grid, K3_TL * K3_TS, 0, stream>>>(bx, by, bz, code, sct,
-                                                   off, ca, seg, nl, nl_out);
+                         const int* code, const uint8_t* sct,
+                         const int* seg_m, int16_t* off, float* ca, int seg,
+                         int nl, int nl_out, cudaStream_t stream) {
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, k3_sidechain,
+                                                      K3_T, 0);
+  if (e != cudaSuccess) return e;
+  const size_t groups = blocks_for(nl_out, K3_TL);
+  const size_t fit = (size_t)sms * (per_sm > 0 ? per_sm : 1);
+  k3_sidechain<<<(unsigned)(groups < fit ? groups : fit), K3_T, 0,
+                 stream>>>(bx, by, bz, code, sct, seg_m, off, ca, seg, nl,
+                           nl_out);
   return cudaGetLastError();
 }
 

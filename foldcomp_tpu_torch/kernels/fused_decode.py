@@ -290,8 +290,14 @@ def backbone(recs, blca, seed, ranc, tat, mins6, cont6):
     return outs
 
 
-def sidechain(bx, by, bz, code, sct, nl_out=None):
-    """k3 -> (off i16 [NL_out, SEG, 42], ca f32 [NL_out, SEG, 3])."""
+def sidechain(bx, by, bz, code, sct, nl_out=None, seg_m=None):
+    """k3 -> (off i16 [NL_out, SEG, 42], ca f32 [NL_out, SEG, 3]).
+
+    seg_m (i32 [NL], the lanes' residue counts) names the real rows: the
+    kernel computes and writes rows s < seg_m[l] only, and the other rows
+    of a CUDA result are unspecified (the host stitch reads none of them).
+    None means every row is real. The plain version on the CPU computes
+    every row."""
     global K3_LAUNCHES
     if bx.device.type == "cpu":
         return sidechain_plain(bx, by, bz, code, sct, nl_out)
@@ -305,12 +311,15 @@ def sidechain(bx, by, bz, code, sct, nl_out=None):
         _check(name, p, F32, (t, nl), dev)
     _check("code", code, torch.int32, (seg, nl), dev)
     _check("sct", sct, torch.uint8, (seg, 11, nl), dev)
+    if seg_m is None:
+        seg_m = torch.full((nl,), seg, dtype=torch.int32, device=dev)
+    _check("seg_m", seg_m, torch.int32, (nl,), dev)
     nlo = nl if nl_out is None else min(int(nl_out), nl)
     off = torch.empty((nlo, seg, 42), dtype=torch.int16, device=dev)
     ca = torch.empty((nlo, seg, 3), dtype=F32, device=dev)
     if nlo and seg:
         _launch(lib.fd_sidechain, "k3 sidechain", dev,
-                *_ptrs(bx, by, bz, code, sct, off, ca), seg, nl, nlo)
+                *_ptrs(bx, by, bz, code, sct, seg_m, off, ca), seg, nl, nlo)
         K3_LAUNCHES += 1
     return off, ca
 
@@ -336,9 +345,10 @@ def decode_seg_fused(seg_records, mins_lane, cont_lane, sc_codes_seg,
 
     Returns per-lane compact rows (off i16 [NL, SEG, 42], ca f32
     [NL, SEG, 3]), sliced to nl_out lanes: row [42] is the residue's
-    [14, 3] milli-angstrom offsets from its CA. The tensors' device picks
-    the path: CUDA kernels on a CUDA device, the plain versions on the
-    CPU."""
+    [14, 3] milli-angstrom offsets from its CA. Rows s >= seg_m[l] are pack
+    padding; on a CUDA device they are left unspecified. The tensors'
+    device picks the path: CUDA kernels on a CUDA device, the plain
+    versions on the CPU."""
     pr = class_prep(seg_records, mins_lane, cont_lane, sc_codes_seg,
                     fwd9, rev9, seg_m)
     args = (pr["recs"], pr["blca"])
@@ -349,4 +359,5 @@ def decode_seg_fused(seg_records, mins_lane, cont_lane, sc_codes_seg,
     else:
         seeds = pr["fwd9"]
     bx, by, bz = backbone(*args, seeds, *rest)
-    return sidechain(bx, by, bz, pr["code"], pr["sct"], nl_out)
+    return sidechain(bx, by, bz, pr["code"], pr["sct"], nl_out,
+                     seg_m=seg_m.to(torch.int32).contiguous())
