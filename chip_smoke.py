@@ -12,7 +12,8 @@ non-zero:
    one link) from this checkout;
 2. kernels: k1, k2 and k3 against their plain PyTorch versions on the
    card, on the same inputs: a mixed batch of 512 entries (refine_iters 1
-   and 2) and a corpus with segments wider than 96 residues; offsets
+   and 2), a corpus with segments wider than 96 residues, and one packed
+   without the 8-row bucket, so that SEG is not a multiple of 4; offsets
    within 1 i16 unit (1 mA), f32 coordinates within 1e-3 A; then the
    whole device decode against the plain versions on every visible card
    (card 0 alone on a one-card machine), since each card holds its own
@@ -118,6 +119,8 @@ BYTES_PER_LANE = {"k1": 124 + 36, "k2": 124, "k3": 0}
 # and ~20 operations each), 11 side-chain cosines (~25 each), the rescue
 # bounds and the division of the millimetre grid, per residue
 K4_FLOPS_PER_RES = 6 * 40 + 11 * 25 + 120
+ENC_BATCH = 2048        # one CLI batch (cli.FAST_BATCH)
+E2E_FILES = 4096
 
 
 def bound(n_bytes, n_flops):
@@ -169,8 +172,6 @@ def ptxas_of(src):
     if r.returncode != 0:
         raise AssertionError(f"nvcc {src}: {r.stdout}{r.stderr}")
     return ptxas_report(r.stdout + r.stderr)
-ENC_BATCH = 2048        # one CLI batch (cli.FAST_BATCH)
-E2E_FILES = 4096
 
 
 def emit(phase, **kv):
@@ -680,8 +681,8 @@ def main(argv=None) -> int:
     emit("corpus", lengths=list(BENCH_LENGTHS),
          encode_seconds=time.perf_counter() - t0)
 
-    def prep_of(fczs):
-        arrays, metas = pack_decode_batch_lanes(fczs)
+    def prep_of(fczs, seg_bucket=8):
+        arrays, metas = pack_decode_batch_lanes(fczs, seg_bucket=seg_bucket)
         ta = arrays_to_torch(arrays, dev)
         pr = FD.class_prep(ta["seg_records"], ta["mins_lane"],
                            ta["cont_lane"], ta["sc_codes_seg"], ta["fwd9"],
@@ -739,10 +740,16 @@ def main(argv=None) -> int:
     wide_u = [encode(synthesize(n, seed=i), anchor_threshold=200)
               for i, n in enumerate((120, 220))]
     wide = [wide_u[i % 2] for i in range(256)]
-    for label, fczs in (("mixed512", mixed), ("wide", wide)):
-        arrays, _, ta, pr = prep_of(fczs)
-        if label == "wide" and not arrays["seg_records"].shape[1] > 96:
+    # k3 copies out with 16-byte stores only where SEG % 4 == 0
+    odd = [encode(synthesize(n, seed=n)) for n in (37, 45, 61, 83, 97)] * 40
+    for label, fczs, bucket in (("mixed512", mixed, 8), ("wide", wide, 8),
+                                ("odd_seg", odd, 1)):
+        arrays, _, ta, pr = prep_of(fczs, bucket)
+        seg = arrays["seg_records"].shape[1]
+        if label == "wide" and not seg > 96:
             raise AssertionError("wide corpus does not exceed SEG 96")
+        if label == "odd_seg" and not seg % 4:
+            raise AssertionError(f"odd_seg corpus has SEG {seg}")
         for r in (1, 2):
             got = compare(arrays, ta, pr, r)
             torch.cuda.synchronize()

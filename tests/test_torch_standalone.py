@@ -10,7 +10,8 @@ Copy fidelity: on a seeded synthetic corpus at tests/test_wclass.py scale
 (lengths 26-240), each copied stage against its foldcomp_tpu original, down
 to the byte: the FCZ serializer and parser, the exact encoder and decoder,
 the PDB writer, the ragged-lane pack, the device-encode parse and host
-finish, the database writer, and the CLI's exact routes.
+finish, the database writer, verify's synthetic structures, and the CLI's
+exact routes.
 """
 import ast
 import os
@@ -21,6 +22,8 @@ import textwrap
 
 import numpy as np
 import pytest
+
+from test_property_roundtrip import synthesize as orig_synthesize
 
 from foldcomp_tpu.codec import batch as tpu_batch
 from foldcomp_tpu.codec import decoder as tpu_decoder
@@ -236,6 +239,12 @@ def _fidelity_case(case, corpus, tmp_path):
                  range(1, len(fczs) + 1)]
         finally:
             r.close()
+    elif case == "synthesize":
+        # the corpus behind tests/data/torch_port_ref_dev.json, which
+        # tests/test_torch_decode_slice.py writes from the original
+        for n, seed in ((3, 9), *zip(LENGTHS, range(len(LENGTHS)))):
+            _assert_same(vars(synthesize(n, seed)),
+                         vars(orig_synthesize(n, seed)))
     elif case.startswith("cli_"):
         _write_pdbs(tmp_path / "pdbs")
         cmds = {
@@ -262,6 +271,6 @@ def _fidelity_case(case, corpus, tmp_path):
 @pytest.mark.parametrize("case", [
     "fcz_serialize_parse", "exact_encode", "exact_decode", "format_pdb",
     "pack_decode_batch_lanes", "encode_pdb_device", "finish_encode_device",
-    "database", "cli_compress", "cli_db_to_db", "cli_extract"])
+    "database", "synthesize", "cli_compress", "cli_db_to_db", "cli_extract"])
 def test_copy_matches_foldcomp_tpu(case, corpus, tmp_path):
     _fidelity_case(case, corpus, tmp_path)
