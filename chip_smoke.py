@@ -13,8 +13,10 @@ non-zero:
 2. kernels: k1, k2 and k3 against their plain PyTorch versions on the
    card, on the same inputs: a mixed batch of 512 entries (refine_iters 1
    and 2), a corpus with segments wider than 96 residues, and one packed
-   without the 8-row bucket, so that SEG is not a multiple of 4; offsets
-   within 1 i16 unit (1 mA), f32 coordinates within 1e-3 A; then the
+   without the 8-row bucket, so that SEG is not a multiple of 4; then the
+   mixed batch with lane 0 a continuation, so that k2's seed roll wraps;
+   offsets within 1 i16 unit (1 mA), f32 coordinates within 1e-3 A on
+   the rows each lane owns; then the
    whole device decode against the plain versions on every visible card
    (card 0 alone on a one-card machine), since each card holds its own
    copy of the kernels' constant tables;
@@ -26,7 +28,11 @@ non-zero:
 4. device: decode of B=8192 entries of bench.py's 8 synthetic lengths
    (~4.1M residues) through the kernels and through the plain versions,
    timed with CUDA events, with each kernel's time beside its plain
-   version's;
+   version's; k1 and k2 also with the lanes in pack order
+   (`pack_order_ms`), the lane order's own time (`k2.order_ms`), the
+   torch glue (`glue_ms`: the device decode less the three kernels), and
+   k2's other forms (`k2.forms`: the torsions through a scratch buffer,
+   grids of a few blocks an SM), each in turns with the default;
 5. e2e: `python -m foldcomp_tpu_torch decompress --fast <db> <out> --db`
    on a 4096-entry FCZ database in a subprocess, timed; 64 sampled
    outputs held to the phase-3 bound;
@@ -108,13 +114,15 @@ FLOPS_PER_ROW = {
     "k3": 11 * 66 + 42 * 5,                      # table frames, offsets
 }
 # bytes each decode kernel must move, per residue row and per lane (inputs
-# read once, outputs written once, real rows only): k1 reads 8 B of record
-# and 4 B of N-CA length a row, 124 B of lane state (seed, next anchor,
-# tat, 6 mins, 6 conts) and writes a 9-float tail; k2 reads the same and
-# writes 9 floats a row; k3 reads 9 backbone floats, a code and 11
-# torsion codes and writes 42 int16 and 3 floats a row
-BYTES_PER_ROW = {"k1": 12, "k2": 12 + 36, "k3": 36 + 4 + 11 + 84 + 12}
-BYTES_PER_LANE = {"k1": 124 + 36, "k2": 124, "k3": 0}
+# read once, outputs written once, real rows only): k1 and k2 read 8 B of
+# record a row (the N-CA length comes from the record's residue code); a
+# k1 lane reads its seed, next anchor, tat, order entry and 12 quantizer
+# floats (128 B) and writes a 9-float tail; a k2 lane reads tails9, fwd9,
+# is_first, rev9, tat, its order entry and the 12 floats (165 B), and k2
+# writes 9 floats a row; k3 reads 9 backbone floats, a code and 11 torsion
+# codes and writes 42 int16 and 3 floats a row
+BYTES_PER_ROW = {"k1": 8, "k2": 8 + 36, "k3": 36 + 4 + 11 + 84 + 12}
+BYTES_PER_LANE = {"k1": 128 + 36, "k2": 165, "k3": 0}
 # k4 (fused_encode.cu): 6 double-f32 cosines (a division, a square root
 # and ~20 operations each), 11 side-chain cosines (~25 each), the rescue
 # bounds and the division of the millimetre grid, per residue
@@ -143,6 +151,8 @@ def ptxas_report(log):
                                     "k3_sidechain", "k3_tables",
                                     "k4_merged") if k in m.group(1)),
                        m.group(1))
+            if cur == "k2_backbone" and "ILb1E" in m.group(1):
+                cur = "k2_backbone_tor_scratch"
             out.setdefault(cur, {})
             continue
         if cur is None:
@@ -193,6 +203,46 @@ def cuda_ms(torch, fn, reps):
     return start.elapsed_time(end) / reps
 
 
+DECODE_KEYS = ("seg_records", "mins_lane", "cont_lane", "sc_codes_seg",
+               "fwd9", "rev9", "is_first", "seg_m")
+
+
+def plain_decode(ta, nl_out):
+    """decode_seg_fused (refine_iters 2) through the plain versions of the
+    functions the kernels compute, on a packed tensor dict."""
+    from foldcomp_tpu_torch.kernels import fused_decode as FD
+    pr = FD.class_prep(*(ta[k] for k in DECODE_KEYS[:6]), ta["seg_m"])
+    lane = (pr["rev9"], pr["tat"], pr["mins6"], pr["cont6"])
+    t9 = FD.tails_plain(pr["recs"], FD.n_ca_lengths(pr["recs"]),
+                        pr["fwd9"], *lane)
+    bb = FD.backbone_rolled_plain(pr["recs"], t9, pr["fwd9"],
+                                  ta["is_first"], *lane)
+    return FD.sidechain_plain(*bb, pr["code"], pr["sct"], nl_out)
+
+
+def prep_of(fczs, dev, seg_bucket=8):
+    """Pack fczs onto dev -> (arrays, metas, tensors, class_prep dict with
+    the lane order and the lane tensors k1 and k2 share)."""
+    from foldcomp_tpu_torch.codec.batch import arrays_to_torch
+    from foldcomp_tpu_torch.codec.batch_host import pack_decode_batch_lanes
+    from foldcomp_tpu_torch.kernels import fused_decode as FD
+    arrays, metas = pack_decode_batch_lanes(fczs, seg_bucket=seg_bucket)
+    ta = arrays_to_torch(arrays, dev)
+    pr = FD.class_prep(*(ta[k] for k in DECODE_KEYS[:6]), ta["seg_m"])
+    pr["order"] = FD.lane_order(pr["tat"])
+    pr["lane"] = (pr["rev9"], pr["tat"], pr["mins6"], pr["cont6"])
+    return arrays, metas, ta, pr
+
+
+def owned_max(got, want, tat):
+    """Largest |difference| of two backbone row triples on the rows each
+    lane owns (r < tat); the rest is pack padding."""
+    import torch
+    own = torch.arange(got[0].shape[0], device=tat.device)[:, None] \
+        < tat[None, :]
+    return max((a - b).abs()[own].max().item() for a, b in zip(got, want))
+
+
 def per_device_check():
     """decode_seg_fused through the kernels against the plain versions on
     each visible CUDA device, the last device first, after device 0 has
@@ -216,22 +266,15 @@ def per_device_check():
            verify.synthetic_structures(BENCH_LENGTHS[:3]).values()] * 4
     arrays, _ = pack_decode_batch_lanes(
         [uniq[n] for n in BENCH_LENGTHS[:3] for _ in range(8)])
-    keys = ("seg_records", "mins_lane", "cont_lane", "sc_codes_seg", "fwd9",
-            "rev9", "is_first", "seg_m")
     nl_out = arrays["nl_out"]
     build.load(0)
     out = []
     for idx in reversed(range(torch.cuda.device_count())):
         dev = torch.device("cuda", idx)
         ta = arrays_to_torch(arrays, dev)
-        ko, kc = FD.decode_seg_fused(*(ta[k] for k in keys), nl_out=nl_out)
-        pr = FD.class_prep(*(ta[k] for k in keys[:6]), ta["seg_m"])
-        lane = (pr["recs"], pr["blca"])
-        rest = (pr["rev9"], pr["tat"], pr["mins6"], pr["cont6"])
-        seeds = FD.refine_seeds(FD.tails_plain(*lane, pr["fwd9"], *rest),
-                                pr["fwd9"], ta["is_first"])
-        po, pc = FD.sidechain_plain(*FD.backbone_plain(*lane, seeds, *rest),
-                                    pr["code"], pr["sct"], nl_out)
+        ko, kc = FD.decode_seg_fused(*(ta[k] for k in DECODE_KEYS),
+                                     nl_out=nl_out)
+        po, pc = plain_decode(ta, nl_out)
         own = torch.arange(ko.shape[1], device=dev)[None, :] \
             < ta["seg_m"][:nl_out, None]
         d_off = (ko.int() - po.int()).abs()[own].max().item()
@@ -624,6 +667,221 @@ def e2e_compress(work, card, uniq):
     return counts
 
 
+def decode_kernels(dev, uniq, err):
+    """Phase 2: k1, k2 and k3 against their plain versions on `dev`, on
+    the same inputs, at refine_iters 1 and 2: a mixed batch of 512
+    entries, a corpus with SEG > 96, and one packed without the 8-row
+    bucket (SEG % 4 != 0); then the mixed batch with lane 0 made a
+    continuation (is_first[0] false), so that k2's seed roll wraps to lane
+    NL-1. k1 and k2 within TOL_A on the rows each lane owns, k3 within
+    TOL_I16 and TOL_A on its residues. err keeps each kernel's largest
+    difference; raises past a tolerance."""
+    import torch
+
+    from foldcomp_tpu_torch.codec.encoder import encode
+    from foldcomp_tpu_torch.kernels import fused_decode as FD
+
+    def compare(arrays, ta, pr, refine_iters, is_first):
+        recs, fwd9, lane, order = (pr["recs"], pr["fwd9"], pr["lane"],
+                                   pr["order"])
+        got = {}
+        tails9 = None
+        if refine_iters >= 2:
+            tails9 = FD.tails(recs, fwd9, *lane, order=order)
+            tp = FD.tails_plain(recs, FD.n_ca_lengths(recs), fwd9, *lane)
+            got["k1"] = (tails9 - tp).abs().max().item()
+        bk = FD.backbone(recs, tails9, fwd9, is_first, *lane, order=order)
+        got["k2"] = owned_max(bk, FD.backbone_rolled_plain(
+            recs, tails9, fwd9, is_first, *lane), pr["tat"])
+        nl_out = arrays["nl_out"]
+        ok_, ck = FD.sidechain(*bk, pr["code"], pr["sct"], nl_out,
+                               seg_m=ta["seg_m"])
+        op, cp = FD.sidechain_plain(*bk, pr["code"], pr["sct"], nl_out)
+        own_res = torch.arange(ok_.shape[1], device=dev)[None, :] \
+            < ta["seg_m"][:ok_.shape[0], None]
+        d_off = (ok_.int() - op.int()).abs()[own_res].max().item()
+        d_ca = (ck - cp).abs()[own_res].max().item()
+        got["k3_off_units"] = d_off
+        got["k3_ca"] = d_ca
+        got["k3"] = max(d_off * 1e-3, d_ca)
+        for k in ("k1", "k2"):
+            if k in got and not got[k] <= TOL_A:
+                raise AssertionError(f"{k} vs plain: {got[k]} A")
+        if not (d_off <= TOL_I16 and d_ca <= TOL_A):
+            raise AssertionError(f"k3 vs plain: off {d_off} units, "
+                                 f"ca {d_ca} A")
+        for k in ("k1", "k2", "k3"):
+            if k in got:
+                err[k] = max(err[k], got[k])
+        return got
+
+    rng = random.Random(0)
+    mixed = [uniq[rng.choice(BENCH_LENGTHS)] for _ in range(512)]
+    wide_u = [encode(synthesize(n, seed=i), anchor_threshold=200)
+              for i, n in enumerate((120, 220))]
+    wide = [wide_u[i % 2] for i in range(256)]
+    # k3 copies out with 16-byte stores only where SEG % 4 == 0
+    odd = [encode(synthesize(n, seed=n)) for n in (37, 45, 61, 83, 97)] * 40
+    for label, fczs, bucket in (("mixed512", mixed, 8), ("wide", wide, 8),
+                                ("odd_seg", odd, 1)):
+        arrays, _, ta, pr = prep_of(fczs, dev, bucket)
+        seg = arrays["seg_records"].shape[1]
+        if label == "wide" and not seg > 96:
+            raise AssertionError("wide corpus does not exceed SEG 96")
+        if label == "odd_seg" and not seg % 4:
+            raise AssertionError(f"odd_seg corpus has SEG {seg}")
+        cases = [(1, False), (2, False)]
+        if label == "mixed512":
+            cases.append((2, True))
+        for r, wrap in cases:
+            first = ta["is_first"]
+            if wrap:
+                first = first.clone()
+                first[0] = False
+            got = compare(arrays, ta, pr, r, first)
+            torch.cuda.synchronize()
+            emit("kernels", corpus=label, refine_iters=r, lane0_wraps=wrap,
+                 seg=int(seg), lanes=int(arrays["seg_records"].shape[2]),
+                 max_abs=got, tol={"f32_A": TOL_A, "i16_units": TOL_I16})
+
+
+def device_decode(dev, card, uniq, err, entries=8192):
+    """Phase 4: decode of `entries` entries of the 8 lengths through the
+    kernels and through the plain versions, timed with CUDA events; each
+    kernel's time beside its plain version's, its bound, and k1 and k2 in
+    the pack's lane order (pack_order_ms); the lane order's own time; the
+    glue (device decode less the kernels); k2's other forms, each in turns
+    with the default and held bit-equal to it. -> per-kernel times."""
+    import torch
+
+    from foldcomp_tpu_torch.kernels import fused_decode as FD
+
+    rng = random.Random(0)
+    big = [uniq[rng.choice(BENCH_LENGTHS)] for _ in range(entries)]
+    n_res = sum(f.n_residue for f in big)
+    t0 = time.perf_counter()
+    arrays, _, ta, pr = prep_of(big, dev)
+    torch.cuda.synchronize()
+    pack_s = time.perf_counter() - t0
+    fused_args = tuple(ta[k] for k in DECODE_KEYS)
+    nl_out = arrays["nl_out"]
+
+    def kernel_decode():
+        return FD.decode_seg_fused(*fused_args, refine_iters=2,
+                                   nl_out=nl_out)
+
+    def plain():
+        return plain_decode(ta, nl_out)
+
+    ms_plain_a = cuda_ms(torch, plain, 2)
+    ms_kern_a = cuda_ms(torch, kernel_decode, 10)
+    ms_kern_b = cuda_ms(torch, kernel_decode, 10)
+    ms_plain_b = cuda_ms(torch, plain, 2)
+    ko, kc = kernel_decode()
+    po, pc = plain()
+    own_res = torch.arange(ko.shape[1], device=dev)[None, :] \
+        < ta["seg_m"][:ko.shape[0], None]
+    d_off = (ko.int() - po.int()).abs()[own_res].max().item()
+    d_ca = (kc - pc).abs()[own_res].max().item()
+    if not (d_off <= TOL_I16 and d_ca <= TOL_A):
+        raise AssertionError(f"B={entries} kernel vs plain decode: off "
+                             f"{d_off}, ca {d_ca}")
+    del ko, kc, po, pc
+
+    recs, fwd9, lane, order, first, tat = (pr["recs"], pr["fwd9"],
+                                           pr["lane"], pr["order"],
+                                           ta["is_first"], pr["tat"])
+    pack_order = torch.arange(order.numel(), dtype=torch.int32, device=dev)
+    t9 = FD.tails(recs, fwd9, *lane, order=order)
+    t9p = FD.tails_plain(recs, FD.n_ca_lengths(recs), fwd9, *lane)
+    bb = FD.backbone(recs, t9, fwd9, first, *lane, order=order)
+    diffs = {"k1": (t9 - t9p).abs().max().item(),
+             "k2": owned_max(bb, FD.backbone_rolled_plain(
+                 recs, t9, fwd9, first, *lane), tat)}
+    del t9p
+    for k, d in diffs.items():
+        if not d <= TOL_A:
+            raise AssertionError(f"B={entries} {k} vs plain: {d} A")
+        err[k] = max(err[k], d)
+
+    def k1(o=order):
+        return FD.tails(recs, fwd9, *lane, order=o)
+
+    def k2(o=order, **kw):
+        return FD.backbone(recs, t9, fwd9, first, *lane, order=o, **kw)
+
+    per_kernel = {
+        "k1": (k1, lambda: FD.tails_plain(recs, FD.n_ca_lengths(recs), fwd9,
+                                          *lane)),
+        "k2": (k2, lambda: FD.backbone_rolled_plain(recs, t9, fwd9, first,
+                                                    *lane)),
+        "k3": (lambda: FD.sidechain(*bb, pr["code"], pr["sct"], nl_out,
+                                    seg_m=ta["seg_m"]),
+               lambda: FD.sidechain_plain(*bb, pr["code"], pr["sct"],
+                                          nl_out)),
+    }
+    # the rows each kernel must compute: the real lanes' residue rows
+    nl_real = sum(f.n_anchor - 1 for f in big)
+    rows = int(ta["seg_m"][:nl_real].sum())
+    times = {}
+    for k, (kern, plain_k) in per_kernel.items():
+        p1 = cuda_ms(torch, plain_k, 2)
+        r1 = cuda_ms(torch, kern, 10)
+        r2 = cuda_ms(torch, kern, 10)
+        p2 = cuda_ms(torch, plain_k, 2)
+        n_bytes = BYTES_PER_ROW[k] * rows + BYTES_PER_LANE[k] * nl_real
+        b_ms, b_by = bound(n_bytes, FLOPS_PER_ROW[k] * rows)
+        times[k] = {"ms": min(r1, r2), "plain_ms": min(p1, p2),
+                    "runs_ms": [p1, r1, r2, p2], "bytes": n_bytes,
+                    "bound_ms": b_ms, "bound_by": b_by,
+                    "bound_share": b_ms / min(r1, r2)}
+    # k1 and k2 with the lanes in pack order: what the lane order saves
+    for k, kern in (("k1", k1), ("k2", k2)):
+        times[k]["pack_order_ms"] = cuda_ms(torch,
+                                            lambda: kern(pack_order), 10)
+    times["k2"]["order_ms"] = cuda_ms(torch, lambda: FD.lane_order(tat), 10)
+    # k3 over every row, the padding's too: what skipping it saves
+    times["k3"]["all_rows_ms"] = cuda_ms(
+        torch, lambda: FD.sidechain(*bb, pr["code"], pr["sct"], nl_out), 10)
+    # k2's other forms, each in turns with the default: the torsions'
+    # (cos, sin) through a scratch buffer, and grids of a few blocks an SM
+    forms = {"tor_scratch": {"tor_scratch": True},
+             **{f"blocks_per_sm_{b}": {"blocks_per_sm": b}
+                for b in (2, 4, 8)}}
+    times["k2"]["forms"] = {}
+    for name, kw in forms.items():
+        d1 = cuda_ms(torch, k2, 10)
+        f1 = cuda_ms(torch, lambda: k2(**kw), 10)
+        f2 = cuda_ms(torch, lambda: k2(**kw), 10)
+        d2 = cuda_ms(torch, k2, 10)
+        same = owned_max(k2(**kw), bb, tat)
+        if same != 0.0:
+            raise AssertionError(f"k2 form {name} differs from the default "
+                                 f"by {same} A")
+        times["k2"]["forms"][name] = {"ms": min(f1, f2),
+                                      "default_ms": min(d1, d2),
+                                      "runs_ms": [d1, f1, f2, d2]}
+    del bb, t9
+    ms_kern = min(ms_kern_a, ms_kern_b)
+    ms_plain = min(ms_plain_a, ms_plain_b)
+    emit("device", gpu=card, entries=len(big), residues=n_res,
+         lanes_real=nl_real, rows_real=rows,
+         seg=int(arrays["seg_records"].shape[1]),
+         lanes=int(arrays["seg_records"].shape[2]), nl_out=nl_out,
+         pack_and_h2d_seconds=pack_s,
+         kernel_decode_ms=ms_kern, plain_decode_ms=ms_plain,
+         kernel_decode_runs_ms=[ms_kern_a, ms_kern_b],
+         plain_decode_runs_ms=[ms_plain_a, ms_plain_b],
+         glue_ms=ms_kern - sum(times[k]["ms"] for k in ("k1", "k2", "k3")),
+         kernel_residues_per_s=n_res / (ms_kern * 1e-3),
+         plain_residues_per_s=n_res / (ms_plain * 1e-3),
+         kernel_vs_plain={"off_units": d_off, "ca_A": d_ca,
+                          "k1_A": diffs["k1"], "k2_owned_rows_A":
+                          diffs["k2"]},
+         per_kernel=times)
+    return times
+
+
 def main(argv=None) -> int:
     import argparse
     ap = argparse.ArgumentParser(description="Smoke run of "
@@ -648,10 +906,7 @@ def main(argv=None) -> int:
 
     from foldcomp_tpu_torch import cli, verify
     from foldcomp_tpu_torch.backend import describe
-    from foldcomp_tpu_torch.codec.batch import arrays_to_torch
-    from foldcomp_tpu_torch.codec.batch_host import pack_decode_batch_lanes
     from foldcomp_tpu_torch.codec.decoder import decode as decode_exact
-    from foldcomp_tpu_torch.codec.encoder import encode
     from foldcomp_tpu_torch.codec.fcz import serialize
     from foldcomp_tpu_torch.io.db import DatabaseReader, DatabaseWriter
     from foldcomp_tpu_torch.kernels import build
@@ -681,82 +936,9 @@ def main(argv=None) -> int:
     emit("corpus", lengths=list(BENCH_LENGTHS),
          encode_seconds=time.perf_counter() - t0)
 
-    def prep_of(fczs, seg_bucket=8):
-        arrays, metas = pack_decode_batch_lanes(fczs, seg_bucket=seg_bucket)
-        ta = arrays_to_torch(arrays, dev)
-        pr = FD.class_prep(ta["seg_records"], ta["mins_lane"],
-                           ta["cont_lane"], ta["sc_codes_seg"], ta["fwd9"],
-                           ta["rev9"], ta["seg_m"])
-        return arrays, metas, ta, pr
-
-    def lane_args(pr, seeds):
-        return (pr["recs"], pr["blca"], seeds, pr["rev9"], pr["tat"],
-                pr["mins6"], pr["cont6"])
-
-    err = {"k1": 0.0, "k2": 0.0, "k3": 0.0}
-
-    def compare(arrays, ta, pr, refine_iters):
-        """Each kernel against its plain version on identical inputs;
-        rows past a lane's own residues (pack padding) left out."""
-        got = {}
-        if refine_iters >= 2:
-            tk = FD.tails(*lane_args(pr, pr["fwd9"]))
-            tp = FD.tails_plain(*lane_args(pr, pr["fwd9"]))
-            got["k1"] = (tk - tp).abs().max().item()
-            seeds = FD.refine_seeds(tk, pr["fwd9"], ta["is_first"])
-        else:
-            seeds = pr["fwd9"]
-        bk = FD.backbone(*lane_args(pr, seeds))
-        bp = FD.backbone_plain(*lane_args(pr, seeds))
-        own_rows = torch.arange(bk[0].shape[0], device=dev)[:, None] \
-            < pr["tat"][None, :]
-        got["k2"] = max((a - b).abs()[own_rows].max().item()
-                        for a, b in zip(bk, bp))
-        nl_out = arrays["nl_out"]
-        ok_, ck = FD.sidechain(*bk, pr["code"], pr["sct"], nl_out,
-                               seg_m=ta["seg_m"])
-        op, cp = FD.sidechain_plain(*bk, pr["code"], pr["sct"], nl_out)
-        own_res = torch.arange(ok_.shape[1], device=dev)[None, :] \
-            < ta["seg_m"][:ok_.shape[0], None]
-        d_off = (ok_.int() - op.int()).abs()[own_res].max().item()
-        d_ca = (ck - cp).abs()[own_res].max().item()
-        got["k3_off_units"] = d_off
-        got["k3_ca"] = d_ca
-        got["k3"] = max(d_off * 1e-3, d_ca)
-        for k in ("k1", "k2"):
-            if k in got and not got[k] <= TOL_A:
-                raise AssertionError(f"{k} vs plain: {got[k]} A")
-        if not (d_off <= TOL_I16 and d_ca <= TOL_A):
-            raise AssertionError(f"k3 vs plain: off {d_off} units, "
-                                 f"ca {d_ca} A")
-        for k in ("k1", "k2", "k3"):
-            if k in got:
-                err[k] = max(err[k], got[k])
-        return got
-
     # ---- 2. kernels against plain ----
-    rng = random.Random(0)
-    mixed = [uniq[rng.choice(BENCH_LENGTHS)] for _ in range(512)]
-    wide_u = [encode(synthesize(n, seed=i), anchor_threshold=200)
-              for i, n in enumerate((120, 220))]
-    wide = [wide_u[i % 2] for i in range(256)]
-    # k3 copies out with 16-byte stores only where SEG % 4 == 0
-    odd = [encode(synthesize(n, seed=n)) for n in (37, 45, 61, 83, 97)] * 40
-    for label, fczs, bucket in (("mixed512", mixed, 8), ("wide", wide, 8),
-                                ("odd_seg", odd, 1)):
-        arrays, _, ta, pr = prep_of(fczs, bucket)
-        seg = arrays["seg_records"].shape[1]
-        if label == "wide" and not seg > 96:
-            raise AssertionError("wide corpus does not exceed SEG 96")
-        if label == "odd_seg" and not seg % 4:
-            raise AssertionError(f"odd_seg corpus has SEG {seg}")
-        for r in (1, 2):
-            got = compare(arrays, ta, pr, r)
-            torch.cuda.synchronize()
-            emit("kernels", corpus=label, refine_iters=r,
-                 seg=int(arrays["seg_records"].shape[1]),
-                 lanes=int(arrays["seg_records"].shape[2]), max_abs=got,
-                 tol={"f32_A": TOL_A, "i16_units": TOL_I16})
+    err = {"k1": 0.0, "k2": 0.0, "k3": 0.0}
+    decode_kernels(dev, uniq, err)
     emit("kernels_per_device", devices=per_device_check(),
          tol={"f32_A": TOL_A, "i16_units": TOL_I16, "k4": K4_TOL})
     torch.cuda.set_device(dev)
@@ -768,91 +950,7 @@ def main(argv=None) -> int:
         raise AssertionError(f"parity failed: {par['failures']}")
 
     # ---- 4. device decode at the production batch ----
-    rng = random.Random(0)
-    big = [uniq[rng.choice(BENCH_LENGTHS)] for _ in range(8192)]
-    n_res = sum(f.n_residue for f in big)
-    t0 = time.perf_counter()
-    arrays, _, ta, pr = prep_of(big)
-    torch.cuda.synchronize()
-    pack_s = time.perf_counter() - t0
-    fused_args = (ta["seg_records"], ta["mins_lane"], ta["cont_lane"],
-                  ta["sc_codes_seg"], ta["fwd9"], ta["rev9"],
-                  ta["is_first"], ta["seg_m"])
-    nl_out = arrays["nl_out"]
-
-    def plain_decode():
-        p = FD.class_prep(*fused_args[:6], ta["seg_m"])
-        t = FD.tails_plain(*lane_args(p, p["fwd9"]))
-        s = FD.refine_seeds(t, p["fwd9"], ta["is_first"])
-        b = FD.backbone_plain(*lane_args(p, s))
-        return FD.sidechain_plain(*b, p["code"], p["sct"], nl_out)
-
-    def kernel_decode():
-        return FD.decode_seg_fused(*fused_args, refine_iters=2,
-                                   nl_out=nl_out)
-
-    ms_plain_a = cuda_ms(torch, plain_decode, 2)
-    ms_kern_a = cuda_ms(torch, kernel_decode, 10)
-    ms_kern_b = cuda_ms(torch, kernel_decode, 10)
-    ms_plain_b = cuda_ms(torch, plain_decode, 2)
-    ko, kc = kernel_decode()
-    po, pc = plain_decode()
-    own_res = torch.arange(ko.shape[1], device=dev)[None, :] \
-        < ta["seg_m"][:ko.shape[0], None]
-    d_off = (ko.int() - po.int()).abs()[own_res].max().item()
-    d_ca = (kc - pc).abs()[own_res].max().item()
-    if not (d_off <= TOL_I16 and d_ca <= TOL_A):
-        raise AssertionError(f"B=8192 kernel vs plain decode: off {d_off}, "
-                             f"ca {d_ca}")
-    del ko, kc, po, pc
-
-    seeds = FD.refine_seeds(FD.tails(*lane_args(pr, pr["fwd9"])),
-                            pr["fwd9"], ta["is_first"])
-    bb = FD.backbone(*lane_args(pr, seeds))
-    per_kernel = {
-        "k1": (lambda: FD.tails(*lane_args(pr, pr["fwd9"])),
-               lambda: FD.tails_plain(*lane_args(pr, pr["fwd9"]))),
-        "k2": (lambda: FD.backbone(*lane_args(pr, seeds)),
-               lambda: FD.backbone_plain(*lane_args(pr, seeds))),
-        "k3": (lambda: FD.sidechain(*bb, pr["code"], pr["sct"], nl_out,
-                                    seg_m=ta["seg_m"]),
-               lambda: FD.sidechain_plain(*bb, pr["code"], pr["sct"],
-                                          nl_out)),
-    }
-    # the rows each kernel must compute: the real lanes' residue rows
-    nl_real = sum(f.n_anchor - 1 for f in big)
-    rows = int(ta["seg_m"][:nl_real].sum())
-    times = {}
-    for k, (kern, plain) in per_kernel.items():
-        p1 = cuda_ms(torch, plain, 2)
-        k1 = cuda_ms(torch, kern, 10)
-        k2 = cuda_ms(torch, kern, 10)
-        p2 = cuda_ms(torch, plain, 2)
-        n_bytes = BYTES_PER_ROW[k] * rows + BYTES_PER_LANE[k] * nl_real
-        b_ms, b_by = bound(n_bytes, FLOPS_PER_ROW[k] * rows)
-        times[k] = {"ms": min(k1, k2), "plain_ms": min(p1, p2),
-                    "runs_ms": [p1, k1, k2, p2], "bytes": n_bytes,
-                    "bound_ms": b_ms, "bound_by": b_by,
-                    "bound_share": b_ms / min(k1, k2)}
-    # k3 over every row, the padding's too: what skipping it saves
-    times["k3"]["all_rows_ms"] = cuda_ms(
-        torch, lambda: FD.sidechain(*bb, pr["code"], pr["sct"], nl_out), 10)
-    del bb, seeds
-    ms_kern = min(ms_kern_a, ms_kern_b)
-    ms_plain = min(ms_plain_a, ms_plain_b)
-    emit("device", gpu=card, entries=len(big), residues=n_res,
-         lanes_real=nl_real, rows_real=rows,
-         seg=int(arrays["seg_records"].shape[1]),
-         lanes=int(arrays["seg_records"].shape[2]), nl_out=nl_out,
-         pack_and_h2d_seconds=pack_s,
-         kernel_decode_ms=ms_kern, plain_decode_ms=ms_plain,
-         kernel_decode_runs_ms=[ms_kern_a, ms_kern_b],
-         plain_decode_runs_ms=[ms_plain_a, ms_plain_b],
-         kernel_residues_per_s=n_res / (ms_kern * 1e-3),
-         plain_residues_per_s=n_res / (ms_plain * 1e-3),
-         kernel_vs_plain={"off_units": d_off, "ca_A": d_ca},
-         per_kernel=times)
-    del arrays, ta, pr, big
+    times = device_decode(dev, card, uniq, err)
     torch.cuda.empty_cache()
     if args.quick:
         return 0

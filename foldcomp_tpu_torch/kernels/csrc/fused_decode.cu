@@ -35,7 +35,7 @@
 // fd_set_tables fills the current device's copy, and build.py calls it
 // once for each device before that device's first launch.
 enum { K_C_TO_N = 0, K_CA_TO_C, K_N_TO_CA, K_RADK, K_SC_CONT, K_SC_MIN,
-       K_COUNT };
+       K_PRO_N_TO_CA, K_PRO_CODE, K_COUNT };
 #define N_CODES 32
 #define MAX_ATOM 14
 __constant__ int c_pred[N_CODES * MAX_ATOM * 3];
@@ -83,24 +83,28 @@ __device__ __forceinline__ V3 place_frame(V3 a, V3 b, V3 c, float dx,
             bcnz * dx + mz * dy + nz * dz + c.z);
 }
 
+// (cos, sin) of an angle in degrees.
+__device__ __forceinline__ float2 cs_deg(float deg) {
+  const float r = deg * c_k[K_RADK];
+  return make_float2(cosf(r), sinf(r));
+}
+
 // _place_atom_cs (pallas_decode.py:93-117): place the atom after c with
-// the bond angle given as (cos, sin).
+// the bond angle and the torsion given as (cos, sin).
 __device__ __forceinline__ V3 place_cs(V3 a, V3 b, V3 c, float bond_length,
                                        float cos_ba, float sin_ba,
-                                       float torsion_deg) {
-  float ta = torsion_deg * c_k[K_RADK];
+                                       float2 tor) {
   return place_frame(a, b, c, -bond_length * cos_ba,
-                     bond_length * cosf(ta) * sin_ba,
-                     bond_length * sinf(ta) * sin_ba);
+                     bond_length * tor.x * sin_ba,
+                     bond_length * tor.y * sin_ba);
 }
 
 // place_atom_c (foldcomp_tpu/kernels/geometry.py:78-112): the bond angle
 // in degrees.
 __device__ __forceinline__ V3 place_deg(V3 a, V3 b, V3 c, float bond_length,
-                                        float bond_angle_deg,
-                                        float torsion_deg) {
-  float ba = bond_angle_deg * c_k[K_RADK];
-  return place_cs(a, b, c, bond_length, cosf(ba), sinf(ba), torsion_deg);
+                                        float bond_angle_deg, float2 tor) {
+  const float2 ba = cs_deg(bond_angle_deg);
+  return place_cs(a, b, c, bond_length, ba.x, ba.y, tor);
 }
 
 // _bond_angle_cs (pallas_decode.py:72-87): (cos, sin) of the angle at b.
@@ -158,47 +162,75 @@ __device__ __forceinline__ void lane_init(Lane* ln,
 }
 
 // One forward NeRF step (_fwd_scan_into body, pallas_decode.py:163-181):
-// residue k's angles place residue k+1's N, CA, C after (a, b, c).
-__device__ __forceinline__ void fwd_step(const Lane& ln,
-                                         const float* __restrict__ blca,
-                                         int k, V3* a, V3* b, V3* c) {
+// residue k's angles place residue k+1's N, CA, C after (a, b, c). The
+// N-CA length is proline's where residue code byte0 >> 3 is PRO_CODE, as
+// _class_prep's blca (pallas_decode.py:405-437) has it. tor[f] gets the
+// (cos, sin) of residue k's torsion field f (psi, omega, phi).
+__device__ __forceinline__ void fwd_step(const Lane& ln, int k, V3* a, V3* b,
+                                         V3* c, float2* tor) {
   int b0 = ln.byte(0, k), b1 = ln.byte(1, k), b2 = ln.byte(2, k);
   int b3 = ln.byte(3, k), b4 = ln.byte(4, k), b5 = ln.byte(5, k);
   int b6 = ln.byte(6, k), b7 = ln.byte(7, k);
-  float psi = ln.deq(0, (b2 << 4) | (b3 >> 4));
-  float omega = ln.deq(1, ((b0 & 0x7) << 8) | b1);
-  float phi = ln.deq(2, ((b3 & 0xF) << 8) | b4);
+  tor[0] = cs_deg(ln.deq(0, (b2 << 4) | (b3 >> 4)));     // psi
+  tor[1] = cs_deg(ln.deq(1, ((b0 & 0x7) << 8) | b1));    // omega
+  tor[2] = cs_deg(ln.deq(2, ((b3 & 0xF) << 8) | b4));    // phi
   float ncac = ln.deq(3, b7);
   float cacn = ln.deq(4, b5);
   float cnca = ln.deq(5, b6);
-  V3 n = place_deg(*a, *b, *c, c_k[K_C_TO_N], cacn, psi);
-  V3 ca = place_deg(*b, *c, n, blca[(size_t)k * ln.nl + ln.l], cnca, omega);
-  V3 cc = place_deg(*c, n, ca, c_k[K_CA_TO_C], ncac, phi);
+  const float n_ca = (b0 >> 3) == __float2int_rz(c_k[K_PRO_CODE])
+                         ? c_k[K_PRO_N_TO_CA]
+                         : c_k[K_N_TO_CA];
+  V3 n = place_deg(*a, *b, *c, c_k[K_C_TO_N], cacn, tor[0]);
+  V3 ca = place_deg(*b, *c, n, n_ca, cnca, tor[1]);
+  V3 cc = place_deg(*c, n, ca, c_k[K_CA_TO_C], ncac, tor[2]);
   *a = n;
   *b = ca;
   *c = cc;
 }
 
+// Row r of lane l in the [3*SEG, NL] planes.
+__device__ __forceinline__ void put_row(float* __restrict__ ox,
+                                        float* __restrict__ oy,
+                                        float* __restrict__ oz, int r, int nl,
+                                        int l, V3 v) {
+  const size_t i = (size_t)r * nl + l;
+  ox[i] = v.x;
+  oy[i] = v.y;
+  oz[i] = v.z;
+}
+
+__device__ __forceinline__ V3 get_row(const float* __restrict__ ox,
+                                      const float* __restrict__ oy,
+                                      const float* __restrict__ oz, int r,
+                                      int nl, int l) {
+  const size_t i = (size_t)r * nl + l;
+  return v3(ox[i], oy[i], oz[i]);
+}
+
 // k1: forward scan from the anchor seed, blended 3-atom tail per lane.
 //
-// One thread per lane; the loop over residues runs inside the thread. The
-// TPU kernel wrote all 3*SEG forward rows to VMEM and picked rows
-// tat-3..tat-1 with a masked pass over every row (a TPU lane cannot index
-// a row of its own); here the scan stops at row tat-1 and the tail atoms
-// are the three in registers, so k1 needs no row buffer. Bound: the serial
-// chain of sinf/cosf/rsqrtf per lane (3 placements per residue), with
-// lanes against the 132 SMs' resident threads as the only parallelism.
+// One thread per lane, the lanes taken in the order `order` gives
+// (fused_decode.py lane_order: by tat, longest first, stable), so that the
+// threads of a warp walk lanes of one length and none waits for a longer
+// one. The loop over residues runs inside the thread and stops at the
+// lane's own row tat-1; the tail atoms are the three in registers, so k1
+// needs no row buffer (the TPU kernel wrote all 3*SEG forward rows to VMEM
+// and picked rows tat-3..tat-1 with a masked pass over every row: a TPU
+// lane cannot index a row of its own). Bound: instruction issue, 3
+// placements and 6 full-precision sin/cos pairs a residue; the lanes
+// against the card's resident threads are the only parallelism.
 //
 // out [9, NL] rows comp*3 + kk: tail row tat-3+kk blended with the stored
 // next anchor ranc by weights (tat-3+kk, 3-kk)/tat (pallas_decode.py:213-222).
 __global__ void __launch_bounds__(128)
-k1_tails(const uint8_t* __restrict__ recs, const float* __restrict__ blca,
-         const float* __restrict__ seed, const float* __restrict__ ranc,
-         const int* __restrict__ tat_, const float* __restrict__ mins6,
-         const float* __restrict__ cont6, float* __restrict__ out, int seg,
+k1_tails(const uint8_t* __restrict__ recs, const float* __restrict__ seed,
+         const float* __restrict__ ranc, const int* __restrict__ tat_,
+         const float* __restrict__ mins6, const float* __restrict__ cont6,
+         const int* __restrict__ order, float* __restrict__ out, int seg,
          int nl) {
-  int l = blockIdx.x * blockDim.x + threadIdx.x;
-  if (l >= nl) return;
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= nl) return;
+  const int l = order[i];
   Lane ln;
   lane_init(&ln, recs, mins6, cont6, seg, nl, l);
   int tat = tat_[l];
@@ -210,7 +242,8 @@ k1_tails(const uint8_t* __restrict__ recs, const float* __restrict__ blca,
   // tail is zero.
   V3 t0 = v3(0.f, 0.f, 0.f), t1 = t0, t2 = t0;
   if (tat >= 3 && tat <= 3 * seg) {
-    for (int k = 0; 3 * k + 3 < tat; ++k) fwd_step(ln, blca, k, &a, &b, &c);
+    float2 tor[3];
+    for (int k = 0; 3 * k + 3 < tat; ++k) fwd_step(ln, k, &a, &b, &c, tor);
     t0 = a;
     t1 = b;
     t2 = c;
@@ -229,101 +262,135 @@ k1_tails(const uint8_t* __restrict__ recs, const float* __restrict__ blca,
   }
 }
 
-// k2: forward scan from the refined seeds, reverse C->N sweep, blend.
+// k2: seed, forward scan, reverse C->N sweep and blend of each lane
+// (_make_backbone_kernel, pallas_decode.py:227-296, after the seed roll of
+// :596-610).
 //
-// One thread per lane. The forward rows go straight into the output planes
-// ox/oy/oz [3*SEG, NL]. The reverse sweep then runs down from row t-1 with
-// a register window of forward rows r+1, r+2: at row r it reads forward row
-// r, places the reverse atom (its bond angle comes from forward rows
-// r..r+2), and overwrites row r with the blend (f*(tat-r) + rev*r)/tat
-// (_blend_pass_sweep parity, pallas_decode.py:249-294). No reverse-row
-// scratch, and no VMEM-style limit on SEG (the TPU kernel's 3*SEG scratch
-// capped SEG at ~96). Bound: per lane a serial chain of ~3*SEG forward and
-// 3*SEG reverse placements (sinf/cosf/rsqrtf/sqrtf/divide); lane count
-// against the 132 SMs' resident threads is the only parallelism.
+// Work: one thread per lane at a time, on a grid of `grid` blocks that
+// walks the lanes in the order `order` gives (lane_order: by tat, longest
+// first, stable), so a warp's lanes have one length: no thread idles while
+// a longer lane of its warp runs on, and the lanes of one length stay in
+// pack order, so a warp's stores fall on neighbouring lanes. A lane walks
+// its own rows only, 0 .. tat-1 (tat = 3*seg_m): rows >= tat are pack
+// padding, neither computed nor written, and pad lanes (seg_m 1) do the
+// 3-row blend alone.
+//  - Seed: with tails9 (refine_iters >= 2), lane l-1's blended tail (lane
+//    -1 wraps to NL-1, as jnp.roll and torch.roll do) unless is_first[l];
+//    else the lane's own anchor seed fwd9.
+//  - Forward: rows 0 .. tat-4 go to the output planes ox/oy/oz; the last
+//    three stay in registers.
+//  - Reverse: down from row tat-1. Rows tat-1..tat-3 are the stored
+//    anchors ranc; row r <= tat-4 is placed from the reverse atoms at
+//    r+1..r+3 (registers), its bond angle from forward rows r..r+2 (row r
+//    read back, r+1 and r+2 in registers), its torsion the forward's
+//    (tor_s, or recomputed); then row r is overwritten with the blend
+//    (f*(tat-r) + rev*r)/tat. Each residue's three forward rows are loaded
+//    one residue ahead.
+// The N-CA length comes from the record's residue code (fwd_step), the
+// bond lengths of the reverse cycle C-N, CA-C, N-CA by row, all as the
+// TPU kernel has them. No VMEM-style limit on SEG (the TPU kernel's 3*SEG
+// scratch capped SEG at ~96).
 //
-// Precondition: tat <= 3*SEG (the pack's seg_m <= SEG, checked on the host
-// by codec/batch.py arrays_to_torch). Rows r <= tat-4 are the only placed
-// ones, so min(r, t-3) is r there and the window holds every row the
-// angle needs.
+// Bound: instruction issue. A residue costs 6 placements, 6 (cos, sin)
+// pairs in the forward and 3 in the reverse (or 3 read from tor_s), 3
+// bond angles (2 square roots and a division each) and 9 blend divisions,
+// against 8 B of records in and 36 B of rows out; the forward rows' round
+// trip through the planes adds 72 B a residue.
+template <bool kTorScratch>
 __global__ void __launch_bounds__(128)
-k2_backbone(const uint8_t* __restrict__ recs, const float* __restrict__ blca,
-            const float* __restrict__ seed, const float* __restrict__ ranc,
-            const int* __restrict__ tat_, const float* __restrict__ mins6,
-            const float* __restrict__ cont6, float* __restrict__ ox,
-            float* __restrict__ oy, float* __restrict__ oz, int seg,
-            int nl) {
-  int l = blockIdx.x * blockDim.x + threadIdx.x;
-  if (l >= nl) return;
-  Lane ln;
-  lane_init(&ln, recs, mins6, cont6, seg, nl, l);
-  const int t = 3 * seg;
+k2_backbone(const uint8_t* __restrict__ recs, const float* __restrict__ tails9,
+            const float* __restrict__ fwd9,
+            const uint8_t* __restrict__ is_first,
+            const float* __restrict__ ranc, const int* __restrict__ tat_,
+            const float* __restrict__ mins6, const float* __restrict__ cont6,
+            const int* __restrict__ order, float* __restrict__ ox,
+            float* __restrict__ oy, float* __restrict__ oz,
+            float2* __restrict__ tor_s, int seg, int nl) {
+  const int tid = blockIdx.x * blockDim.x + threadIdx.x;
+  const int nt = gridDim.x * blockDim.x;
+  for (int i = tid; i < nl; i += nt) {
+    const int l = order[i];
+    const int tat = min(tat_[l], 3 * seg);
+    if (tat < 3) continue;
+    const int sm = tat / 3;  // the lane's residues
+    Lane ln;
+    lane_init(&ln, recs, mins6, cont6, seg, nl, l);
+    V3 a, b, c;
+    if (tails9 != nullptr && !is_first[l]) {
+      // lane l-1's tail, rows comp*3 + atom
+      const size_t p = l == 0 ? nl - 1 : l - 1;
+      a = v3(tails9[p], tails9[3 * (size_t)nl + p], tails9[6 * (size_t)nl + p]);
+      b = v3(tails9[(size_t)nl + p], tails9[4 * (size_t)nl + p],
+             tails9[7 * (size_t)nl + p]);
+      c = v3(tails9[2 * (size_t)nl + p], tails9[5 * (size_t)nl + p],
+             tails9[8 * (size_t)nl + p]);
+    } else {
+      a = load3(fwd9, 0, nl, l);
+      b = load3(fwd9, 3, nl, l);
+      c = load3(fwd9, 6, nl, l);
+    }
+    for (int k = 0; k < sm - 1; ++k) {
+      put_row(ox, oy, oz, 3 * k, nl, l, a);
+      put_row(ox, oy, oz, 3 * k + 1, nl, l, b);
+      put_row(ox, oy, oz, 3 * k + 2, nl, l, c);
+      float2 tor[3];
+      fwd_step(ln, k, &a, &b, &c, tor);
+      if (kTorScratch) {
+#pragma unroll
+        for (int f = 0; f < 3; ++f)
+          tor_s[(size_t)(3 * k + f) * nt + tid] = tor[f];
+      }
+    }
 
-  V3 a = load3(seed, 0, nl, l), b = load3(seed, 3, nl, l),
-     c = load3(seed, 6, nl, l);
-  ox[l] = a.x;
-  oy[l] = a.y;
-  oz[l] = a.z;
-  ox[(size_t)nl + l] = b.x;
-  oy[(size_t)nl + l] = b.y;
-  oz[(size_t)nl + l] = b.z;
-  ox[(size_t)2 * nl + l] = c.x;
-  oy[(size_t)2 * nl + l] = c.y;
-  oz[(size_t)2 * nl + l] = c.z;
-  for (int k = 0; k < seg - 1; ++k) {
-    fwd_step(ln, blca, k, &a, &b, &c);
-    size_t row = (size_t)(3 * k + 3) * nl + l;
-    ox[row] = a.x;
-    oy[row] = a.y;
-    oz[row] = a.z;
-    ox[row + nl] = b.x;
-    oy[row + nl] = b.y;
-    oz[row + nl] = b.z;
-    ox[row + 2 * (size_t)nl] = c.x;
-    oy[row + 2 * (size_t)nl] = c.y;
-    oz[row + 2 * (size_t)nl] = c.z;
-  }
-
-  const int tat = tat_[l];
-  const float tatf = (float)tat;
-  const float tf = fmaxf(tatf, 1.0f);
-  const V3 anc_n = load3(ranc, 0, nl, l), anc_ca = load3(ranc, 3, nl, l),
-           anc_c = load3(ranc, 6, nl, l);
-  const V3 zero = v3(0.f, 0.f, 0.f);
-  V3 v1 = zero, v2 = zero, v3_ = zero;  // reverse atoms at rows r+1..r+3
-  V3 f1 = zero, f2 = zero;              // forward atoms at rows r+1, r+2
-  for (int i = 0; i < t; ++i) {
-    const int r = t - 1 - i;
-    const size_t row = (size_t)r * nl + l;
-    const V3 f0 = v3(ox[row], oy[row], oz[row]);
-    V3 w;
-    if (r <= tat - 4) {
-      // bond length cycle C-N, CA-C, N-CA by descending step (t % 3 == 0)
-      const int im3 = i % 3;
-      const float bl = im3 == 0 ? c_k[K_C_TO_N]
-                                : (im3 == 1 ? c_k[K_CA_TO_C] : c_k[K_N_TO_CA]);
+    const float tatf = (float)tat;
+    const float tf = fmaxf(tatf, 1.0f);
+    auto blend = [&](int r, V3 f, V3 w) {
+      const float w_r = (float)r;
+      const float w_f = tatf - w_r;
+      put_row(ox, oy, oz, r, nl, l,
+              v3((f.x * w_f + w.x * w_r) / tf, (f.y * w_f + w.y * w_r) / tf,
+                 (f.z * w_f + w.z * w_r) / tf));
+    };
+    // reverse atoms at rows r+1..r+3 and forward atoms at r+1, r+2
+    V3 v3_ = load3(ranc, 6, nl, l), v2 = load3(ranc, 3, nl, l),
+       v1 = load3(ranc, 0, nl, l);
+    blend(tat - 1, c, v3_);
+    blend(tat - 2, b, v2);
+    blend(tat - 3, a, v1);
+    V3 f1 = a, f2 = b;
+    auto rev = [&](int r, V3 f0, float bl, float2 tor) {
       float cos_a, sin_a;
       bond_angle_cs(f0, f1, f2, &cos_a, &sin_a);
-      w = place_cs(v3_, v2, v1, bl, cos_a, sin_a, ln.torsion(r % 3, r / 3));
-    } else if (r == tat - 1) {
-      w = anc_c;
-    } else if (r == tat - 2) {
-      w = anc_ca;
-    } else if (r == tat - 3) {
-      w = anc_n;
-    } else {
-      w = zero;
+      const V3 w = place_cs(v3_, v2, v1, bl, cos_a, sin_a, tor);
+      blend(r, f0, w);
+      v3_ = v2;
+      v2 = v1;
+      v1 = w;
+      f2 = f1;
+      f1 = f0;
+    };
+    V3 p0 = a, p1 = a, p2 = a;  // forward rows of residue j, one ahead
+    if (sm >= 2) {
+      p0 = get_row(ox, oy, oz, tat - 6, nl, l);
+      p1 = get_row(ox, oy, oz, tat - 5, nl, l);
+      p2 = get_row(ox, oy, oz, tat - 4, nl, l);
     }
-    const float w_r = (float)r;
-    const float w_f = tatf - w_r;
-    ox[row] = (f0.x * w_f + w.x * w_r) / tf;
-    oy[row] = (f0.y * w_f + w.y * w_r) / tf;
-    oz[row] = (f0.z * w_f + w.z * w_r) / tf;
-    v3_ = v2;
-    v2 = v1;
-    v1 = w;
-    f2 = f1;
-    f1 = f0;
+    for (int j = sm - 2; j >= 0; --j) {
+      const V3 q0 = p0, q1 = p1, q2 = p2;
+      if (j > 0) {
+        p0 = get_row(ox, oy, oz, 3 * j - 3, nl, l);
+        p1 = get_row(ox, oy, oz, 3 * j - 2, nl, l);
+        p2 = get_row(ox, oy, oz, 3 * j - 1, nl, l);
+      }
+      float2 tor[3];
+#pragma unroll
+      for (int f = 0; f < 3; ++f)
+        tor[f] = kTorScratch ? tor_s[(size_t)(3 * j + f) * nt + tid]
+                             : cs_deg(ln.torsion(f, j));
+      rev(3 * j + 2, q2, c_k[K_C_TO_N], tor[2]);
+      rev(3 * j + 1, q1, c_k[K_CA_TO_C], tor[1]);
+      rev(3 * j, q0, c_k[K_N_TO_CA], tor[0]);
+    }
   }
 }
 
@@ -648,22 +715,33 @@ cudaError_t fd_set_tables(const int* pred32, const float* blen32,
   return e;
 }
 
-cudaError_t fd_tails(const uint8_t* recs, const float* blca, const float* seed,
+cudaError_t fd_tails(const uint8_t* recs, const float* seed,
                      const float* ranc, const int* tat, const float* mins6,
-                     const float* cont6, float* out, int seg, int nl,
-                     cudaStream_t stream) {
+                     const float* cont6, const int* order, float* out,
+                     int seg, int nl, cudaStream_t stream) {
   k1_tails<<<blocks_for(nl, 128), 128, 0, stream>>>(
-      recs, blca, seed, ranc, tat, mins6, cont6, out, seg, nl);
+      recs, seed, ranc, tat, mins6, cont6, order, out, seg, nl);
   return cudaGetLastError();
 }
 
-cudaError_t fd_backbone(const uint8_t* recs, const float* blca,
-                        const float* seed, const float* ranc, const int* tat,
-                        const float* mins6, const float* cont6, float* ox,
-                        float* oy, float* oz, int seg, int nl,
-                        cudaStream_t stream) {
-  k2_backbone<<<blocks_for(nl, 128), 128, 0, stream>>>(
-      recs, blca, seed, ranc, tat, mins6, cont6, ox, oy, oz, seg, nl);
+// k2 on `grid` blocks of 128 threads. tails9 null: the seeds are fwd9
+// (refine_iters 1). tor_s null: the reverse recomputes the torsions' (cos,
+// sin); else tor_s is a [3*SEG, grid*128] float2 scratch.
+cudaError_t fd_backbone(const uint8_t* recs, const float* tails9,
+                        const float* fwd9, const uint8_t* is_first,
+                        const float* ranc, const int* tat, const float* mins6,
+                        const float* cont6, const int* order, float* ox,
+                        float* oy, float* oz, float2* tor_s, int seg, int nl,
+                        int grid, cudaStream_t stream) {
+  if (grid < 1) return cudaErrorInvalidValue;
+  if (tor_s != nullptr)
+    k2_backbone<true><<<grid, 128, 0, stream>>>(
+        recs, tails9, fwd9, is_first, ranc, tat, mins6, cont6, order, ox, oy,
+        oz, tor_s, seg, nl);
+  else
+    k2_backbone<false><<<grid, 128, 0, stream>>>(
+        recs, tails9, fwd9, is_first, ranc, tat, mins6, cont6, order, ox, oy,
+        oz, tor_s, seg, nl);
   return cudaGetLastError();
 }
 

@@ -1,5 +1,5 @@
-"""Fused ragged-lane decode: k1 tails, seed roll, k2 backbone, k3 side
-chains.
+"""Fused ragged-lane decode: k1 tails, k2 backbone (the seed roll
+inside), k3 side chains.
 
 Counterpart of foldcomp_tpu/kernels/pallas_decode.py `decode_seg_fused`
 (full wire): the same inputs (the arrays of codec/batch.py
@@ -52,24 +52,38 @@ def launch_counts() -> dict:
 def class_prep(seg_records, mins_lane, cont_lane, sc_codes_seg, fwd9, rev9,
                seg_m) -> dict:
     """Kernel inputs from the pack's arrays: the residue-code plane
-    (byte0 >> 3), the per-residue N-CA length (proline's is shorter), the
-    quantizer rows in kernel field order, and tat = 3 * seg_m. Records and
-    side-chain codes stay packed u8; the kernels unpack them."""
+    (byte0 >> 3) that k3 reads, the quantizer rows in kernel field order,
+    and tat = 3 * seg_m. Records and side-chain codes stay packed u8; the
+    kernels unpack them, and k1 and k2 derive the N-CA length from the
+    records themselves (n_ca_lengths is its plain version)."""
     dev = seg_records.device
-    code = (seg_records[0].to(torch.int32) >> 3).contiguous()   # [SEG, NL]
-    blca = torch.where(code == T.PRO_CODE,
-                       torch.tensor(float(T.PRO_N_TO_CA), dtype=F32,
-                                    device=dev),
-                       torch.tensor(float(T.N_TO_CA), dtype=F32,
-                                    device=dev))
     cols = torch.as_tensor(T.FIELD_COLS, device=dev)
     return dict(
-        recs=seg_records.contiguous(), blca=blca, code=code,
+        recs=seg_records.contiguous(),
+        code=(seg_records[0].to(torch.int32) >> 3).contiguous(),
         sct=sc_codes_seg.contiguous(),
         fwd9=fwd9.contiguous(), rev9=rev9.contiguous(),
         tat=(3 * seg_m).to(torch.int32).contiguous(),
         mins6=mins_lane.t()[cols].contiguous(),
         cont6=cont_lane.t()[cols].contiguous())
+
+
+def n_ca_lengths(recs):
+    """[SEG, NL] f32 N-CA bond length of each record row: proline's is
+    shorter (residue code byte0 >> 3 == PRO_CODE). _class_prep's blca."""
+    pro = (recs[0].to(torch.int32) >> 3) == T.PRO_CODE
+    return torch.where(pro, torch.tensor(float(T.PRO_N_TO_CA), dtype=F32,
+                                         device=recs.device),
+                       torch.tensor(float(T.N_TO_CA), dtype=F32,
+                                    device=recs.device))
+
+
+def lane_order(tat):
+    """i32 [NL] permutation of the lanes by tat, longest first, stable (the
+    lanes of one length in pack order): the order k1 and k2 walk them in,
+    so that a warp's lanes have one length."""
+    return torch.argsort(tat, descending=True, stable=True) \
+        .to(torch.int32)
 
 
 # ---------------------------------------------------------------------------
@@ -167,6 +181,27 @@ def backbone_plain(recs, blca, seed, ranc, tat, mins6, cont6):
                  for c, f in enumerate((fx, fy, fz)))
 
 
+def refine_seeds(tails9, fwd9, is_first):
+    """Seed roll (pallas_decode.py:596-610): lane s is seeded with lane
+    s-1's blended tail unless it is its protein's first segment. Ragged
+    lanes are protein-contiguous, so the shift is a roll by one lane.
+    tails9 rows are comp*3 + atom; seeds rows atom*3 + comp."""
+    nl = tails9.shape[1]
+    rolled = torch.roll(tails9, 1, dims=1).reshape(3, 3, nl) \
+        .transpose(0, 1).reshape(9, nl)
+    return torch.where(is_first[None], fwd9, rolled).contiguous()
+
+
+def backbone_rolled_plain(recs, tails9, fwd9, is_first, ranc, tat, mins6,
+                          cont6):
+    """The function k2 computes: the seed roll (refine_seeds; tails9 None
+    means refine_iters 1, seeded by fwd9), the N-CA lengths of the
+    records, then backbone_plain."""
+    seeds = fwd9 if tails9 is None else refine_seeds(tails9, fwd9, is_first)
+    return backbone_plain(recs, n_ca_lengths(recs), seeds, ranc, tat, mins6,
+                          cont6)
+
+
 def sidechain_plain(bx, by, bz, code, sct, nl_out=None):
     """k3: side chains + compact wire (_make_sidechain_kernel,
     pallas_decode.py:338-393) with the 32-code table lookup of
@@ -228,24 +263,30 @@ def _check(name, t, dtype, shape, device):
         raise ValueError(f"{name}: not contiguous")
 
 
-def _check_lane_inputs(recs, blca, seed, ranc, tat, mins6, cont6):
+def _check_lane_inputs(recs, ranc, tat, mins6, cont6, order, **seeds):
+    """Check the lane inputs of k1 and k2 (each seed tensor [9, NL] f32,
+    is_first [NL] bool); -> (SEG, NL)."""
     if recs.dim() != 3 or recs.shape[0] != 8:
         raise ValueError(f"recs: shape {tuple(recs.shape)}, expected "
                          "[8, SEG, NL]")
     _, seg, nl = recs.shape
     dev = recs.device
     _check("recs", recs, torch.uint8, (8, seg, nl), dev)
-    _check("blca", blca, F32, (seg, nl), dev)
-    _check("seed", seed, F32, (9, nl), dev)
+    for name, t in seeds.items():
+        if name == "is_first":
+            _check(name, t, torch.bool, (nl,), dev)
+        elif t is not None:
+            _check(name, t, F32, (9, nl), dev)
     _check("ranc", ranc, F32, (9, nl), dev)
     _check("tat", tat, torch.int32, (nl,), dev)
     _check("mins6", mins6, F32, (6, nl), dev)
     _check("cont6", cont6, F32, (6, nl), dev)
+    _check("order", order, torch.int32, (nl,), dev)
     return seg, nl
 
 
 def _ptrs(*ts):
-    return [t.data_ptr() for t in ts]
+    return [None if t is None else t.data_ptr() for t in ts]
 
 
 def _launch(fn, name, dev, *args):
@@ -257,35 +298,65 @@ def _launch(fn, name, dev, *args):
         raise RuntimeError(f"{name} launch failed: cudaError {err}")
 
 
-def tails(recs, blca, seed, ranc, tat, mins6, cont6):
-    """k1 -> [9, NL] blended tails."""
+def tails(recs, seed, ranc, tat, mins6, cont6, order=None):
+    """k1 -> [9, NL] blended tails of the forward scan from `seed` ([9,
+    NL] rows atom*3 + comp). The N-CA lengths come from the records.
+    order (i32 [NL]): the order the threads walk the lanes in, lane_order
+    (tat) when None; it changes no value."""
     global K1_LAUNCHES
     if recs.device.type == "cpu":
-        return tails_plain(recs, blca, seed, ranc, tat, mins6, cont6)
+        return tails_plain(recs, n_ca_lengths(recs), seed, ranc, tat,
+                           mins6, cont6)
     lib = _cuda_lib(recs)
-    seg, nl = _check_lane_inputs(recs, blca, seed, ranc, tat, mins6, cont6)
+    if order is None:
+        order = lane_order(tat)
+    seg, nl = _check_lane_inputs(recs, ranc, tat, mins6, cont6, order,
+                                 seed=seed)
     out = torch.empty((9, nl), dtype=F32, device=recs.device)
     if nl:
         _launch(lib.fd_tails, "k1 tails", recs.device,
-                *_ptrs(recs, blca, seed, ranc, tat, mins6, cont6, out), seg,
+                *_ptrs(recs, seed, ranc, tat, mins6, cont6, order, out), seg,
                 nl)
         K1_LAUNCHES += 1
     return out
 
 
-def backbone(recs, blca, seed, ranc, tat, mins6, cont6):
-    """k2 -> blended backbone rows [3*SEG, NL] x3."""
+def backbone(recs, tails9, fwd9, is_first, ranc, tat, mins6, cont6,
+             order=None, blocks_per_sm=None, tor_scratch=False):
+    """k2 -> blended backbone rows [3*SEG, NL] x3.
+
+    Seeds: lane l starts from lane l-1's k1 tail (tails9 [9, NL], rows
+    comp*3 + atom; lane -1 is lane NL-1) unless is_first[l], and from its
+    own fwd9 when tails9 is None (refine_iters 1). The N-CA lengths come
+    from the records. On a CUDA device the kernel computes and writes rows
+    r < tat[l] only: rows >= tat (pack padding) of a CUDA result are
+    unspecified. The plain version on the CPU computes every row.
+    order: as for `tails`. blocks_per_sm: None for one thread per lane,
+    else a grid of at most that many blocks an SM walking the lanes.
+    tor_scratch: the reverse takes the torsions' (cos, sin) from the
+    forward through a scratch buffer instead of recomputing them."""
     global K2_LAUNCHES
     if recs.device.type == "cpu":
-        return backbone_plain(recs, blca, seed, ranc, tat, mins6, cont6)
+        return backbone_rolled_plain(recs, tails9, fwd9, is_first, ranc,
+                                     tat, mins6, cont6)
     lib = _cuda_lib(recs)
-    seg, nl = _check_lane_inputs(recs, blca, seed, ranc, tat, mins6, cont6)
-    outs = tuple(torch.empty((3 * seg, nl), dtype=F32, device=recs.device)
+    if order is None:
+        order = lane_order(tat)
+    seg, nl = _check_lane_inputs(recs, ranc, tat, mins6, cont6, order,
+                                 tails9=tails9, fwd9=fwd9, is_first=is_first)
+    dev = recs.device
+    outs = tuple(torch.empty((3 * seg, nl), dtype=F32, device=dev)
                  for _ in range(3))
     if nl and seg:
-        _launch(lib.fd_backbone, "k2 backbone", recs.device,
-                *_ptrs(recs, blca, seed, ranc, tat, mins6, cont6, *outs),
-                seg, nl)
+        grid = -(-nl // 128)
+        if blocks_per_sm is not None:
+            sms = torch.cuda.get_device_properties(dev).multi_processor_count
+            grid = max(1, min(grid, sms * int(blocks_per_sm)))
+        scratch = torch.empty((3 * seg, grid * 128, 2), dtype=F32,
+                              device=dev) if tor_scratch else None
+        _launch(lib.fd_backbone, "k2 backbone", dev,
+                *_ptrs(recs, tails9, fwd9, is_first, ranc, tat, mins6, cont6,
+                       order, *outs, scratch), seg, nl, grid)
         K2_LAUNCHES += 1
     return outs
 
@@ -327,17 +398,6 @@ def sidechain(bx, by, bz, code, sct, nl_out=None, seg_m=None):
 # ---------------------------------------------------------------------------
 # the pipeline
 
-def refine_seeds(tails9, fwd9, is_first):
-    """Seed roll (pallas_decode.py:596-610): lane s is seeded with lane
-    s-1's blended tail unless it is its protein's first segment. Ragged
-    lanes are protein-contiguous, so the shift is a roll by one lane.
-    tails9 rows are comp*3 + atom; seeds rows atom*3 + comp."""
-    nl = tails9.shape[1]
-    rolled = torch.roll(tails9, 1, dims=1).reshape(3, 3, nl) \
-        .transpose(0, 1).reshape(9, nl)
-    return torch.where(is_first[None], fwd9, rolled).contiguous()
-
-
 def decode_seg_fused(seg_records, mins_lane, cont_lane, sc_codes_seg,
                      fwd9, rev9, is_first, seg_m, refine_iters: int = 2,
                      nl_out: int | None = None):
@@ -348,16 +408,15 @@ def decode_seg_fused(seg_records, mins_lane, cont_lane, sc_codes_seg,
     [14, 3] milli-angstrom offsets from its CA. Rows s >= seg_m[l] are pack
     padding; on a CUDA device they are left unspecified. The tensors'
     device picks the path: CUDA kernels on a CUDA device, the plain
-    versions on the CPU."""
+    versions on the CPU. k1 and k2 walk the lanes in lane_order; k2 takes
+    k1's tails, fwd9 and is_first and rolls the seeds itself."""
     pr = class_prep(seg_records, mins_lane, cont_lane, sc_codes_seg,
                     fwd9, rev9, seg_m)
-    args = (pr["recs"], pr["blca"])
+    order = lane_order(pr["tat"])
     rest = (pr["rev9"], pr["tat"], pr["mins6"], pr["cont6"])
-    if refine_iters >= 2:
-        seeds = refine_seeds(tails(*args, pr["fwd9"], *rest), pr["fwd9"],
-                             is_first)
-    else:
-        seeds = pr["fwd9"]
-    bx, by, bz = backbone(*args, seeds, *rest)
+    tails9 = tails(pr["recs"], pr["fwd9"], *rest, order=order) \
+        if refine_iters >= 2 else None
+    bx, by, bz = backbone(pr["recs"], tails9, pr["fwd9"], is_first, *rest,
+                          order=order)
     return sidechain(bx, by, bz, pr["code"], pr["sct"], nl_out,
                      seg_m=seg_m.to(torch.int32).contiguous())

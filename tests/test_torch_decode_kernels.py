@@ -116,8 +116,10 @@ def corpus(request):
 
 
 def _lane_args(prep, seeds):
-    return (prep["recs"], prep["blca"], seeds, prep["rev9"], prep["tat"],
-            prep["mins6"], prep["cont6"])
+    """The per-stage plain versions' arguments, N-CA lengths derived from
+    the records as the kernels derive them."""
+    return (prep["recs"], FD.n_ca_lengths(prep["recs"]), seeds,
+            prep["rev9"], prep["tat"], prep["mins6"], prep["cont6"])
 
 
 @pytest.mark.parametrize("refine_iters", [1, 2])
@@ -158,6 +160,26 @@ def test_k2_backbone_plain_matches_jax(corpus, refine_iters):
     own = rows < prep["tat"].numpy()[None, :]
     for g, w in zip(got, ref["bb"]):
         assert g.shape == w.shape
+        assert np.abs(g.numpy() - w)[own].max() <= TOL_A
+
+
+@pytest.mark.parametrize("refine_iters", [1, 2])
+def test_k2_rolled_plain_matches_jax(corpus, refine_iters):
+    """The function k2 now computes (the seed roll and the N-CA lengths
+    inside), fed the JAX tails, fwd9 and is_first: within 1e-3 A of the
+    JAX k2 rows on owned rows, and bit for bit backbone_plain on the JAX
+    path's own seeds."""
+    prep, ta = corpus["prep"], corpus["ta"]
+    ref = corpus["jax"][refine_iters]
+    tails9 = torch.from_numpy(ref["tails"]) if refine_iters >= 2 else None
+    got = FD.backbone_rolled_plain(prep["recs"], tails9, prep["fwd9"],
+                                   ta["is_first"], prep["rev9"], prep["tat"],
+                                   prep["mins6"], prep["cont6"])
+    staged = FD.backbone_plain(*_lane_args(prep,
+                                           torch.from_numpy(ref["seeds"])))
+    own = np.arange(got[0].shape[0])[:, None] < prep["tat"].numpy()[None, :]
+    for g, s, w in zip(got, staged, ref["bb"]):
+        assert torch.equal(g, s)
         assert np.abs(g.numpy() - w)[own].max() <= TOL_A
 
 
@@ -217,9 +239,13 @@ def test_wrappers_run_plain_on_cpu_without_launching(corpus):
     prep = corpus["prep"]
     FD.reset_launch_counts()
     args = _lane_args(prep, prep["fwd9"])
-    assert torch.equal(FD.tails(*args), FD.tails_plain(*args))
-    bb = FD.backbone(*args)
-    for a, b in zip(bb, FD.backbone_plain(*args)):
+    lane = (prep["rev9"], prep["tat"], prep["mins6"], prep["cont6"])
+    tails9 = FD.tails(prep["recs"], prep["fwd9"], *lane)
+    assert torch.equal(tails9, FD.tails_plain(*args))
+    bb = FD.backbone(prep["recs"], tails9, prep["fwd9"],
+                     corpus["ta"]["is_first"], *lane)
+    seeds = FD.refine_seeds(tails9, prep["fwd9"], corpus["ta"]["is_first"])
+    for a, b in zip(bb, FD.backbone_plain(*_lane_args(prep, seeds))):
         assert torch.equal(a, b)
     for a, b in zip(FD.sidechain(*bb, prep["code"], prep["sct"], 512),
                     FD.sidechain_plain(*bb, prep["code"], prep["sct"], 512)):
