@@ -31,8 +31,9 @@ non-zero:
    version's; k1 and k2 also with the lanes in pack order
    (`pack_order_ms`), the lane order's own time (`k2.order_ms`), the
    torch glue (`glue_ms`: the device decode less the three kernels), and
-   k2's other forms (`k2.forms`: the torsions through a scratch buffer,
-   grids of a few blocks an SM), each in turns with the default;
+   k2's other forms (`k2.forms`: the forward rows through scratch
+   planes, grids of a few blocks an SM, runs of 8 lanes sorted whole),
+   each in turns with the default;
 5. e2e: `python -m foldcomp_tpu_torch decompress --fast <db> <out> --db`
    on a 4096-entry FCZ database in a subprocess, timed; 64 sampled
    outputs held to the phase-3 bound;
@@ -152,7 +153,7 @@ def ptxas_report(log):
                                     "k4_merged") if k in m.group(1)),
                        m.group(1))
             if cur == "k2_backbone" and "ILb1E" in m.group(1):
-                cur = "k2_backbone_tor_scratch"
+                cur = "k2_backbone_fwd_scratch"
             out.setdefault(cur, {})
             continue
         if cur is None:
@@ -843,11 +844,17 @@ def device_decode(dev, card, uniq, err, entries=8192):
     # k3 over every row, the padding's too: what skipping it saves
     times["k3"]["all_rows_ms"] = cuda_ms(
         torch, lambda: FD.sidechain(*bb, pr["code"], pr["sct"], nl_out), 10)
-    # k2's other forms, each in turns with the default: the torsions'
-    # (cos, sin) through a scratch buffer, and grids of a few blocks an SM
-    forms = {"tor_scratch": {"tor_scratch": True},
-             **{f"blocks_per_sm_{b}": {"blocks_per_sm": b}
-                for b in (2, 4, 8)}}
+    # k2's other forms, each in turns with the default: the forward rows
+    # through thread-indexed scratch planes, grids of a few blocks an SM,
+    # and runs of 8 neighbouring lanes (one 32-byte sector) sorted whole
+    order8 = FD.lane_order(tat, 8)
+    times["k1"]["order_group8_ms"] = cuda_ms(torch, lambda: k1(order8), 10)
+    forms = {"fwd_scratch": {"fwd_scratch": True},
+             "order_group8": {"o": order8},
+             "order_group8_fwd_scratch": {"o": order8, "fwd_scratch": True},
+             **{f"fwd_scratch_blocks_per_sm_{b}": {"fwd_scratch": True,
+                                                   "blocks_per_sm": b}
+                for b in (4, 8)}}
     times["k2"]["forms"] = {}
     for name, kw in forms.items():
         d1 = cuda_ms(torch, k2, 10)

@@ -277,13 +277,14 @@ k1_tails(const uint8_t* __restrict__ recs, const float* __restrict__ seed,
 //  - Seed: with tails9 (refine_iters >= 2), lane l-1's blended tail (lane
 //    -1 wraps to NL-1, as jnp.roll and torch.roll do) unless is_first[l];
 //    else the lane's own anchor seed fwd9.
-//  - Forward: rows 0 .. tat-4 go to the output planes ox/oy/oz; the last
-//    three stay in registers.
+//  - Forward: rows 0 .. tat-4 go to the output planes ox/oy/oz (or to
+//    scratch planes sx/sy/sz at the thread's column); the last three stay
+//    in registers.
 //  - Reverse: down from row tat-1. Rows tat-1..tat-3 are the stored
 //    anchors ranc; row r <= tat-4 is placed from the reverse atoms at
 //    r+1..r+3 (registers), its bond angle from forward rows r..r+2 (row r
-//    read back, r+1 and r+2 in registers), its torsion the forward's
-//    (tor_s, or recomputed); then row r is overwritten with the blend
+//    read back, r+1 and r+2 in registers), its torsion recomputed from
+//    the record; then row r is overwritten with the blend
 //    (f*(tat-r) + rev*r)/tat. Each residue's three forward rows are loaded
 //    one residue ahead.
 // The N-CA length comes from the record's residue code (fwd_step), the
@@ -292,11 +293,11 @@ k1_tails(const uint8_t* __restrict__ recs, const float* __restrict__ seed,
 // scratch capped SEG at ~96).
 //
 // Bound: instruction issue. A residue costs 6 placements, 6 (cos, sin)
-// pairs in the forward and 3 in the reverse (or 3 read from tor_s), 3
+// pairs in the forward and 3 in the reverse, 3
 // bond angles (2 square roots and a division each) and 9 blend divisions,
 // against 8 B of records in and 36 B of rows out; the forward rows' round
 // trip through the planes adds 72 B a residue.
-template <bool kTorScratch>
+template <bool kFwdScratch>
 __global__ void __launch_bounds__(128)
 k2_backbone(const uint8_t* __restrict__ recs, const float* __restrict__ tails9,
             const float* __restrict__ fwd9,
@@ -305,9 +306,16 @@ k2_backbone(const uint8_t* __restrict__ recs, const float* __restrict__ tails9,
             const float* __restrict__ mins6, const float* __restrict__ cont6,
             const int* __restrict__ order, float* __restrict__ ox,
             float* __restrict__ oy, float* __restrict__ oz,
-            float2* __restrict__ tor_s, int seg, int nl) {
+            float* __restrict__ sx, float* __restrict__ sy,
+            float* __restrict__ sz, int seg, int nl) {
   const int tid = blockIdx.x * blockDim.x + threadIdx.x;
   const int nt = gridDim.x * blockDim.x;
+  // the forward rows: the output planes at the lane's column, or the
+  // scratch planes [3*SEG, grid*128] at the thread's
+  float* const fx = kFwdScratch ? sx : ox;
+  float* const fy = kFwdScratch ? sy : oy;
+  float* const fz = kFwdScratch ? sz : oz;
+  const int fn = kFwdScratch ? nt : nl;
   for (int i = tid; i < nl; i += nt) {
     const int l = order[i];
     const int tat = min(tat_[l], 3 * seg);
@@ -329,17 +337,13 @@ k2_backbone(const uint8_t* __restrict__ recs, const float* __restrict__ tails9,
       b = load3(fwd9, 3, nl, l);
       c = load3(fwd9, 6, nl, l);
     }
+    const int fc = kFwdScratch ? tid : l;
     for (int k = 0; k < sm - 1; ++k) {
-      put_row(ox, oy, oz, 3 * k, nl, l, a);
-      put_row(ox, oy, oz, 3 * k + 1, nl, l, b);
-      put_row(ox, oy, oz, 3 * k + 2, nl, l, c);
+      put_row(fx, fy, fz, 3 * k, fn, fc, a);
+      put_row(fx, fy, fz, 3 * k + 1, fn, fc, b);
+      put_row(fx, fy, fz, 3 * k + 2, fn, fc, c);
       float2 tor[3];
       fwd_step(ln, k, &a, &b, &c, tor);
-      if (kTorScratch) {
-#pragma unroll
-        for (int f = 0; f < 3; ++f)
-          tor_s[(size_t)(3 * k + f) * nt + tid] = tor[f];
-      }
     }
 
     const float tatf = (float)tat;
@@ -371,25 +375,20 @@ k2_backbone(const uint8_t* __restrict__ recs, const float* __restrict__ tails9,
     };
     V3 p0 = a, p1 = a, p2 = a;  // forward rows of residue j, one ahead
     if (sm >= 2) {
-      p0 = get_row(ox, oy, oz, tat - 6, nl, l);
-      p1 = get_row(ox, oy, oz, tat - 5, nl, l);
-      p2 = get_row(ox, oy, oz, tat - 4, nl, l);
+      p0 = get_row(fx, fy, fz, tat - 6, fn, fc);
+      p1 = get_row(fx, fy, fz, tat - 5, fn, fc);
+      p2 = get_row(fx, fy, fz, tat - 4, fn, fc);
     }
     for (int j = sm - 2; j >= 0; --j) {
       const V3 q0 = p0, q1 = p1, q2 = p2;
       if (j > 0) {
-        p0 = get_row(ox, oy, oz, 3 * j - 3, nl, l);
-        p1 = get_row(ox, oy, oz, 3 * j - 2, nl, l);
-        p2 = get_row(ox, oy, oz, 3 * j - 1, nl, l);
+        p0 = get_row(fx, fy, fz, 3 * j - 3, fn, fc);
+        p1 = get_row(fx, fy, fz, 3 * j - 2, fn, fc);
+        p2 = get_row(fx, fy, fz, 3 * j - 1, fn, fc);
       }
-      float2 tor[3];
-#pragma unroll
-      for (int f = 0; f < 3; ++f)
-        tor[f] = kTorScratch ? tor_s[(size_t)(3 * j + f) * nt + tid]
-                             : cs_deg(ln.torsion(f, j));
-      rev(3 * j + 2, q2, c_k[K_C_TO_N], tor[2]);
-      rev(3 * j + 1, q1, c_k[K_CA_TO_C], tor[1]);
-      rev(3 * j, q0, c_k[K_N_TO_CA], tor[0]);
+      rev(3 * j + 2, q2, c_k[K_C_TO_N], cs_deg(ln.torsion(2, j)));
+      rev(3 * j + 1, q1, c_k[K_CA_TO_C], cs_deg(ln.torsion(1, j)));
+      rev(3 * j, q0, c_k[K_N_TO_CA], cs_deg(ln.torsion(0, j)));
     }
   }
 }
@@ -725,23 +724,24 @@ cudaError_t fd_tails(const uint8_t* recs, const float* seed,
 }
 
 // k2 on `grid` blocks of 128 threads. tails9 null: the seeds are fwd9
-// (refine_iters 1). tor_s null: the reverse recomputes the torsions' (cos,
-// sin); else tor_s is a [3*SEG, grid*128] float2 scratch.
+// (refine_iters 1). sx null: the forward rows go through the output
+// planes; else sx, sy, sz are [3*SEG, grid*128] float scratch planes.
 cudaError_t fd_backbone(const uint8_t* recs, const float* tails9,
                         const float* fwd9, const uint8_t* is_first,
                         const float* ranc, const int* tat, const float* mins6,
                         const float* cont6, const int* order, float* ox,
-                        float* oy, float* oz, float2* tor_s, int seg, int nl,
-                        int grid, cudaStream_t stream) {
+                        float* oy, float* oz, float* sx, float* sy,
+                        float* sz, int seg, int nl, int grid,
+                        cudaStream_t stream) {
   if (grid < 1) return cudaErrorInvalidValue;
-  if (tor_s != nullptr)
+  if (sx != nullptr)
     k2_backbone<true><<<grid, 128, 0, stream>>>(
         recs, tails9, fwd9, is_first, ranc, tat, mins6, cont6, order, ox, oy,
-        oz, tor_s, seg, nl);
+        oz, sx, sy, sz, seg, nl);
   else
     k2_backbone<false><<<grid, 128, 0, stream>>>(
         recs, tails9, fwd9, is_first, ranc, tat, mins6, cont6, order, ox, oy,
-        oz, tor_s, seg, nl);
+        oz, sx, sy, sz, seg, nl);
   return cudaGetLastError();
 }
 

@@ -78,12 +78,22 @@ def n_ca_lengths(recs):
                                     device=recs.device))
 
 
-def lane_order(tat):
+def lane_order(tat, group: int = 1):
     """i32 [NL] permutation of the lanes by tat, longest first, stable (the
     lanes of one length in pack order): the order k1 and k2 walk them in,
-    so that a warp's lanes have one length."""
-    return torch.argsort(tat, descending=True, stable=True) \
-        .to(torch.int32)
+    so that a warp's lanes have one length. group > 1 sorts runs of that
+    many neighbouring lanes by their longest lane and keeps each run
+    whole."""
+    if group == 1:
+        return torch.argsort(tat, descending=True, stable=True) \
+            .to(torch.int32)
+    nl = tat.numel()
+    pad = (-nl) % group
+    t = torch.cat([tat, tat.new_full((pad,), -1)]).view(-1, group)
+    runs = torch.argsort(t.amax(dim=1), descending=True, stable=True)
+    lanes = (runs[:, None] * group
+             + torch.arange(group, device=tat.device)).reshape(-1)
+    return lanes[lanes < nl].to(torch.int32)
 
 
 # ---------------------------------------------------------------------------
@@ -322,7 +332,7 @@ def tails(recs, seed, ranc, tat, mins6, cont6, order=None):
 
 
 def backbone(recs, tails9, fwd9, is_first, ranc, tat, mins6, cont6,
-             order=None, blocks_per_sm=None, tor_scratch=False):
+             order=None, blocks_per_sm=None, fwd_scratch=False):
     """k2 -> blended backbone rows [3*SEG, NL] x3.
 
     Seeds: lane l starts from lane l-1's k1 tail (tails9 [9, NL], rows
@@ -333,8 +343,8 @@ def backbone(recs, tails9, fwd9, is_first, ranc, tat, mins6, cont6,
     unspecified. The plain version on the CPU computes every row.
     order: as for `tails`. blocks_per_sm: None for one thread per lane,
     else a grid of at most that many blocks an SM walking the lanes.
-    tor_scratch: the reverse takes the torsions' (cos, sin) from the
-    forward through a scratch buffer instead of recomputing them."""
+    fwd_scratch: the forward rows go through scratch planes indexed by
+    thread (coalesced whatever the order) instead of the output planes."""
     global K2_LAUNCHES
     if recs.device.type == "cpu":
         return backbone_rolled_plain(recs, tails9, fwd9, is_first, ranc,
@@ -352,11 +362,12 @@ def backbone(recs, tails9, fwd9, is_first, ranc, tat, mins6, cont6,
         if blocks_per_sm is not None:
             sms = torch.cuda.get_device_properties(dev).multi_processor_count
             grid = max(1, min(grid, sms * int(blocks_per_sm)))
-        scratch = torch.empty((3 * seg, grid * 128, 2), dtype=F32,
-                              device=dev) if tor_scratch else None
+        scratch = tuple(torch.empty((3 * seg, grid * 128), dtype=F32,
+                                    device=dev) for _ in range(3)) \
+            if fwd_scratch else (None,) * 3
         _launch(lib.fd_backbone, "k2 backbone", dev,
                 *_ptrs(recs, tails9, fwd9, is_first, ranc, tat, mins6, cont6,
-                       order, *outs, scratch), seg, nl, grid)
+                       order, *outs, *scratch), seg, nl, grid)
         K2_LAUNCHES += 1
     return outs
 
