@@ -845,16 +845,17 @@ def device_decode(dev, card, uniq, err, entries=8192):
     times["k3"]["all_rows_ms"] = cuda_ms(
         torch, lambda: FD.sidechain(*bb, pr["code"], pr["sct"], nl_out), 10)
     # k2's other forms, each in turns with the default: the forward rows
-    # through thread-indexed scratch planes, grids of a few blocks an SM,
-    # and runs of 8 neighbouring lanes (one 32-byte sector) sorted whole
+    # through thread-indexed scratch planes, runs of 8 neighbouring lanes
+    # (one 32-byte sector) sorted whole, each lane's top forward rows in
+    # shared memory
     order8 = FD.lane_order(tat, 8)
     times["k1"]["order_group8_ms"] = cuda_ms(torch, lambda: k1(order8), 10)
     forms = {"fwd_scratch": {"fwd_scratch": True},
-             "order_group8": {"o": order8},
              "order_group8_fwd_scratch": {"o": order8, "fwd_scratch": True},
-             **{f"fwd_scratch_blocks_per_sm_{b}": {"fwd_scratch": True,
-                                                   "blocks_per_sm": b}
-                for b in (4, 8)}}
+             **{f"fwd_scratch_smem_rows_{r}": {"fwd_scratch": True,
+                                               "smem_rows": r}
+                for r in (24, 48, 72)},
+             "pack_order_smem_rows_72": {"o": pack_order, "smem_rows": 72}}
     times["k2"]["forms"] = {}
     for name, kw in forms.items():
         d1 = cuda_ms(torch, k2, 10)

@@ -307,7 +307,12 @@ k2_backbone(const uint8_t* __restrict__ recs, const float* __restrict__ tails9,
             const int* __restrict__ order, float* __restrict__ ox,
             float* __restrict__ oy, float* __restrict__ oz,
             float* __restrict__ sx, float* __restrict__ sy,
-            float* __restrict__ sz, int seg, int nl) {
+            float* __restrict__ sz, int seg, int nl, int smem_rows) {
+  // a lane's forward rows lo .. tat-4 in shared memory, [3*smem_rows]
+  // columns of blockDim floats, the thread's own column in its own bank
+  extern __shared__ float s_rows[];
+  float* const col = s_rows + threadIdx.x;
+  const int sb = blockDim.x;
   const int tid = blockIdx.x * blockDim.x + threadIdx.x;
   const int nt = gridDim.x * blockDim.x;
   // the forward rows: the output planes at the lane's column, or the
@@ -338,10 +343,28 @@ k2_backbone(const uint8_t* __restrict__ recs, const float* __restrict__ tails9,
       c = load3(fwd9, 6, nl, l);
     }
     const int fc = kFwdScratch ? tid : l;
+    const int lo = max(tat - 3 - smem_rows, 0);
+    auto fput = [&](int r, V3 v) {
+      if (r >= lo) {
+        float* p = col + 3 * (r - lo) * sb;
+        p[0] = v.x;
+        p[sb] = v.y;
+        p[2 * sb] = v.z;
+      } else {
+        put_row(fx, fy, fz, r, fn, fc, v);
+      }
+    };
+    auto fget = [&](int r) {
+      if (r >= lo) {
+        const float* p = col + 3 * (r - lo) * sb;
+        return v3(p[0], p[sb], p[2 * sb]);
+      }
+      return get_row(fx, fy, fz, r, fn, fc);
+    };
     for (int k = 0; k < sm - 1; ++k) {
-      put_row(fx, fy, fz, 3 * k, fn, fc, a);
-      put_row(fx, fy, fz, 3 * k + 1, fn, fc, b);
-      put_row(fx, fy, fz, 3 * k + 2, fn, fc, c);
+      fput(3 * k, a);
+      fput(3 * k + 1, b);
+      fput(3 * k + 2, c);
       float2 tor[3];
       fwd_step(ln, k, &a, &b, &c, tor);
     }
@@ -375,16 +398,16 @@ k2_backbone(const uint8_t* __restrict__ recs, const float* __restrict__ tails9,
     };
     V3 p0 = a, p1 = a, p2 = a;  // forward rows of residue j, one ahead
     if (sm >= 2) {
-      p0 = get_row(fx, fy, fz, tat - 6, fn, fc);
-      p1 = get_row(fx, fy, fz, tat - 5, fn, fc);
-      p2 = get_row(fx, fy, fz, tat - 4, fn, fc);
+      p0 = fget(tat - 6);
+      p1 = fget(tat - 5);
+      p2 = fget(tat - 4);
     }
     for (int j = sm - 2; j >= 0; --j) {
       const V3 q0 = p0, q1 = p1, q2 = p2;
       if (j > 0) {
-        p0 = get_row(fx, fy, fz, 3 * j - 3, fn, fc);
-        p1 = get_row(fx, fy, fz, 3 * j - 2, fn, fc);
-        p2 = get_row(fx, fy, fz, 3 * j - 1, fn, fc);
+        p0 = fget(3 * j - 3);
+        p1 = fget(3 * j - 2);
+        p2 = fget(3 * j - 1);
       }
       rev(3 * j + 2, q2, c_k[K_C_TO_N], cs_deg(ln.torsion(2, j)));
       rev(3 * j + 1, q1, c_k[K_CA_TO_C], cs_deg(ln.torsion(1, j)));
@@ -724,24 +747,25 @@ cudaError_t fd_tails(const uint8_t* recs, const float* seed,
 }
 
 // k2 on `grid` blocks of 128 threads. tails9 null: the seeds are fwd9
-// (refine_iters 1). sx null: the forward rows go through the output
-// planes; else sx, sy, sz are [3*SEG, grid*128] float scratch planes.
+// (refine_iters 1). Each lane's top smem_rows forward rows stay in shared
+// memory; the rows below go through the output planes (sx null) or the
+// [3*SEG, grid*128] float scratch planes sx, sy, sz.
 cudaError_t fd_backbone(const uint8_t* recs, const float* tails9,
                         const float* fwd9, const uint8_t* is_first,
                         const float* ranc, const int* tat, const float* mins6,
                         const float* cont6, const int* order, float* ox,
                         float* oy, float* oz, float* sx, float* sy,
-                        float* sz, int seg, int nl, int grid,
+                        float* sz, int seg, int nl, int grid, int smem_rows,
                         cudaStream_t stream) {
-  if (grid < 1) return cudaErrorInvalidValue;
-  if (sx != nullptr)
-    k2_backbone<true><<<grid, 128, 0, stream>>>(
-        recs, tails9, fwd9, is_first, ranc, tat, mins6, cont6, order, ox, oy,
-        oz, sx, sy, sz, seg, nl);
-  else
-    k2_backbone<false><<<grid, 128, 0, stream>>>(
-        recs, tails9, fwd9, is_first, ranc, tat, mins6, cont6, order, ox, oy,
-        oz, sx, sy, sz, seg, nl);
+  if (grid < 1 || smem_rows < 0) return cudaErrorInvalidValue;
+  const size_t smem = (size_t)smem_rows * 3 * 128 * sizeof(float);
+  auto kern = sx != nullptr ? k2_backbone<true> : k2_backbone<false>;
+  cudaError_t e = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return e;
+  kern<<<grid, 128, smem, stream>>>(recs, tails9, fwd9, is_first, ranc, tat,
+                                    mins6, cont6, order, ox, oy, oz, sx, sy,
+                                    sz, seg, nl, smem_rows);
   return cudaGetLastError();
 }
 

@@ -332,7 +332,8 @@ def tails(recs, seed, ranc, tat, mins6, cont6, order=None):
 
 
 def backbone(recs, tails9, fwd9, is_first, ranc, tat, mins6, cont6,
-             order=None, blocks_per_sm=None, fwd_scratch=False):
+             order=None, blocks_per_sm=None, fwd_scratch=False,
+             smem_rows=0):
     """k2 -> blended backbone rows [3*SEG, NL] x3.
 
     Seeds: lane l starts from lane l-1's k1 tail (tails9 [9, NL], rows
@@ -344,7 +345,8 @@ def backbone(recs, tails9, fwd9, is_first, ranc, tat, mins6, cont6,
     order: as for `tails`. blocks_per_sm: None for one thread per lane,
     else a grid of at most that many blocks an SM walking the lanes.
     fwd_scratch: the forward rows go through scratch planes indexed by
-    thread (coalesced whatever the order) instead of the output planes."""
+    thread (coalesced whatever the order) instead of the output planes.
+    smem_rows: each lane's top forward rows kept in shared memory."""
     global K2_LAUNCHES
     if recs.device.type == "cpu":
         return backbone_rolled_plain(recs, tails9, fwd9, is_first, ranc,
@@ -367,7 +369,8 @@ def backbone(recs, tails9, fwd9, is_first, ranc, tat, mins6, cont6,
             if fwd_scratch else (None,) * 3
         _launch(lib.fd_backbone, "k2 backbone", dev,
                 *_ptrs(recs, tails9, fwd9, is_first, ranc, tat, mins6, cont6,
-                       order, *outs, *scratch), seg, nl, grid)
+                       order, *outs, *scratch), seg, nl, grid,
+                int(smem_rows))
         K2_LAUNCHES += 1
     return outs
 
