@@ -152,8 +152,10 @@ def ptxas_report(log):
                                     "k3_sidechain", "k3_tables",
                                     "k4_merged") if k in m.group(1)),
                        m.group(1))
-            if cur == "k2_backbone" and "ILb1E" in m.group(1):
-                cur = "k2_backbone_fwd_scratch"
+            if cur == "k2_backbone":
+                t = re.search(r"ILi(\d)ELi(\d)E", m.group(1))
+                if t:
+                    cur = f"k2_backbone_fwd{t.group(1)}_min{t.group(2)}"
             out.setdefault(cur, {})
             continue
         if cur is None:
@@ -844,18 +846,20 @@ def device_decode(dev, card, uniq, err, entries=8192):
     # k3 over every row, the padding's too: what skipping it saves
     times["k3"]["all_rows_ms"] = cuda_ms(
         torch, lambda: FD.sidechain(*bb, pr["code"], pr["sct"], nl_out), 10)
-    # k2's other forms, each in turns with the default: the forward rows
-    # through thread-indexed scratch planes, runs of 8 neighbouring lanes
-    # (one 32-byte sector) sorted whole, each lane's top forward rows in
-    # shared memory
-    order8 = FD.lane_order(tat, 8)
-    times["k1"]["order_group8_ms"] = cuda_ms(torch, lambda: k1(order8), 10)
-    forms = {"fwd_scratch": {"fwd_scratch": True},
-             "order_group8_fwd_scratch": {"o": order8, "fwd_scratch": True},
-             **{f"fwd_scratch_smem_rows_{r}": {"fwd_scratch": True,
-                                               "smem_rows": r}
-                for r in (24, 48, 72)},
-             "pack_order_smem_rows_72": {"o": pack_order, "smem_rows": 72}}
+    # k2's other forms, each in turns with the default (the forward rows
+    # through thread-indexed scratch planes): through the output planes or
+    # a warp-tiled scratch, 64 registers, and the lanes no longer than the
+    # typical (median) lane in pack order
+    t_med = int(tat[:nl_real].median())
+    floor = FD.lane_order(tat, floor=t_med)
+    times["k1"]["order_floor_ms"] = cuda_ms(torch, lambda: k1(floor), 10)
+    forms = {"fwd_planes": {"fwd_mode": 0},
+             "fwd_tiled": {"fwd_mode": 2},
+             "fwd_scratch_64_registers": {"fwd_mode": 1, "min_blocks": 8},
+             "fwd_tiled_64_registers": {"fwd_mode": 2, "min_blocks": 8},
+             "order_floor_fwd_scratch": {"o": floor, "fwd_mode": 1},
+             "order_floor_fwd_tiled": {"o": floor, "fwd_mode": 2},
+             "pack_order_fwd_scratch": {"o": pack_order, "fwd_mode": 1}}
     times["k2"]["forms"] = {}
     for name, kw in forms.items():
         d1 = cuda_ms(torch, k2, 10)

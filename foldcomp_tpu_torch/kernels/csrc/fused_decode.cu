@@ -297,8 +297,36 @@ k1_tails(const uint8_t* __restrict__ recs, const float* __restrict__ seed,
 // bond angles (2 square roots and a division each) and 9 blend divisions,
 // against 8 B of records in and 36 B of rows out; the forward rows' round
 // trip through the planes adds 72 B a residue.
-template <bool kFwdScratch>
-__global__ void __launch_bounds__(128)
+// Where a lane's forward rows go: kFwd 0, the output planes at the lane's
+// column; 1, scratch planes [3*SEG, grid*128] at the thread's column; 2,
+// a warp-tiled scratch, [warp][3*SEG][3][32] floats, so that a warp's
+// residue is 1152 contiguous bytes.
+template <int kFwd>
+struct FwdRows {
+  float *x, *y, *z;
+  int n, c;  // plane width and column (kFwd 0, 1)
+  float* w;  // the warp's tile (kFwd 2)
+  __device__ __forceinline__ void put(int r, V3 v) const {
+    if (kFwd == 2) {
+      float* p = w + (size_t)r * 96;
+      p[0] = v.x;
+      p[32] = v.y;
+      p[64] = v.z;
+    } else {
+      put_row(x, y, z, r, n, c, v);
+    }
+  }
+  __device__ __forceinline__ V3 get(int r) const {
+    if (kFwd == 2) {
+      const float* p = w + (size_t)r * 96;
+      return v3(p[0], p[32], p[64]);
+    }
+    return get_row(x, y, z, r, n, c);
+  }
+};
+
+template <int kFwd, int kMinBlocks>
+__global__ void __launch_bounds__(128, kMinBlocks)
 k2_backbone(const uint8_t* __restrict__ recs, const float* __restrict__ tails9,
             const float* __restrict__ fwd9,
             const uint8_t* __restrict__ is_first,
@@ -307,20 +335,9 @@ k2_backbone(const uint8_t* __restrict__ recs, const float* __restrict__ tails9,
             const int* __restrict__ order, float* __restrict__ ox,
             float* __restrict__ oy, float* __restrict__ oz,
             float* __restrict__ sx, float* __restrict__ sy,
-            float* __restrict__ sz, int seg, int nl, int smem_rows) {
-  // a lane's forward rows lo .. tat-4 in shared memory, [3*smem_rows]
-  // columns of blockDim floats, the thread's own column in its own bank
-  extern __shared__ float s_rows[];
-  float* const col = s_rows + threadIdx.x;
-  const int sb = blockDim.x;
+            float* __restrict__ sz, int seg, int nl) {
   const int tid = blockIdx.x * blockDim.x + threadIdx.x;
   const int nt = gridDim.x * blockDim.x;
-  // the forward rows: the output planes at the lane's column, or the
-  // scratch planes [3*SEG, grid*128] at the thread's
-  float* const fx = kFwdScratch ? sx : ox;
-  float* const fy = kFwdScratch ? sy : oy;
-  float* const fz = kFwdScratch ? sz : oz;
-  const int fn = kFwdScratch ? nt : nl;
   for (int i = tid; i < nl; i += nt) {
     const int l = order[i];
     const int tat = min(tat_[l], 3 * seg);
@@ -342,29 +359,18 @@ k2_backbone(const uint8_t* __restrict__ recs, const float* __restrict__ tails9,
       b = load3(fwd9, 3, nl, l);
       c = load3(fwd9, 6, nl, l);
     }
-    const int fc = kFwdScratch ? tid : l;
-    const int lo = max(tat - 3 - smem_rows, 0);
-    auto fput = [&](int r, V3 v) {
-      if (r >= lo) {
-        float* p = col + 3 * (r - lo) * sb;
-        p[0] = v.x;
-        p[sb] = v.y;
-        p[2 * sb] = v.z;
-      } else {
-        put_row(fx, fy, fz, r, fn, fc, v);
-      }
-    };
-    auto fget = [&](int r) {
-      if (r >= lo) {
-        const float* p = col + 3 * (r - lo) * sb;
-        return v3(p[0], p[sb], p[2 * sb]);
-      }
-      return get_row(fx, fy, fz, r, fn, fc);
-    };
+    FwdRows<kFwd> fr;
+    fr.x = kFwd == 0 ? ox : sx;
+    fr.y = kFwd == 0 ? oy : sy;
+    fr.z = kFwd == 0 ? oz : sz;
+    fr.n = kFwd == 0 ? nl : nt;
+    fr.c = kFwd == 0 ? l : tid;
+    fr.w = kFwd == 2 ? sx + (size_t)(tid >> 5) * (3 * seg) * 96 + (tid & 31)
+                     : nullptr;
     for (int k = 0; k < sm - 1; ++k) {
-      fput(3 * k, a);
-      fput(3 * k + 1, b);
-      fput(3 * k + 2, c);
+      fr.put(3 * k, a);
+      fr.put(3 * k + 1, b);
+      fr.put(3 * k + 2, c);
       float2 tor[3];
       fwd_step(ln, k, &a, &b, &c, tor);
     }
@@ -398,16 +404,16 @@ k2_backbone(const uint8_t* __restrict__ recs, const float* __restrict__ tails9,
     };
     V3 p0 = a, p1 = a, p2 = a;  // forward rows of residue j, one ahead
     if (sm >= 2) {
-      p0 = fget(tat - 6);
-      p1 = fget(tat - 5);
-      p2 = fget(tat - 4);
+      p0 = fr.get(tat - 6);
+      p1 = fr.get(tat - 5);
+      p2 = fr.get(tat - 4);
     }
     for (int j = sm - 2; j >= 0; --j) {
       const V3 q0 = p0, q1 = p1, q2 = p2;
       if (j > 0) {
-        p0 = fget(3 * j - 3);
-        p1 = fget(3 * j - 2);
-        p2 = fget(3 * j - 1);
+        p0 = fr.get(3 * j - 3);
+        p1 = fr.get(3 * j - 2);
+        p2 = fr.get(3 * j - 1);
       }
       rev(3 * j + 2, q2, c_k[K_C_TO_N], cs_deg(ln.torsion(2, j)));
       rev(3 * j + 1, q1, c_k[K_CA_TO_C], cs_deg(ln.torsion(1, j)));
@@ -747,25 +753,27 @@ cudaError_t fd_tails(const uint8_t* recs, const float* seed,
 }
 
 // k2 on `grid` blocks of 128 threads. tails9 null: the seeds are fwd9
-// (refine_iters 1). Each lane's top smem_rows forward rows stay in shared
-// memory; the rows below go through the output planes (sx null) or the
-// [3*SEG, grid*128] float scratch planes sx, sy, sz.
+// (refine_iters 1). fwd_mode: where the forward rows go (FwdRows: 0 the
+// output planes, 1 the [3*SEG, grid*128] scratch planes sx, sy, sz, 2 the
+// warp-tiled scratch sx of grid*128*9*SEG floats); min_blocks 8 caps the
+// registers at 64 (launch bounds).
 cudaError_t fd_backbone(const uint8_t* recs, const float* tails9,
                         const float* fwd9, const uint8_t* is_first,
                         const float* ranc, const int* tat, const float* mins6,
                         const float* cont6, const int* order, float* ox,
                         float* oy, float* oz, float* sx, float* sy,
-                        float* sz, int seg, int nl, int grid, int smem_rows,
-                        cudaStream_t stream) {
-  if (grid < 1 || smem_rows < 0) return cudaErrorInvalidValue;
-  const size_t smem = (size_t)smem_rows * 3 * 128 * sizeof(float);
-  auto kern = sx != nullptr ? k2_backbone<true> : k2_backbone<false>;
-  cudaError_t e = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (e != cudaSuccess) return e;
-  kern<<<grid, 128, smem, stream>>>(recs, tails9, fwd9, is_first, ranc, tat,
-                                    mins6, cont6, order, ox, oy, oz, sx, sy,
-                                    sz, seg, nl, smem_rows);
+                        float* sz, int seg, int nl, int grid, int fwd_mode,
+                        int min_blocks, cudaStream_t stream) {
+  if (grid < 1) return cudaErrorInvalidValue;
+  auto kern = k2_backbone<0, 1>;
+  if (fwd_mode == 1) kern = min_blocks == 8 ? k2_backbone<1, 8>
+                                            : k2_backbone<1, 1>;
+  else if (fwd_mode == 2) kern = min_blocks == 8 ? k2_backbone<2, 8>
+                                                 : k2_backbone<2, 1>;
+  else if (fwd_mode != 0 || min_blocks != 1) return cudaErrorInvalidValue;
+  kern<<<grid, 128, 0, stream>>>(recs, tails9, fwd9, is_first, ranc, tat,
+                                 mins6, cont6, order, ox, oy, oz, sx, sy, sz,
+                                 seg, nl);
   return cudaGetLastError();
 }
 

@@ -78,22 +78,13 @@ def n_ca_lengths(recs):
                                     device=recs.device))
 
 
-def lane_order(tat, group: int = 1):
+def lane_order(tat, floor=None):
     """i32 [NL] permutation of the lanes by tat, longest first, stable (the
     lanes of one length in pack order): the order k1 and k2 walk them in,
-    so that a warp's lanes have one length. group > 1 sorts runs of that
-    many neighbouring lanes by their longest lane and keeps each run
-    whole."""
-    if group == 1:
-        return torch.argsort(tat, descending=True, stable=True) \
-            .to(torch.int32)
-    nl = tat.numel()
-    pad = (-nl) % group
-    t = torch.cat([tat, tat.new_full((pad,), -1)]).view(-1, group)
-    runs = torch.argsort(t.amax(dim=1), descending=True, stable=True)
-    lanes = (runs[:, None] * group
-             + torch.arange(group, device=tat.device)).reshape(-1)
-    return lanes[lanes < nl].to(torch.int32)
+    so that a warp's lanes have one length. floor (a tat): the lanes no
+    longer than it tie, and keep pack order behind the longer ones."""
+    key = tat if floor is None else torch.clamp_min(tat, int(floor))
+    return torch.argsort(key, descending=True, stable=True).to(torch.int32)
 
 
 # ---------------------------------------------------------------------------
@@ -332,8 +323,7 @@ def tails(recs, seed, ranc, tat, mins6, cont6, order=None):
 
 
 def backbone(recs, tails9, fwd9, is_first, ranc, tat, mins6, cont6,
-             order=None, blocks_per_sm=None, fwd_scratch=False,
-             smem_rows=0):
+             order=None, fwd_mode=1, min_blocks=1):
     """k2 -> blended backbone rows [3*SEG, NL] x3.
 
     Seeds: lane l starts from lane l-1's k1 tail (tails9 [9, NL], rows
@@ -342,11 +332,9 @@ def backbone(recs, tails9, fwd9, is_first, ranc, tat, mins6, cont6,
     from the records. On a CUDA device the kernel computes and writes rows
     r < tat[l] only: rows >= tat (pack padding) of a CUDA result are
     unspecified. The plain version on the CPU computes every row.
-    order: as for `tails`. blocks_per_sm: None for one thread per lane,
-    else a grid of at most that many blocks an SM walking the lanes.
-    fwd_scratch: the forward rows go through scratch planes indexed by
-    thread (coalesced whatever the order) instead of the output planes.
-    smem_rows: each lane's top forward rows kept in shared memory."""
+    order: as for `tails`. fwd_mode: where the kernel keeps the forward
+    rows (0 the output planes, 1 thread-indexed scratch planes, 2 a
+    warp-tiled scratch); min_blocks 8 caps the kernel at 64 registers."""
     global K2_LAUNCHES
     if recs.device.type == "cpu":
         return backbone_rolled_plain(recs, tails9, fwd9, is_first, ranc,
@@ -361,16 +349,17 @@ def backbone(recs, tails9, fwd9, is_first, ranc, tat, mins6, cont6,
                  for _ in range(3))
     if nl and seg:
         grid = -(-nl // 128)
-        if blocks_per_sm is not None:
-            sms = torch.cuda.get_device_properties(dev).multi_processor_count
-            grid = max(1, min(grid, sms * int(blocks_per_sm)))
-        scratch = tuple(torch.empty((3 * seg, grid * 128), dtype=F32,
-                                    device=dev) for _ in range(3)) \
-            if fwd_scratch else (None,) * 3
+        scratch = (None,) * 3
+        if fwd_mode == 1:
+            scratch = tuple(torch.empty((3 * seg, grid * 128), dtype=F32,
+                                        device=dev) for _ in range(3))
+        elif fwd_mode == 2:
+            scratch = (torch.empty((grid * 128 * 9 * seg,), dtype=F32,
+                                   device=dev), None, None)
         _launch(lib.fd_backbone, "k2 backbone", dev,
                 *_ptrs(recs, tails9, fwd9, is_first, ranc, tat, mins6, cont6,
-                       order, *outs, *scratch), seg, nl, grid,
-                int(smem_rows))
+                       order, *outs, *scratch), seg, nl, grid, int(fwd_mode),
+                int(min_blocks))
         K2_LAUNCHES += 1
     return outs
 
