@@ -83,10 +83,12 @@ __device__ __forceinline__ V3 place_frame(V3 a, V3 b, V3 c, float dx,
             bcnz * dx + mz * dy + nz * dz + c.z);
 }
 
-// (cos, sin) of an angle in degrees.
+// (cos, sin) of an angle in degrees: one range reduction for both, the
+// values of cosf and sinf.
 __device__ __forceinline__ float2 cs_deg(float deg) {
-  const float r = deg * c_k[K_RADK];
-  return make_float2(cosf(r), sinf(r));
+  float s, c;
+  sincosf(deg * c_k[K_RADK], &s, &c);
+  return make_float2(c, s);
 }
 
 // _place_atom_cs (pallas_decode.py:93-117): place the atom after c with
@@ -125,23 +127,34 @@ __device__ __forceinline__ void bond_angle_cs(V3 a, V3 b, V3 c, float* cos_t,
 // (byte-plane-major [8, SEG, NL], convertBytesToBackboneChain bit layout),
 // dequantized per field f as q * cont6[f] + mins6[f] in the field order
 // (psi, omega, phi, n_ca_c, ca_c_n, c_n_ca) of _unpack_ang6_into
-// (pallas_decode.py:127-151).
+// (pallas_decode.py:127-151). A residue's bytes travel packed, bytes 0-3
+// in .x and 4-7 in .y, so they can be loaded one residue ahead of use.
 struct Lane {
-  const uint8_t* recs;
-  int seg, nl, l;
+  const uint8_t* p;  // recs + l
+  size_t ps, rs;     // plane stride seg * nl, row stride nl
   float mins[6], cont[6];
 
-  __device__ __forceinline__ int byte(int b, int k) const {
-    return (int)recs[((size_t)b * seg + k) * nl + l];
+  // bytes 0 .. n-1 of residue k, packed
+  __device__ __forceinline__ uint2 rec(int k, int n) const {
+    const uint8_t* q = p + (size_t)k * rs;
+    uint32_t w[2] = {0u, 0u};
+#pragma unroll
+    for (int b = 0; b < 8; ++b) {
+      if (b < n) w[b >> 2] |= (uint32_t)*q << (8 * (b & 3));
+      q += ps;
+    }
+    return make_uint2(w[0], w[1]);
   }
   __device__ __forceinline__ float deq(int f, int q) const {
     return (float)q * cont[f] + mins[f];
   }
-  // torsion field f (0 psi, 1 omega, 2 phi) of residue k
-  __device__ __forceinline__ float torsion(int f, int k) const {
-    if (f == 0) return deq(0, (byte(2, k) << 4) | (byte(3, k) >> 4));
-    if (f == 1) return deq(1, ((byte(0, k) & 0x7) << 8) | byte(1, k));
-    return deq(2, ((byte(3, k) & 0xF) << 8) | byte(4, k));
+  // torsion field f (0 psi, 1 omega, 2 phi) of packed residue bytes w
+  __device__ __forceinline__ float torsion(int f, uint2 w) const {
+    const int b0 = w.x & 0xff, b1 = (w.x >> 8) & 0xff,
+              b2 = (w.x >> 16) & 0xff, b3 = w.x >> 24, b4 = w.y & 0xff;
+    if (f == 0) return deq(0, (b2 << 4) | (b3 >> 4));
+    if (f == 1) return deq(1, ((b0 & 0x7) << 8) | b1);
+    return deq(2, ((b3 & 0xF) << 8) | b4);
   }
 };
 
@@ -150,10 +163,9 @@ __device__ __forceinline__ void lane_init(Lane* ln,
                                           const float* __restrict__ mins6,
                                           const float* __restrict__ cont6,
                                           int seg, int nl, int l) {
-  ln->recs = recs;
-  ln->seg = seg;
-  ln->nl = nl;
-  ln->l = l;
+  ln->p = recs + l;
+  ln->ps = (size_t)seg * nl;
+  ln->rs = (size_t)nl;
 #pragma unroll
   for (int f = 0; f < 6; ++f) {
     ln->mins[f] = mins6[(size_t)f * nl + l];
@@ -162,27 +174,23 @@ __device__ __forceinline__ void lane_init(Lane* ln,
 }
 
 // One forward NeRF step (_fwd_scan_into body, pallas_decode.py:163-181):
-// residue k's angles place residue k+1's N, CA, C after (a, b, c). The
-// N-CA length is proline's where residue code byte0 >> 3 is PRO_CODE, as
-// _class_prep's blca (pallas_decode.py:405-437) has it. tor[f] gets the
-// (cos, sin) of residue k's torsion field f (psi, omega, phi).
-__device__ __forceinline__ void fwd_step(const Lane& ln, int k, V3* a, V3* b,
-                                         V3* c, float2* tor) {
-  int b0 = ln.byte(0, k), b1 = ln.byte(1, k), b2 = ln.byte(2, k);
-  int b3 = ln.byte(3, k), b4 = ln.byte(4, k), b5 = ln.byte(5, k);
-  int b6 = ln.byte(6, k), b7 = ln.byte(7, k);
-  tor[0] = cs_deg(ln.deq(0, (b2 << 4) | (b3 >> 4)));     // psi
-  tor[1] = cs_deg(ln.deq(1, ((b0 & 0x7) << 8) | b1));    // omega
-  tor[2] = cs_deg(ln.deq(2, ((b3 & 0xF) << 8) | b4));    // phi
+// residue k's angles (packed bytes w) place residue k+1's N, CA, C after
+// (a, b, c). The N-CA length is proline's where residue code byte0 >> 3
+// is PRO_CODE, as _class_prep's blca (pallas_decode.py:405-437) has it.
+__device__ __forceinline__ void fwd_step(const Lane& ln, uint2 w, V3* a,
+                                         V3* b, V3* c) {
+  const int b0 = w.x & 0xff, b5 = (w.y >> 8) & 0xff,
+            b6 = (w.y >> 16) & 0xff, b7 = w.y >> 24;
   float ncac = ln.deq(3, b7);
   float cacn = ln.deq(4, b5);
   float cnca = ln.deq(5, b6);
   const float n_ca = (b0 >> 3) == __float2int_rz(c_k[K_PRO_CODE])
                          ? c_k[K_PRO_N_TO_CA]
                          : c_k[K_N_TO_CA];
-  V3 n = place_deg(*a, *b, *c, c_k[K_C_TO_N], cacn, tor[0]);
-  V3 ca = place_deg(*b, *c, n, n_ca, cnca, tor[1]);
-  V3 cc = place_deg(*c, n, ca, c_k[K_CA_TO_C], ncac, tor[2]);
+  V3 n = place_deg(*a, *b, *c, c_k[K_C_TO_N], cacn, cs_deg(ln.torsion(0, w)));
+  V3 ca = place_deg(*b, *c, n, n_ca, cnca, cs_deg(ln.torsion(1, w)));
+  V3 cc = place_deg(*c, n, ca, c_k[K_CA_TO_C], ncac,
+                    cs_deg(ln.torsion(2, w)));
   *a = n;
   *b = ca;
   *c = cc;
@@ -242,8 +250,12 @@ k1_tails(const uint8_t* __restrict__ recs, const float* __restrict__ seed,
   // tail is zero.
   V3 t0 = v3(0.f, 0.f, 0.f), t1 = t0, t2 = t0;
   if (tat >= 3 && tat <= 3 * seg) {
-    float2 tor[3];
-    for (int k = 0; 3 * k + 3 < tat; ++k) fwd_step(ln, k, &a, &b, &c, tor);
+    uint2 w = ln.rec(0, 8);  // residue k's bytes, loaded a step ahead
+    for (int k = 0; 3 * k + 3 < tat; ++k) {
+      const uint2 cur = w;
+      if (3 * k + 6 < tat) w = ln.rec(k + 1, 8);
+      fwd_step(ln, cur, &a, &b, &c);
+    }
     t0 = a;
     t1 = b;
     t2 = c;
@@ -367,12 +379,14 @@ k2_backbone(const uint8_t* __restrict__ recs, const float* __restrict__ tails9,
     fr.c = kFwd == 0 ? l : tid;
     fr.w = kFwd == 2 ? sx + (size_t)(tid >> 5) * (3 * seg) * 96 + (tid & 31)
                      : nullptr;
+    uint2 w = ln.rec(0, 8);  // residue k's bytes, loaded a step ahead
     for (int k = 0; k < sm - 1; ++k) {
+      const uint2 cur = w;
+      if (k + 2 < sm) w = ln.rec(k + 1, 8);
       fr.put(3 * k, a);
       fr.put(3 * k + 1, b);
       fr.put(3 * k + 2, c);
-      float2 tor[3];
-      fwd_step(ln, k, &a, &b, &c, tor);
+      fwd_step(ln, cur, &a, &b, &c);
     }
 
     const float tatf = (float)tat;
@@ -402,22 +416,27 @@ k2_backbone(const uint8_t* __restrict__ recs, const float* __restrict__ tails9,
       f2 = f1;
       f1 = f0;
     };
-    V3 p0 = a, p1 = a, p2 = a;  // forward rows of residue j, one ahead
+    // residue j's forward rows and torsion bytes, loaded one residue ahead
+    V3 p0 = a, p1 = a, p2 = a;
+    uint2 tw = make_uint2(0u, 0u);
     if (sm >= 2) {
       p0 = fr.get(tat - 6);
       p1 = fr.get(tat - 5);
       p2 = fr.get(tat - 4);
+      tw = ln.rec(sm - 2, 5);
     }
     for (int j = sm - 2; j >= 0; --j) {
       const V3 q0 = p0, q1 = p1, q2 = p2;
+      const uint2 cw = tw;
       if (j > 0) {
         p0 = fr.get(3 * j - 3);
         p1 = fr.get(3 * j - 2);
         p2 = fr.get(3 * j - 1);
+        tw = ln.rec(j - 1, 5);
       }
-      rev(3 * j + 2, q2, c_k[K_C_TO_N], cs_deg(ln.torsion(2, j)));
-      rev(3 * j + 1, q1, c_k[K_CA_TO_C], cs_deg(ln.torsion(1, j)));
-      rev(3 * j, q0, c_k[K_N_TO_CA], cs_deg(ln.torsion(0, j)));
+      rev(3 * j + 2, q2, c_k[K_C_TO_N], cs_deg(ln.torsion(2, cw)));
+      rev(3 * j + 1, q1, c_k[K_CA_TO_C], cs_deg(ln.torsion(1, cw)));
+      rev(3 * j, q0, c_k[K_N_TO_CA], cs_deg(ln.torsion(0, cw)));
     }
   }
 }
