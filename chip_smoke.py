@@ -155,7 +155,7 @@ def ptxas_report(log):
             if cur == "k2_backbone":
                 t = re.search(r"ILi(\d)ELi(\d)E", m.group(1))
                 if t:
-                    cur = f"k2_backbone_fwd{t.group(1)}_min{t.group(2)}"
+                    cur = f"k2_backbone_fwd{t.group(1)}_phase{t.group(2)}"
             out.setdefault(cur, {})
             continue
         if cur is None:
@@ -847,19 +847,18 @@ def device_decode(dev, card, uniq, err, entries=8192):
     times["k3"]["all_rows_ms"] = cuda_ms(
         torch, lambda: FD.sidechain(*bb, pr["code"], pr["sct"], nl_out), 10)
     # k2's other forms, each in turns with the default (the forward rows
-    # through thread-indexed scratch planes): through the output planes or
-    # a warp-tiled scratch, 64 registers, and the lanes no longer than the
-    # typical (median) lane in pack order
+    # through thread-indexed scratch planes, one launch): a warp-tiled
+    # scratch, the forward and the reverse as two launches, and the lanes no longer than the typical (median) lane in pack order
     t_med = int(tat[:nl_real].median())
     floor = FD.lane_order(tat, floor=t_med)
     times["k1"]["order_floor_ms"] = cuda_ms(torch, lambda: k1(floor), 10)
-    forms = {"fwd_planes": {"fwd_mode": 0},
-             "fwd_tiled": {"fwd_mode": 2},
-             "fwd_scratch_64_registers": {"fwd_mode": 1, "min_blocks": 8},
-             "fwd_tiled_64_registers": {"fwd_mode": 2, "min_blocks": 8},
-             "order_floor_fwd_scratch": {"o": floor, "fwd_mode": 1},
+    forms = {"fwd_tiled": {"fwd_mode": 2},
+             "split": {"split": True},
+             "split_fwd_tiled": {"split": True, "fwd_mode": 2},
+             "order_floor": {"o": floor},
              "order_floor_fwd_tiled": {"o": floor, "fwd_mode": 2},
-             "pack_order_fwd_scratch": {"o": pack_order, "fwd_mode": 1}}
+             "order_floor_split": {"o": floor, "split": True},
+             "pack_order_split": {"o": pack_order, "split": True}}
     times["k2"]["forms"] = {}
     for name, kw in forms.items():
         d1 = cuda_ms(torch, k2, 10)

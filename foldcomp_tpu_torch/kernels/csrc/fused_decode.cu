@@ -309,14 +309,13 @@ k1_tails(const uint8_t* __restrict__ recs, const float* __restrict__ seed,
 // bond angles (2 square roots and a division each) and 9 blend divisions,
 // against 8 B of records in and 36 B of rows out; the forward rows' round
 // trip through the planes adds 72 B a residue.
-// Where a lane's forward rows go: kFwd 0, the output planes at the lane's
-// column; 1, scratch planes [3*SEG, grid*128] at the thread's column; 2,
-// a warp-tiled scratch, [warp][3*SEG][3][32] floats, so that a warp's
-// residue is 1152 contiguous bytes.
+// Where a lane's forward rows go: kFwd 1, scratch planes [3*SEG, grid*128]
+// at the thread's column; 2, a warp-tiled scratch, [warp][3*SEG][3][32]
+// floats, so that a warp's residue is 1152 contiguous bytes.
 template <int kFwd>
 struct FwdRows {
   float *x, *y, *z;
-  int n, c;  // plane width and column (kFwd 0, 1)
+  int n, c;  // plane width and column (kFwd 1)
   float* w;  // the warp's tile (kFwd 2)
   __device__ __forceinline__ void put(int r, V3 v) const {
     if (kFwd == 2) {
@@ -337,8 +336,11 @@ struct FwdRows {
   }
 };
 
-template <int kFwd, int kMinBlocks>
-__global__ void __launch_bounds__(128, kMinBlocks)
+// kPhase 0: the whole of k2; 1: seed and forward only, every forward row
+// (0 .. tat-1) to the scratch; 2: reverse and blend only, from a phase-1
+// scratch on the same grid and order.
+template <int kFwd, int kPhase>
+__global__ void __launch_bounds__(128)
 k2_backbone(const uint8_t* __restrict__ recs, const float* __restrict__ tails9,
             const float* __restrict__ fwd9,
             const uint8_t* __restrict__ is_first,
@@ -357,36 +359,49 @@ k2_backbone(const uint8_t* __restrict__ recs, const float* __restrict__ tails9,
     const int sm = tat / 3;  // the lane's residues
     Lane ln;
     lane_init(&ln, recs, mins6, cont6, seg, nl, l);
-    V3 a, b, c;
-    if (tails9 != nullptr && !is_first[l]) {
-      // lane l-1's tail, rows comp*3 + atom
-      const size_t p = l == 0 ? nl - 1 : l - 1;
-      a = v3(tails9[p], tails9[3 * (size_t)nl + p], tails9[6 * (size_t)nl + p]);
-      b = v3(tails9[(size_t)nl + p], tails9[4 * (size_t)nl + p],
-             tails9[7 * (size_t)nl + p]);
-      c = v3(tails9[2 * (size_t)nl + p], tails9[5 * (size_t)nl + p],
-             tails9[8 * (size_t)nl + p]);
-    } else {
-      a = load3(fwd9, 0, nl, l);
-      b = load3(fwd9, 3, nl, l);
-      c = load3(fwd9, 6, nl, l);
-    }
     FwdRows<kFwd> fr;
-    fr.x = kFwd == 0 ? ox : sx;
-    fr.y = kFwd == 0 ? oy : sy;
-    fr.z = kFwd == 0 ? oz : sz;
-    fr.n = kFwd == 0 ? nl : nt;
-    fr.c = kFwd == 0 ? l : tid;
+    fr.x = sx;
+    fr.y = sy;
+    fr.z = sz;
+    fr.n = nt;
+    fr.c = tid;
     fr.w = kFwd == 2 ? sx + (size_t)(tid >> 5) * (3 * seg) * 96 + (tid & 31)
                      : nullptr;
-    uint2 w = ln.rec(0, 8);  // residue k's bytes, loaded a step ahead
-    for (int k = 0; k < sm - 1; ++k) {
-      const uint2 cur = w;
-      if (k + 2 < sm) w = ln.rec(k + 1, 8);
-      fr.put(3 * k, a);
-      fr.put(3 * k + 1, b);
-      fr.put(3 * k + 2, c);
-      fwd_step(ln, cur, &a, &b, &c);
+    V3 a, b, c;
+    if (kPhase == 2) {
+      a = fr.get(tat - 3);
+      b = fr.get(tat - 2);
+      c = fr.get(tat - 1);
+    } else {
+      if (tails9 != nullptr && !is_first[l]) {
+        // lane l-1's tail, rows comp*3 + atom
+        const size_t p = l == 0 ? nl - 1 : l - 1;
+        a = v3(tails9[p], tails9[3 * (size_t)nl + p],
+               tails9[6 * (size_t)nl + p]);
+        b = v3(tails9[(size_t)nl + p], tails9[4 * (size_t)nl + p],
+               tails9[7 * (size_t)nl + p]);
+        c = v3(tails9[2 * (size_t)nl + p], tails9[5 * (size_t)nl + p],
+               tails9[8 * (size_t)nl + p]);
+      } else {
+        a = load3(fwd9, 0, nl, l);
+        b = load3(fwd9, 3, nl, l);
+        c = load3(fwd9, 6, nl, l);
+      }
+      uint2 w = ln.rec(0, 8);  // residue k's bytes, loaded a step ahead
+      for (int k = 0; k < sm - 1; ++k) {
+        const uint2 cur = w;
+        if (k + 2 < sm) w = ln.rec(k + 1, 8);
+        fr.put(3 * k, a);
+        fr.put(3 * k + 1, b);
+        fr.put(3 * k + 2, c);
+        fwd_step(ln, cur, &a, &b, &c);
+      }
+      if (kPhase == 1) {
+        fr.put(tat - 3, a);
+        fr.put(tat - 2, b);
+        fr.put(tat - 1, c);
+        continue;
+      }
     }
 
     const float tatf = (float)tat;
@@ -772,28 +787,29 @@ cudaError_t fd_tails(const uint8_t* recs, const float* seed,
 }
 
 // k2 on `grid` blocks of 128 threads. tails9 null: the seeds are fwd9
-// (refine_iters 1). fwd_mode: where the forward rows go (FwdRows: 0 the
-// output planes, 1 the [3*SEG, grid*128] scratch planes sx, sy, sz, 2 the
-// warp-tiled scratch sx of grid*128*9*SEG floats); min_blocks 8 caps the
-// registers at 64 (launch bounds).
+// (refine_iters 1). fwd_mode: where the forward rows go (FwdRows: 1 the
+// [3*SEG, grid*128] scratch planes sx, sy, sz, 2 the warp-tiled scratch sx
+// of grid*128*9*SEG floats); split: the forward and the reverse as two
+// launches, one after the other on the stream.
 cudaError_t fd_backbone(const uint8_t* recs, const float* tails9,
                         const float* fwd9, const uint8_t* is_first,
                         const float* ranc, const int* tat, const float* mins6,
                         const float* cont6, const int* order, float* ox,
                         float* oy, float* oz, float* sx, float* sy,
                         float* sz, int seg, int nl, int grid, int fwd_mode,
-                        int min_blocks, cudaStream_t stream) {
-  if (grid < 1) return cudaErrorInvalidValue;
-  auto kern = k2_backbone<0, 1>;
-  if (fwd_mode == 1) kern = min_blocks == 8 ? k2_backbone<1, 8>
-                                            : k2_backbone<1, 1>;
-  else if (fwd_mode == 2) kern = min_blocks == 8 ? k2_backbone<2, 8>
-                                                 : k2_backbone<2, 1>;
-  else if (fwd_mode != 0 || min_blocks != 1) return cudaErrorInvalidValue;
-  kern<<<grid, 128, 0, stream>>>(recs, tails9, fwd9, is_first, ranc, tat,
-                                 mins6, cont6, order, ox, oy, oz, sx, sy, sz,
-                                 seg, nl);
-  return cudaGetLastError();
+                        int split, cudaStream_t stream) {
+  if (grid < 1 || (fwd_mode != 1 && fwd_mode != 2)) return cudaErrorInvalidValue;
+  const bool t = fwd_mode == 2;
+  auto launch = [&](decltype(&k2_backbone<1, 0>) kern) {
+    kern<<<grid, 128, 0, stream>>>(recs, tails9, fwd9, is_first, ranc, tat,
+                                   mins6, cont6, order, ox, oy, oz, sx, sy,
+                                   sz, seg, nl);
+    return cudaGetLastError();
+  };
+  if (!split) return launch(t ? k2_backbone<2, 0> : k2_backbone<1, 0>);
+  const cudaError_t e = launch(t ? k2_backbone<2, 1> : k2_backbone<1, 1>);
+  if (e != cudaSuccess) return e;
+  return launch(t ? k2_backbone<2, 2> : k2_backbone<1, 2>);
 }
 
 // k3 on a persistent grid: as many blocks as fit on the device at once,

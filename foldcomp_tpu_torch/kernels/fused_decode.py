@@ -323,7 +323,7 @@ def tails(recs, seed, ranc, tat, mins6, cont6, order=None):
 
 
 def backbone(recs, tails9, fwd9, is_first, ranc, tat, mins6, cont6,
-             order=None, fwd_mode=1, min_blocks=1):
+             order=None, fwd_mode=1, split=False):
     """k2 -> blended backbone rows [3*SEG, NL] x3.
 
     Seeds: lane l starts from lane l-1's k1 tail (tails9 [9, NL], rows
@@ -333,8 +333,8 @@ def backbone(recs, tails9, fwd9, is_first, ranc, tat, mins6, cont6,
     r < tat[l] only: rows >= tat (pack padding) of a CUDA result are
     unspecified. The plain version on the CPU computes every row.
     order: as for `tails`. fwd_mode: where the kernel keeps the forward
-    rows (0 the output planes, 1 thread-indexed scratch planes, 2 a
-    warp-tiled scratch); min_blocks 8 caps the kernel at 64 registers."""
+    rows (1 thread-indexed scratch planes, 2 a warp-tiled scratch); split:
+    the forward and the reverse as two launches."""
     global K2_LAUNCHES
     if recs.device.type == "cpu":
         return backbone_rolled_plain(recs, tails9, fwd9, is_first, ranc,
@@ -349,17 +349,16 @@ def backbone(recs, tails9, fwd9, is_first, ranc, tat, mins6, cont6,
                  for _ in range(3))
     if nl and seg:
         grid = -(-nl // 128)
-        scratch = (None,) * 3
         if fwd_mode == 1:
             scratch = tuple(torch.empty((3 * seg, grid * 128), dtype=F32,
                                         device=dev) for _ in range(3))
-        elif fwd_mode == 2:
+        else:
             scratch = (torch.empty((grid * 128 * 9 * seg,), dtype=F32,
                                    device=dev), None, None)
         _launch(lib.fd_backbone, "k2 backbone", dev,
                 *_ptrs(recs, tails9, fwd9, is_first, ranc, tat, mins6, cont6,
                        order, *outs, *scratch), seg, nl, grid, int(fwd_mode),
-                int(min_blocks))
+                int(bool(split)))
         K2_LAUNCHES += 1
     return outs
 
