@@ -152,10 +152,8 @@ def ptxas_report(log):
                                     "k3_sidechain", "k3_tables",
                                     "k4_merged") if k in m.group(1)),
                        m.group(1))
-            if cur == "k2_backbone":
-                t = re.search(r"ILi(\d)ELi(\d)E", m.group(1))
-                if t:
-                    cur = f"k2_backbone_fwd{t.group(1)}_phase{t.group(2)}"
+            if cur == "k2_backbone" and "ILb1E" in m.group(1):
+                cur = "k2_backbone_grouped"
             out.setdefault(cur, {})
             continue
         if cur is None:
@@ -846,19 +844,9 @@ def device_decode(dev, card, uniq, err, entries=8192):
     # k3 over every row, the padding's too: what skipping it saves
     times["k3"]["all_rows_ms"] = cuda_ms(
         torch, lambda: FD.sidechain(*bb, pr["code"], pr["sct"], nl_out), 10)
-    # k2's other forms, each in turns with the default (the forward rows
-    # through thread-indexed scratch planes, one launch): a warp-tiled
-    # scratch, the forward and the reverse as two launches, and the lanes no longer than the typical (median) lane in pack order
-    t_med = int(tat[:nl_real].median())
-    floor = FD.lane_order(tat, floor=t_med)
-    times["k1"]["order_floor_ms"] = cuda_ms(torch, lambda: k1(floor), 10)
-    forms = {"fwd_tiled": {"fwd_mode": 2},
-             "split": {"split": True},
-             "split_fwd_tiled": {"split": True, "fwd_mode": 2},
-             "order_floor": {"o": floor},
-             "order_floor_fwd_tiled": {"o": floor, "fwd_mode": 2},
-             "order_floor_split": {"o": floor, "split": True},
-             "pack_order_split": {"o": pack_order, "split": True}}
+    # k2's other form, in turns with the default: the reverse grouped by
+    # residue (bond angles and torsions, placements, then blends)
+    forms = {"reverse_grouped": {"grouped": True}}
     times["k2"]["forms"] = {}
     for name, kw in forms.items():
         d1 = cuda_ms(torch, k2, 10)

@@ -309,37 +309,10 @@ k1_tails(const uint8_t* __restrict__ recs, const float* __restrict__ seed,
 // bond angles (2 square roots and a division each) and 9 blend divisions,
 // against 8 B of records in and 36 B of rows out; the forward rows' round
 // trip through the planes adds 72 B a residue.
-// Where a lane's forward rows go: kFwd 1, scratch planes [3*SEG, grid*128]
-// at the thread's column; 2, a warp-tiled scratch, [warp][3*SEG][3][32]
-// floats, so that a warp's residue is 1152 contiguous bytes.
-template <int kFwd>
-struct FwdRows {
-  float *x, *y, *z;
-  int n, c;  // plane width and column (kFwd 1)
-  float* w;  // the warp's tile (kFwd 2)
-  __device__ __forceinline__ void put(int r, V3 v) const {
-    if (kFwd == 2) {
-      float* p = w + (size_t)r * 96;
-      p[0] = v.x;
-      p[32] = v.y;
-      p[64] = v.z;
-    } else {
-      put_row(x, y, z, r, n, c, v);
-    }
-  }
-  __device__ __forceinline__ V3 get(int r) const {
-    if (kFwd == 2) {
-      const float* p = w + (size_t)r * 96;
-      return v3(p[0], p[32], p[64]);
-    }
-    return get_row(x, y, z, r, n, c);
-  }
-};
-
-// kPhase 0: the whole of k2; 1: seed and forward only, every forward row
-// (0 .. tat-1) to the scratch; 2: reverse and blend only, from a phase-1
-// scratch on the same grid and order.
-template <int kFwd, int kPhase>
+// kGrouped: the reverse takes a residue's three bond angles and torsions
+// first, then its three chained placements, then its nine blend divisions
+// (the same operations on the same values as row by row).
+template <bool kGrouped>
 __global__ void __launch_bounds__(128)
 k2_backbone(const uint8_t* __restrict__ recs, const float* __restrict__ tails9,
             const float* __restrict__ fwd9,
@@ -350,105 +323,105 @@ k2_backbone(const uint8_t* __restrict__ recs, const float* __restrict__ tails9,
             float* __restrict__ oy, float* __restrict__ oz,
             float* __restrict__ sx, float* __restrict__ sy,
             float* __restrict__ sz, int seg, int nl) {
-  const int tid = blockIdx.x * blockDim.x + threadIdx.x;
-  const int nt = gridDim.x * blockDim.x;
-  for (int i = tid; i < nl; i += nt) {
-    const int l = order[i];
-    const int tat = min(tat_[l], 3 * seg);
-    if (tat < 3) continue;
-    const int sm = tat / 3;  // the lane's residues
-    Lane ln;
-    lane_init(&ln, recs, mins6, cont6, seg, nl, l);
-    FwdRows<kFwd> fr;
-    fr.x = sx;
-    fr.y = sy;
-    fr.z = sz;
-    fr.n = nt;
-    fr.c = tid;
-    fr.w = kFwd == 2 ? sx + (size_t)(tid >> 5) * (3 * seg) * 96 + (tid & 31)
-                     : nullptr;
-    V3 a, b, c;
-    if (kPhase == 2) {
-      a = fr.get(tat - 3);
-      b = fr.get(tat - 2);
-      c = fr.get(tat - 1);
-    } else {
-      if (tails9 != nullptr && !is_first[l]) {
-        // lane l-1's tail, rows comp*3 + atom
-        const size_t p = l == 0 ? nl - 1 : l - 1;
-        a = v3(tails9[p], tails9[3 * (size_t)nl + p],
-               tails9[6 * (size_t)nl + p]);
-        b = v3(tails9[(size_t)nl + p], tails9[4 * (size_t)nl + p],
-               tails9[7 * (size_t)nl + p]);
-        c = v3(tails9[2 * (size_t)nl + p], tails9[5 * (size_t)nl + p],
-               tails9[8 * (size_t)nl + p]);
-      } else {
-        a = load3(fwd9, 0, nl, l);
-        b = load3(fwd9, 3, nl, l);
-        c = load3(fwd9, 6, nl, l);
-      }
-      uint2 w = ln.rec(0, 8);  // residue k's bytes, loaded a step ahead
-      for (int k = 0; k < sm - 1; ++k) {
-        const uint2 cur = w;
-        if (k + 2 < sm) w = ln.rec(k + 1, 8);
-        fr.put(3 * k, a);
-        fr.put(3 * k + 1, b);
-        fr.put(3 * k + 2, c);
-        fwd_step(ln, cur, &a, &b, &c);
-      }
-      if (kPhase == 1) {
-        fr.put(tat - 3, a);
-        fr.put(tat - 2, b);
-        fr.put(tat - 1, c);
-        continue;
-      }
-    }
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= nl) return;
+  const int l = order[i];
+  const int tat = min(tat_[l], 3 * seg);
+  if (tat < 3) return;
+  const int sm = tat / 3;  // the lane's residues
+  Lane ln;
+  lane_init(&ln, recs, mins6, cont6, seg, nl, l);
+  V3 a, b, c;
+  if (tails9 != nullptr && !is_first[l]) {
+    // lane l-1's tail, rows comp*3 + atom
+    const size_t p = l == 0 ? nl - 1 : l - 1;
+    a = v3(tails9[p], tails9[3 * (size_t)nl + p], tails9[6 * (size_t)nl + p]);
+    b = v3(tails9[(size_t)nl + p], tails9[4 * (size_t)nl + p],
+           tails9[7 * (size_t)nl + p]);
+    c = v3(tails9[2 * (size_t)nl + p], tails9[5 * (size_t)nl + p],
+           tails9[8 * (size_t)nl + p]);
+  } else {
+    a = load3(fwd9, 0, nl, l);
+    b = load3(fwd9, 3, nl, l);
+    c = load3(fwd9, 6, nl, l);
+  }
+  // forward rows 0 .. tat-4 to the scratch planes at column i
+  uint2 w = ln.rec(0, 8);  // residue k's bytes, loaded a step ahead
+  for (int k = 0; k < sm - 1; ++k) {
+    const uint2 cur = w;
+    if (k + 2 < sm) w = ln.rec(k + 1, 8);
+    put_row(sx, sy, sz, 3 * k, nl, i, a);
+    put_row(sx, sy, sz, 3 * k + 1, nl, i, b);
+    put_row(sx, sy, sz, 3 * k + 2, nl, i, c);
+    fwd_step(ln, cur, &a, &b, &c);
+  }
 
-    const float tatf = (float)tat;
-    const float tf = fmaxf(tatf, 1.0f);
-    auto blend = [&](int r, V3 f, V3 w) {
-      const float w_r = (float)r;
-      const float w_f = tatf - w_r;
-      put_row(ox, oy, oz, r, nl, l,
-              v3((f.x * w_f + w.x * w_r) / tf, (f.y * w_f + w.y * w_r) / tf,
-                 (f.z * w_f + w.z * w_r) / tf));
-    };
-    // reverse atoms at rows r+1..r+3 and forward atoms at r+1, r+2
-    V3 v3_ = load3(ranc, 6, nl, l), v2 = load3(ranc, 3, nl, l),
-       v1 = load3(ranc, 0, nl, l);
-    blend(tat - 1, c, v3_);
-    blend(tat - 2, b, v2);
-    blend(tat - 3, a, v1);
-    V3 f1 = a, f2 = b;
-    auto rev = [&](int r, V3 f0, float bl, float2 tor) {
-      float cos_a, sin_a;
-      bond_angle_cs(f0, f1, f2, &cos_a, &sin_a);
-      const V3 w = place_cs(v3_, v2, v1, bl, cos_a, sin_a, tor);
-      blend(r, f0, w);
-      v3_ = v2;
-      v2 = v1;
-      v1 = w;
-      f2 = f1;
-      f1 = f0;
-    };
-    // residue j's forward rows and torsion bytes, loaded one residue ahead
-    V3 p0 = a, p1 = a, p2 = a;
-    uint2 tw = make_uint2(0u, 0u);
-    if (sm >= 2) {
-      p0 = fr.get(tat - 6);
-      p1 = fr.get(tat - 5);
-      p2 = fr.get(tat - 4);
-      tw = ln.rec(sm - 2, 5);
+  const float tatf = (float)tat;
+  const float tf = fmaxf(tatf, 1.0f);
+  auto blend = [&](int r, V3 f, V3 w) {
+    const float w_r = (float)r;
+    const float w_f = tatf - w_r;
+    put_row(ox, oy, oz, r, nl, l,
+            v3((f.x * w_f + w.x * w_r) / tf, (f.y * w_f + w.y * w_r) / tf,
+               (f.z * w_f + w.z * w_r) / tf));
+  };
+  // reverse atoms at rows r+1..r+3 and forward atoms at r+1, r+2
+  V3 v3_ = load3(ranc, 6, nl, l), v2 = load3(ranc, 3, nl, l),
+     v1 = load3(ranc, 0, nl, l);
+  blend(tat - 1, c, v3_);
+  blend(tat - 2, b, v2);
+  blend(tat - 3, a, v1);
+  V3 f1 = a, f2 = b;
+  auto rev = [&](int r, V3 f0, float bl, float2 tor) {
+    float cos_a, sin_a;
+    bond_angle_cs(f0, f1, f2, &cos_a, &sin_a);
+    const V3 w = place_cs(v3_, v2, v1, bl, cos_a, sin_a, tor);
+    blend(r, f0, w);
+    v3_ = v2;
+    v2 = v1;
+    v1 = w;
+    f2 = f1;
+    f1 = f0;
+  };
+  // residue j's forward rows and torsion bytes, loaded one residue ahead
+  V3 p0 = a, p1 = a, p2 = a;
+  uint2 tw = make_uint2(0u, 0u);
+  if (sm >= 2) {
+    p0 = get_row(sx, sy, sz, tat - 6, nl, i);
+    p1 = get_row(sx, sy, sz, tat - 5, nl, i);
+    p2 = get_row(sx, sy, sz, tat - 4, nl, i);
+    tw = ln.rec(sm - 2, 5);
+  }
+  for (int j = sm - 2; j >= 0; --j) {
+    const V3 q0 = p0, q1 = p1, q2 = p2;
+    const uint2 cw = tw;
+    if (j > 0) {
+      p0 = get_row(sx, sy, sz, 3 * j - 3, nl, i);
+      p1 = get_row(sx, sy, sz, 3 * j - 2, nl, i);
+      p2 = get_row(sx, sy, sz, 3 * j - 1, nl, i);
+      tw = ln.rec(j - 1, 5);
     }
-    for (int j = sm - 2; j >= 0; --j) {
-      const V3 q0 = p0, q1 = p1, q2 = p2;
-      const uint2 cw = tw;
-      if (j > 0) {
-        p0 = fr.get(3 * j - 3);
-        p1 = fr.get(3 * j - 2);
-        p2 = fr.get(3 * j - 1);
-        tw = ln.rec(j - 1, 5);
-      }
+    if (kGrouped) {
+      // rows 3j+2, 3j+1, 3j: bond angles from forward rows r..r+2
+      float c2, s2, c1, s1, c0, s0;
+      bond_angle_cs(q2, f1, f2, &c2, &s2);
+      bond_angle_cs(q1, q2, f1, &c1, &s1);
+      bond_angle_cs(q0, q1, q2, &c0, &s0);
+      const float2 t2 = cs_deg(ln.torsion(2, cw));
+      const float2 t1 = cs_deg(ln.torsion(1, cw));
+      const float2 t0 = cs_deg(ln.torsion(0, cw));
+      const V3 w2 = place_cs(v3_, v2, v1, c_k[K_C_TO_N], c2, s2, t2);
+      const V3 w1 = place_cs(v2, v1, w2, c_k[K_CA_TO_C], c1, s1, t1);
+      const V3 w0 = place_cs(v1, w2, w1, c_k[K_N_TO_CA], c0, s0, t0);
+      blend(3 * j + 2, q2, w2);
+      blend(3 * j + 1, q1, w1);
+      blend(3 * j, q0, w0);
+      v3_ = w2;
+      v2 = w1;
+      v1 = w0;
+      f2 = q1;
+      f1 = q0;
+    } else {
       rev(3 * j + 2, q2, c_k[K_C_TO_N], cs_deg(ln.torsion(2, cw)));
       rev(3 * j + 1, q1, c_k[K_CA_TO_C], cs_deg(ln.torsion(1, cw)));
       rev(3 * j, q0, c_k[K_N_TO_CA], cs_deg(ln.torsion(0, cw)));
@@ -786,30 +759,20 @@ cudaError_t fd_tails(const uint8_t* recs, const float* seed,
   return cudaGetLastError();
 }
 
-// k2 on `grid` blocks of 128 threads. tails9 null: the seeds are fwd9
-// (refine_iters 1). fwd_mode: where the forward rows go (FwdRows: 1 the
-// [3*SEG, grid*128] scratch planes sx, sy, sz, 2 the warp-tiled scratch sx
-// of grid*128*9*SEG floats); split: the forward and the reverse as two
-// launches, one after the other on the stream.
+// k2, one thread per lane; sx, sy, sz: [3*SEG, NL] float scratch planes
+// for the forward rows. tails9 null: the seeds are fwd9 (refine_iters 1).
 cudaError_t fd_backbone(const uint8_t* recs, const float* tails9,
                         const float* fwd9, const uint8_t* is_first,
                         const float* ranc, const int* tat, const float* mins6,
                         const float* cont6, const int* order, float* ox,
                         float* oy, float* oz, float* sx, float* sy,
-                        float* sz, int seg, int nl, int grid, int fwd_mode,
-                        int split, cudaStream_t stream) {
-  if (grid < 1 || (fwd_mode != 1 && fwd_mode != 2)) return cudaErrorInvalidValue;
-  const bool t = fwd_mode == 2;
-  auto launch = [&](decltype(&k2_backbone<1, 0>) kern) {
-    kern<<<grid, 128, 0, stream>>>(recs, tails9, fwd9, is_first, ranc, tat,
-                                   mins6, cont6, order, ox, oy, oz, sx, sy,
-                                   sz, seg, nl);
-    return cudaGetLastError();
-  };
-  if (!split) return launch(t ? k2_backbone<2, 0> : k2_backbone<1, 0>);
-  const cudaError_t e = launch(t ? k2_backbone<2, 1> : k2_backbone<1, 1>);
-  if (e != cudaSuccess) return e;
-  return launch(t ? k2_backbone<2, 2> : k2_backbone<1, 2>);
+                        float* sz, int seg, int nl, int grouped,
+                        cudaStream_t stream) {
+  auto kern = grouped ? k2_backbone<true> : k2_backbone<false>;
+  kern<<<blocks_for(nl, 128), 128, 0, stream>>>(
+      recs, tails9, fwd9, is_first, ranc, tat, mins6, cont6, order, ox, oy,
+      oz, sx, sy, sz, seg, nl);
+  return cudaGetLastError();
 }
 
 // k3 on a persistent grid: as many blocks as fit on the device at once,

@@ -78,13 +78,12 @@ def n_ca_lengths(recs):
                                     device=recs.device))
 
 
-def lane_order(tat, floor=None):
+def lane_order(tat):
     """i32 [NL] permutation of the lanes by tat, longest first, stable (the
     lanes of one length in pack order): the order k1 and k2 walk them in,
-    so that a warp's lanes have one length. floor (a tat): the lanes no
-    longer than it tie, and keep pack order behind the longer ones."""
-    key = tat if floor is None else torch.clamp_min(tat, int(floor))
-    return torch.argsort(key, descending=True, stable=True).to(torch.int32)
+    so that a warp's lanes have one length."""
+    return torch.argsort(tat, descending=True, stable=True) \
+        .to(torch.int32)
 
 
 # ---------------------------------------------------------------------------
@@ -323,7 +322,7 @@ def tails(recs, seed, ranc, tat, mins6, cont6, order=None):
 
 
 def backbone(recs, tails9, fwd9, is_first, ranc, tat, mins6, cont6,
-             order=None, fwd_mode=1, split=False):
+             order=None, grouped=False):
     """k2 -> blended backbone rows [3*SEG, NL] x3.
 
     Seeds: lane l starts from lane l-1's k1 tail (tails9 [9, NL], rows
@@ -332,9 +331,8 @@ def backbone(recs, tails9, fwd9, is_first, ranc, tat, mins6, cont6,
     from the records. On a CUDA device the kernel computes and writes rows
     r < tat[l] only: rows >= tat (pack padding) of a CUDA result are
     unspecified. The plain version on the CPU computes every row.
-    order: as for `tails`. fwd_mode: where the kernel keeps the forward
-    rows (1 thread-indexed scratch planes, 2 a warp-tiled scratch); split:
-    the forward and the reverse as two launches."""
+    order: as for `tails`. grouped: the kernel's reverse takes a residue's
+    bond angles and torsions, then its placements, then its blends."""
     global K2_LAUNCHES
     if recs.device.type == "cpu":
         return backbone_rolled_plain(recs, tails9, fwd9, is_first, ranc,
@@ -348,17 +346,12 @@ def backbone(recs, tails9, fwd9, is_first, ranc, tat, mins6, cont6,
     outs = tuple(torch.empty((3 * seg, nl), dtype=F32, device=dev)
                  for _ in range(3))
     if nl and seg:
-        grid = -(-nl // 128)
-        if fwd_mode == 1:
-            scratch = tuple(torch.empty((3 * seg, grid * 128), dtype=F32,
-                                        device=dev) for _ in range(3))
-        else:
-            scratch = (torch.empty((grid * 128 * 9 * seg,), dtype=F32,
-                                   device=dev), None, None)
+        # the forward rows, at each thread's column
+        scratch = tuple(torch.empty((3 * seg, nl), dtype=F32, device=dev)
+                        for _ in range(3))
         _launch(lib.fd_backbone, "k2 backbone", dev,
                 *_ptrs(recs, tails9, fwd9, is_first, ranc, tat, mins6, cont6,
-                       order, *outs, *scratch), seg, nl, grid, int(fwd_mode),
-                int(bool(split)))
+                       order, *outs, *scratch), seg, nl, int(bool(grouped)))
         K2_LAUNCHES += 1
     return outs
 
