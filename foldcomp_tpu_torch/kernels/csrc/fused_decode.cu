@@ -309,10 +309,11 @@ k1_tails(const uint8_t* __restrict__ recs, const float* __restrict__ seed,
 // bond angles (2 square roots and a division each) and 9 blend divisions,
 // against 8 B of records in and 36 B of rows out; the forward rows' round
 // trip through the planes adds 72 B a residue.
-// kGrouped: the reverse takes a residue's three bond angles and torsions
-// first, then its three chained placements, then its nine blend divisions
-// (the same operations on the same values as row by row).
-template <bool kGrouped>
+// kDiag (measurement only; 0 is k2): 1, the blend rows are computed but
+// not stored; 2, the blend divides by a reciprocal multiplied; 3, the
+// reverse places nothing (its atom is the forward row); 4, no reverse
+// beyond the three anchor rows.
+template <int kDiag>
 __global__ void __launch_bounds__(128)
 k2_backbone(const uint8_t* __restrict__ recs, const float* __restrict__ tails9,
             const float* __restrict__ fwd9,
@@ -358,12 +359,18 @@ k2_backbone(const uint8_t* __restrict__ recs, const float* __restrict__ tails9,
 
   const float tatf = (float)tat;
   const float tf = fmaxf(tatf, 1.0f);
+  const float rtf = 1.0f / tf;
   auto blend = [&](int r, V3 f, V3 w) {
     const float w_r = (float)r;
     const float w_f = tatf - w_r;
-    put_row(ox, oy, oz, r, nl, l,
-            v3((f.x * w_f + w.x * w_r) / tf, (f.y * w_f + w.y * w_r) / tf,
-               (f.z * w_f + w.z * w_r) / tf));
+    V3 o;
+    if (kDiag == 2)
+      o = v3((f.x * w_f + w.x * w_r) * rtf, (f.y * w_f + w.y * w_r) * rtf,
+             (f.z * w_f + w.z * w_r) * rtf);
+    else
+      o = v3((f.x * w_f + w.x * w_r) / tf, (f.y * w_f + w.y * w_r) / tf,
+             (f.z * w_f + w.z * w_r) / tf);
+    if (kDiag != 1 || o.x != o.x) put_row(ox, oy, oz, r, nl, l, o);
   };
   // reverse atoms at rows r+1..r+3 and forward atoms at r+1, r+2
   V3 v3_ = load3(ranc, 6, nl, l), v2 = load3(ranc, 3, nl, l),
@@ -374,8 +381,11 @@ k2_backbone(const uint8_t* __restrict__ recs, const float* __restrict__ tails9,
   V3 f1 = a, f2 = b;
   auto rev = [&](int r, V3 f0, float bl, float2 tor) {
     float cos_a, sin_a;
-    bond_angle_cs(f0, f1, f2, &cos_a, &sin_a);
-    const V3 w = place_cs(v3_, v2, v1, bl, cos_a, sin_a, tor);
+    V3 w = f0;
+    if (kDiag != 3) {
+      bond_angle_cs(f0, f1, f2, &cos_a, &sin_a);
+      w = place_cs(v3_, v2, v1, bl, cos_a, sin_a, tor);
+    }
     blend(r, f0, w);
     v3_ = v2;
     v2 = v1;
@@ -392,7 +402,7 @@ k2_backbone(const uint8_t* __restrict__ recs, const float* __restrict__ tails9,
     p2 = get_row(sx, sy, sz, tat - 4, nl, i);
     tw = ln.rec(sm - 2, 5);
   }
-  for (int j = sm - 2; j >= 0; --j) {
+  for (int j = kDiag == 4 ? -1 : sm - 2; j >= 0; --j) {
     const V3 q0 = p0, q1 = p1, q2 = p2;
     const uint2 cw = tw;
     if (j > 0) {
@@ -401,27 +411,7 @@ k2_backbone(const uint8_t* __restrict__ recs, const float* __restrict__ tails9,
       p2 = get_row(sx, sy, sz, 3 * j - 1, nl, i);
       tw = ln.rec(j - 1, 5);
     }
-    if (kGrouped) {
-      // rows 3j+2, 3j+1, 3j: bond angles from forward rows r..r+2
-      float c2, s2, c1, s1, c0, s0;
-      bond_angle_cs(q2, f1, f2, &c2, &s2);
-      bond_angle_cs(q1, q2, f1, &c1, &s1);
-      bond_angle_cs(q0, q1, q2, &c0, &s0);
-      const float2 t2 = cs_deg(ln.torsion(2, cw));
-      const float2 t1 = cs_deg(ln.torsion(1, cw));
-      const float2 t0 = cs_deg(ln.torsion(0, cw));
-      const V3 w2 = place_cs(v3_, v2, v1, c_k[K_C_TO_N], c2, s2, t2);
-      const V3 w1 = place_cs(v2, v1, w2, c_k[K_CA_TO_C], c1, s1, t1);
-      const V3 w0 = place_cs(v1, w2, w1, c_k[K_N_TO_CA], c0, s0, t0);
-      blend(3 * j + 2, q2, w2);
-      blend(3 * j + 1, q1, w1);
-      blend(3 * j, q0, w0);
-      v3_ = w2;
-      v2 = w1;
-      v1 = w0;
-      f2 = q1;
-      f1 = q0;
-    } else {
+    {
       rev(3 * j + 2, q2, c_k[K_C_TO_N], cs_deg(ln.torsion(2, cw)));
       rev(3 * j + 1, q1, c_k[K_CA_TO_C], cs_deg(ln.torsion(1, cw)));
       rev(3 * j, q0, c_k[K_N_TO_CA], cs_deg(ln.torsion(0, cw)));
@@ -761,14 +751,19 @@ cudaError_t fd_tails(const uint8_t* recs, const float* seed,
 
 // k2, one thread per lane; sx, sy, sz: [3*SEG, NL] float scratch planes
 // for the forward rows. tails9 null: the seeds are fwd9 (refine_iters 1).
+// diag: k2_backbone's kDiag (0 for k2).
 cudaError_t fd_backbone(const uint8_t* recs, const float* tails9,
                         const float* fwd9, const uint8_t* is_first,
                         const float* ranc, const int* tat, const float* mins6,
                         const float* cont6, const int* order, float* ox,
                         float* oy, float* oz, float* sx, float* sy,
-                        float* sz, int seg, int nl, int grouped,
+                        float* sz, int seg, int nl, int diag,
                         cudaStream_t stream) {
-  auto kern = grouped ? k2_backbone<true> : k2_backbone<false>;
+  auto kern = k2_backbone<0>;
+  if (diag == 1) kern = k2_backbone<1>;
+  if (diag == 2) kern = k2_backbone<2>;
+  if (diag == 3) kern = k2_backbone<3>;
+  if (diag == 4) kern = k2_backbone<4>;
   kern<<<blocks_for(nl, 128), 128, 0, stream>>>(
       recs, tails9, fwd9, is_first, ranc, tat, mins6, cont6, order, ox, oy,
       oz, sx, sy, sz, seg, nl);

@@ -322,7 +322,7 @@ def tails(recs, seed, ranc, tat, mins6, cont6, order=None):
 
 
 def backbone(recs, tails9, fwd9, is_first, ranc, tat, mins6, cont6,
-             order=None, grouped=False):
+             order=None, diag=0):
     """k2 -> blended backbone rows [3*SEG, NL] x3.
 
     Seeds: lane l starts from lane l-1's k1 tail (tails9 [9, NL], rows
@@ -331,8 +331,8 @@ def backbone(recs, tails9, fwd9, is_first, ranc, tat, mins6, cont6,
     from the records. On a CUDA device the kernel computes and writes rows
     r < tat[l] only: rows >= tat (pack padding) of a CUDA result are
     unspecified. The plain version on the CPU computes every row.
-    order: as for `tails`. grouped: the kernel's reverse takes a residue's
-    bond angles and torsions, then its placements, then its blends."""
+    order: as for `tails`. diag: a measurement-only variant of the kernel
+    (csrc/fused_decode.cu kDiag), 0 for k2."""
     global K2_LAUNCHES
     if recs.device.type == "cpu":
         return backbone_rolled_plain(recs, tails9, fwd9, is_first, ranc,
@@ -351,7 +351,7 @@ def backbone(recs, tails9, fwd9, is_first, ranc, tat, mins6, cont6,
                         for _ in range(3))
         _launch(lib.fd_backbone, "k2 backbone", dev,
                 *_ptrs(recs, tails9, fwd9, is_first, ranc, tat, mins6, cont6,
-                       order, *outs, *scratch), seg, nl, int(bool(grouped)))
+                       order, *outs, *scratch), seg, nl, int(diag))
         K2_LAUNCHES += 1
     return outs
 
