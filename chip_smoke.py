@@ -148,14 +148,12 @@ def ptxas_report(log):
         m = re.search(r"(?:Compiling entry function|Function properties "
                       r"for) '?(\w+)", line)
         if m:
-            cur = next((k for k in ("k1_tails", "k2_backbone",
+            cur = next((k for k in ("k1_tails", "k2_copy_out", "k2_backbone",
                                     "k3_sidechain", "k3_tables",
                                     "k4_merged") if k in m.group(1)),
                        m.group(1))
-            if cur == "k2_backbone":
-                t = re.search(r"ILi(\d)E", m.group(1))
-                if t and t.group(1) != "0":
-                    cur = f"k2_backbone_diag{t.group(1)}"
+            if cur == "k2_backbone" and "ILb1E" in m.group(1):
+                cur = "k2_backbone_staged"
             out.setdefault(cur, {})
             continue
         if cur is None:
@@ -846,20 +844,19 @@ def device_decode(dev, card, uniq, err, entries=8192):
     # k3 over every row, the padding's too: what skipping it saves
     times["k3"]["all_rows_ms"] = cuda_ms(
         torch, lambda: FD.sidechain(*bb, pr["code"], pr["sct"], nl_out), 10)
-    # k2 less one part, in turns with k2 (measurement only, values differ):
-    # the output stores, the blend divisions, the reverse placements, the
-    # whole reverse
-    forms = {"diag_no_output_stores": {"diag": 1},
-             "diag_blend_by_reciprocal": {"diag": 2},
-             "diag_no_reverse_placement": {"diag": 3},
-             "diag_no_reverse": {"diag": 4}}
+    # k2's other form, in turns with the default: the blended rows staged
+    # in the scratch and copied out by a second kernel; and, measurement
+    # only, the staged kernel without the copy
+    forms = {"staged": {"staged": True},
+             "staged_no_copy": {"staged": True, "copy": False}}
     times["k2"]["forms"] = {}
     for name, kw in forms.items():
         d1 = cuda_ms(torch, k2, 10)
         f1 = cuda_ms(torch, lambda: k2(**kw), 10)
         f2 = cuda_ms(torch, lambda: k2(**kw), 10)
         d2 = cuda_ms(torch, k2, 10)
-        same = owned_max(k2(**kw), bb, tat) if "diag" not in kw else 0.0
+        same = owned_max(k2(**kw), bb, tat) if kw.get("copy", True) \
+            else 0.0
         if same != 0.0:
             raise AssertionError(f"k2 form {name} differs from the default "
                                  f"by {same} A")

@@ -309,11 +309,10 @@ k1_tails(const uint8_t* __restrict__ recs, const float* __restrict__ seed,
 // bond angles (2 square roots and a division each) and 9 blend divisions,
 // against 8 B of records in and 36 B of rows out; the forward rows' round
 // trip through the planes adds 72 B a residue.
-// kDiag (measurement only; 0 is k2): 1, the blend rows are computed but
-// not stored; 2, the blend divides by a reciprocal multiplied; 3, the
-// reverse places nothing (its atom is the forward row); 4, no reverse
-// beyond the three anchor rows.
-template <int kDiag>
+// kStaged: the blended rows go back into the scratch planes, in place,
+// at the thread's column (k2_copy_out moves them to the lanes' columns);
+// else straight into the output planes at the lane's column.
+template <bool kStaged>
 __global__ void __launch_bounds__(128)
 k2_backbone(const uint8_t* __restrict__ recs, const float* __restrict__ tails9,
             const float* __restrict__ fwd9,
@@ -323,10 +322,11 @@ k2_backbone(const uint8_t* __restrict__ recs, const float* __restrict__ tails9,
             const int* __restrict__ order, float* __restrict__ ox,
             float* __restrict__ oy, float* __restrict__ oz,
             float* __restrict__ sx, float* __restrict__ sy,
-            float* __restrict__ sz, int seg, int nl) {
+            float* __restrict__ sz, int* __restrict__ pos, int seg, int nl) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= nl) return;
   const int l = order[i];
+  if (kStaged) pos[l] = i;
   const int tat = min(tat_[l], 3 * seg);
   if (tat < 3) return;
   const int sm = tat / 3;  // the lane's residues
@@ -359,18 +359,16 @@ k2_backbone(const uint8_t* __restrict__ recs, const float* __restrict__ tails9,
 
   const float tatf = (float)tat;
   const float tf = fmaxf(tatf, 1.0f);
-  const float rtf = 1.0f / tf;
   auto blend = [&](int r, V3 f, V3 w) {
     const float w_r = (float)r;
     const float w_f = tatf - w_r;
-    V3 o;
-    if (kDiag == 2)
-      o = v3((f.x * w_f + w.x * w_r) * rtf, (f.y * w_f + w.y * w_r) * rtf,
-             (f.z * w_f + w.z * w_r) * rtf);
+    const V3 o = v3((f.x * w_f + w.x * w_r) / tf,
+                    (f.y * w_f + w.y * w_r) / tf,
+                    (f.z * w_f + w.z * w_r) / tf);
+    if (kStaged)
+      put_row(sx, sy, sz, r, nl, i, o);
     else
-      o = v3((f.x * w_f + w.x * w_r) / tf, (f.y * w_f + w.y * w_r) / tf,
-             (f.z * w_f + w.z * w_r) / tf);
-    if (kDiag != 1 || o.x != o.x) put_row(ox, oy, oz, r, nl, l, o);
+      put_row(ox, oy, oz, r, nl, l, o);
   };
   // reverse atoms at rows r+1..r+3 and forward atoms at r+1, r+2
   V3 v3_ = load3(ranc, 6, nl, l), v2 = load3(ranc, 3, nl, l),
@@ -381,11 +379,8 @@ k2_backbone(const uint8_t* __restrict__ recs, const float* __restrict__ tails9,
   V3 f1 = a, f2 = b;
   auto rev = [&](int r, V3 f0, float bl, float2 tor) {
     float cos_a, sin_a;
-    V3 w = f0;
-    if (kDiag != 3) {
-      bond_angle_cs(f0, f1, f2, &cos_a, &sin_a);
-      w = place_cs(v3_, v2, v1, bl, cos_a, sin_a, tor);
-    }
+    bond_angle_cs(f0, f1, f2, &cos_a, &sin_a);
+    const V3 w = place_cs(v3_, v2, v1, bl, cos_a, sin_a, tor);
     blend(r, f0, w);
     v3_ = v2;
     v2 = v1;
@@ -402,7 +397,7 @@ k2_backbone(const uint8_t* __restrict__ recs, const float* __restrict__ tails9,
     p2 = get_row(sx, sy, sz, tat - 4, nl, i);
     tw = ln.rec(sm - 2, 5);
   }
-  for (int j = kDiag == 4 ? -1 : sm - 2; j >= 0; --j) {
+  for (int j = sm - 2; j >= 0; --j) {
     const V3 q0 = p0, q1 = p1, q2 = p2;
     const uint2 cw = tw;
     if (j > 0) {
@@ -411,12 +406,28 @@ k2_backbone(const uint8_t* __restrict__ recs, const float* __restrict__ tails9,
       p2 = get_row(sx, sy, sz, 3 * j - 1, nl, i);
       tw = ln.rec(j - 1, 5);
     }
-    {
-      rev(3 * j + 2, q2, c_k[K_C_TO_N], cs_deg(ln.torsion(2, cw)));
-      rev(3 * j + 1, q1, c_k[K_CA_TO_C], cs_deg(ln.torsion(1, cw)));
-      rev(3 * j, q0, c_k[K_N_TO_CA], cs_deg(ln.torsion(0, cw)));
-    }
+    rev(3 * j + 2, q2, c_k[K_C_TO_N], cs_deg(ln.torsion(2, cw)));
+    rev(3 * j + 1, q1, c_k[K_CA_TO_C], cs_deg(ln.torsion(1, cw)));
+    rev(3 * j, q0, c_k[K_N_TO_CA], cs_deg(ln.torsion(0, cw)));
   }
+}
+
+// k2's copy-out: row r of lane l from the staging column pos[l] (the
+// thread that walked the lane) to the output planes, rows r < tat only;
+// one thread per (row, lane), so a warp writes 32 neighbouring lanes.
+__global__ void __launch_bounds__(256)
+k2_copy_out(const float* __restrict__ sx, const float* __restrict__ sy,
+            const float* __restrict__ sz, const int* __restrict__ pos,
+            const int* __restrict__ tat_, float* __restrict__ ox,
+            float* __restrict__ oy, float* __restrict__ oz, int seg,
+            int nl) {
+  const int l = blockIdx.x * blockDim.x + threadIdx.x;
+  const int r = blockIdx.y;
+  if (l >= nl || r >= min(tat_[l], 3 * seg)) return;
+  const size_t src = (size_t)r * nl + pos[l], dst = (size_t)r * nl + l;
+  ox[dst] = sx[src];
+  oy[dst] = sy[src];
+  oz[dst] = sz[src];
 }
 
 // k3's tables, derived on the card from the __constant__ ones by
@@ -751,22 +762,23 @@ cudaError_t fd_tails(const uint8_t* recs, const float* seed,
 
 // k2, one thread per lane; sx, sy, sz: [3*SEG, NL] float scratch planes
 // for the forward rows. tails9 null: the seeds are fwd9 (refine_iters 1).
-// diag: k2_backbone's kDiag (0 for k2).
+// staged: the blend rows through the scratch and k2_copy_out, with pos an
+// [NL] int scratch (measurement: copy 0 leaves the copy out).
 cudaError_t fd_backbone(const uint8_t* recs, const float* tails9,
                         const float* fwd9, const uint8_t* is_first,
                         const float* ranc, const int* tat, const float* mins6,
                         const float* cont6, const int* order, float* ox,
                         float* oy, float* oz, float* sx, float* sy,
-                        float* sz, int seg, int nl, int diag,
-                        cudaStream_t stream) {
-  auto kern = k2_backbone<0>;
-  if (diag == 1) kern = k2_backbone<1>;
-  if (diag == 2) kern = k2_backbone<2>;
-  if (diag == 3) kern = k2_backbone<3>;
-  if (diag == 4) kern = k2_backbone<4>;
+                        float* sz, int* pos, int seg, int nl, int staged,
+                        int copy, cudaStream_t stream) {
+  auto kern = staged ? k2_backbone<true> : k2_backbone<false>;
   kern<<<blocks_for(nl, 128), 128, 0, stream>>>(
       recs, tails9, fwd9, is_first, ranc, tat, mins6, cont6, order, ox, oy,
-      oz, sx, sy, sz, seg, nl);
+      oz, sx, sy, sz, pos, seg, nl);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess || !staged || !copy) return e;
+  k2_copy_out<<<dim3(blocks_for(nl, 256), 3 * seg), 256, 0, stream>>>(
+      sx, sy, sz, pos, tat, ox, oy, oz, seg, nl);
   return cudaGetLastError();
 }
 

@@ -322,7 +322,7 @@ def tails(recs, seed, ranc, tat, mins6, cont6, order=None):
 
 
 def backbone(recs, tails9, fwd9, is_first, ranc, tat, mins6, cont6,
-             order=None, diag=0):
+             order=None, staged=False, copy=True):
     """k2 -> blended backbone rows [3*SEG, NL] x3.
 
     Seeds: lane l starts from lane l-1's k1 tail (tails9 [9, NL], rows
@@ -331,8 +331,9 @@ def backbone(recs, tails9, fwd9, is_first, ranc, tat, mins6, cont6,
     from the records. On a CUDA device the kernel computes and writes rows
     r < tat[l] only: rows >= tat (pack padding) of a CUDA result are
     unspecified. The plain version on the CPU computes every row.
-    order: as for `tails`. diag: a measurement-only variant of the kernel
-    (csrc/fused_decode.cu kDiag), 0 for k2."""
+    order: as for `tails`. staged: the blended rows go through the
+    scratch planes, and a second kernel copies them to the lanes' columns
+    (copy False leaves it out, for measurement only)."""
     global K2_LAUNCHES
     if recs.device.type == "cpu":
         return backbone_rolled_plain(recs, tails9, fwd9, is_first, ranc,
@@ -349,9 +350,11 @@ def backbone(recs, tails9, fwd9, is_first, ranc, tat, mins6, cont6,
         # the forward rows, at each thread's column
         scratch = tuple(torch.empty((3 * seg, nl), dtype=F32, device=dev)
                         for _ in range(3))
+        pos = torch.empty((nl,), dtype=torch.int32, device=dev)
         _launch(lib.fd_backbone, "k2 backbone", dev,
                 *_ptrs(recs, tails9, fwd9, is_first, ranc, tat, mins6, cont6,
-                       order, *outs, *scratch), seg, nl, int(diag))
+                       order, *outs, *scratch, pos), seg, nl, int(staged),
+                int(copy))
         K2_LAUNCHES += 1
     return outs
 
