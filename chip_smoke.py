@@ -148,12 +148,15 @@ def ptxas_report(log):
         m = re.search(r"(?:Compiling entry function|Function properties "
                       r"for) '?(\w+)", line)
         if m:
-            cur = next((k for k in ("k1_tails", "k2_copy_out", "k2_backbone",
+            cur = next((k for k in ("k1_tails", "k2_backbone",
                                     "k3_sidechain", "k3_tables",
                                     "k4_merged") if k in m.group(1)),
                        m.group(1))
             if cur == "k2_backbone" and "ILb1E" in m.group(1):
                 cur = "k2_backbone_staged"
+            t = re.search(r"k2_copy_outILi(\d)E", m.group(1))
+            if t:
+                cur = f"k2_copy_out_{t.group(1)}"
             out.setdefault(cur, {})
             continue
         if cur is None:
@@ -844,11 +847,13 @@ def device_decode(dev, card, uniq, err, entries=8192):
     # k3 over every row, the padding's too: what skipping it saves
     times["k3"]["all_rows_ms"] = cuda_ms(
         torch, lambda: FD.sidechain(*bb, pr["code"], pr["sct"], nl_out), 10)
-    # k2's other form, in turns with the default: the blended rows staged
-    # in the scratch and copied out by a second kernel; and, measurement
-    # only, the staged kernel without the copy
+    # k2's other forms, in turns with the default: the blended rows staged
+    # in the scratch and copied out by a second kernel (a thread per row,
+    # per residue, or per lane); and, measurement only, without the copy
     forms = {"staged": {"staged": True},
-             "staged_no_copy": {"staged": True, "copy": False}}
+             "staged_copy_by_residue": {"staged": True, "copy": 2},
+             "staged_copy_by_lane": {"staged": True, "copy": 3},
+             "staged_no_copy": {"staged": True, "copy": 0}}
     times["k2"]["forms"] = {}
     for name, kw in forms.items():
         d1 = cuda_ms(torch, k2, 10)

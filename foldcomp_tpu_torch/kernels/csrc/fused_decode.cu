@@ -412,9 +412,12 @@ k2_backbone(const uint8_t* __restrict__ recs, const float* __restrict__ tails9,
   }
 }
 
-// k2's copy-out: row r of lane l from the staging column pos[l] (the
-// thread that walked the lane) to the output planes, rows r < tat only;
-// one thread per (row, lane), so a warp writes 32 neighbouring lanes.
+// k2's copy-out: rows r < tat of lane l from the staging column pos[l]
+// (the thread that walked the lane) to the output planes, a warp on 32
+// neighbouring lanes. kMode 1: one thread per (row, lane); 2: one thread
+// per (residue, lane), its three rows; 3: one thread per lane, residue by
+// residue.
+template <int kMode>
 __global__ void __launch_bounds__(256)
 k2_copy_out(const float* __restrict__ sx, const float* __restrict__ sy,
             const float* __restrict__ sz, const int* __restrict__ pos,
@@ -422,12 +425,55 @@ k2_copy_out(const float* __restrict__ sx, const float* __restrict__ sy,
             float* __restrict__ oy, float* __restrict__ oz, int seg,
             int nl) {
   const int l = blockIdx.x * blockDim.x + threadIdx.x;
-  const int r = blockIdx.y;
-  if (l >= nl || r >= min(tat_[l], 3 * seg)) return;
-  const size_t src = (size_t)r * nl + pos[l], dst = (size_t)r * nl + l;
-  ox[dst] = sx[src];
-  oy[dst] = sy[src];
-  oz[dst] = sz[src];
+  if (l >= nl) return;
+  const int tat = min(tat_[l], 3 * seg);
+  const int p = pos[l];
+  auto copy = [&](int r) {
+    const size_t src = (size_t)r * nl + p, dst = (size_t)r * nl + l;
+    ox[dst] = sx[src];
+    oy[dst] = sy[src];
+    oz[dst] = sz[src];
+  };
+  if (kMode == 1) {
+    if (blockIdx.y < tat) copy(blockIdx.y);
+  } else if (kMode == 2) {
+    const int r = 3 * blockIdx.y;
+    if (r < tat) {
+      float v[9];
+#pragma unroll
+      for (int k = 0; k < 3; ++k) {
+        const size_t src = (size_t)(r + k) * nl + p;
+        v[3 * k] = sx[src];
+        v[3 * k + 1] = sy[src];
+        v[3 * k + 2] = sz[src];
+      }
+#pragma unroll
+      for (int k = 0; k < 3; ++k) {
+        const size_t dst = (size_t)(r + k) * nl + l;
+        ox[dst] = v[3 * k];
+        oy[dst] = v[3 * k + 1];
+        oz[dst] = v[3 * k + 2];
+      }
+    }
+  } else {
+    for (int r = 0; r < tat; r += 3) {
+      float v[9];
+#pragma unroll
+      for (int k = 0; k < 3; ++k) {
+        const size_t src = (size_t)(r + k) * nl + p;
+        v[3 * k] = sx[src];
+        v[3 * k + 1] = sy[src];
+        v[3 * k + 2] = sz[src];
+      }
+#pragma unroll
+      for (int k = 0; k < 3; ++k) {
+        const size_t dst = (size_t)(r + k) * nl + l;
+        ox[dst] = v[3 * k];
+        oy[dst] = v[3 * k + 1];
+        oz[dst] = v[3 * k + 2];
+      }
+    }
+  }
 }
 
 // k3's tables, derived on the card from the __constant__ ones by
@@ -762,8 +808,8 @@ cudaError_t fd_tails(const uint8_t* recs, const float* seed,
 
 // k2, one thread per lane; sx, sy, sz: [3*SEG, NL] float scratch planes
 // for the forward rows. tails9 null: the seeds are fwd9 (refine_iters 1).
-// staged: the blend rows through the scratch and k2_copy_out, with pos an
-// [NL] int scratch (measurement: copy 0 leaves the copy out).
+// staged: the blend rows through the scratch and k2_copy_out (its kMode
+// copy, 0 for none: measurement only), with pos an [NL] int scratch.
 cudaError_t fd_backbone(const uint8_t* recs, const float* tails9,
                         const float* fwd9, const uint8_t* is_first,
                         const float* ranc, const int* tat, const float* mins6,
@@ -777,8 +823,16 @@ cudaError_t fd_backbone(const uint8_t* recs, const float* tails9,
       oz, sx, sy, sz, pos, seg, nl);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess || !staged || !copy) return e;
-  k2_copy_out<<<dim3(blocks_for(nl, 256), 3 * seg), 256, 0, stream>>>(
-      sx, sy, sz, pos, tat, ox, oy, oz, seg, nl);
+  const unsigned gx = blocks_for(nl, 256);
+  if (copy == 1)
+    k2_copy_out<1><<<dim3(gx, 3 * seg), 256, 0, stream>>>(
+        sx, sy, sz, pos, tat, ox, oy, oz, seg, nl);
+  else if (copy == 2)
+    k2_copy_out<2><<<dim3(gx, seg), 256, 0, stream>>>(
+        sx, sy, sz, pos, tat, ox, oy, oz, seg, nl);
+  else
+    k2_copy_out<3><<<gx, 256, 0, stream>>>(sx, sy, sz, pos, tat, ox, oy, oz,
+                                           seg, nl);
   return cudaGetLastError();
 }
 

@@ -322,7 +322,7 @@ def tails(recs, seed, ranc, tat, mins6, cont6, order=None):
 
 
 def backbone(recs, tails9, fwd9, is_first, ranc, tat, mins6, cont6,
-             order=None, staged=False, copy=True):
+             order=None, staged=False, copy=1):
     """k2 -> blended backbone rows [3*SEG, NL] x3.
 
     Seeds: lane l starts from lane l-1's k1 tail (tails9 [9, NL], rows
@@ -333,7 +333,7 @@ def backbone(recs, tails9, fwd9, is_first, ranc, tat, mins6, cont6,
     unspecified. The plain version on the CPU computes every row.
     order: as for `tails`. staged: the blended rows go through the
     scratch planes, and a second kernel copies them to the lanes' columns
-    (copy False leaves it out, for measurement only)."""
+    in its form `copy` (0 leaves it out, for measurement only)."""
     global K2_LAUNCHES
     if recs.device.type == "cpu":
         return backbone_rolled_plain(recs, tails9, fwd9, is_first, ranc,
