@@ -29,11 +29,8 @@ non-zero:
    (~4.1M residues) through the kernels and through the plain versions,
    timed with CUDA events, with each kernel's time beside its plain
    version's; k1 and k2 also with the lanes in pack order
-   (`pack_order_ms`), the lane order's own time (`k2.order_ms`), the
-   torch glue (`glue_ms`: the device decode less the three kernels), and
-   k2's other forms (`k2.forms`: the forward rows through scratch
-   planes, grids of a few blocks an SM, runs of 8 lanes sorted whole),
-   each in turns with the default;
+   (`pack_order_ms`), the lane order's own time (`k2.order_ms`), and the
+   torch glue (`glue_ms`: the device decode less the three kernels);
 5. e2e: `python -m foldcomp_tpu_torch decompress --fast <db> <out> --db`
    on a 4096-entry FCZ database in a subprocess, timed; 64 sampled
    outputs held to the phase-3 bound;
@@ -149,14 +146,9 @@ def ptxas_report(log):
                       r"for) '?(\w+)", line)
         if m:
             cur = next((k for k in ("k1_tails", "k2_backbone",
-                                    "k3_sidechain", "k3_tables",
-                                    "k4_merged") if k in m.group(1)),
-                       m.group(1))
-            if cur == "k2_backbone" and "ILb1E" in m.group(1):
-                cur = "k2_backbone_staged"
-            t = re.search(r"k2_copy_outILi(\d)E", m.group(1))
-            if t:
-                cur = f"k2_copy_out_{t.group(1)}"
+                                    "k2_copy_out", "k3_sidechain",
+                                    "k3_tables", "k4_merged")
+                        if k in m.group(1)), m.group(1))
             out.setdefault(cur, {})
             continue
         if cur is None:
@@ -754,8 +746,7 @@ def device_decode(dev, card, uniq, err, entries=8192):
     kernels and through the plain versions, timed with CUDA events; each
     kernel's time beside its plain version's, its bound, and k1 and k2 in
     the pack's lane order (pack_order_ms); the lane order's own time; the
-    glue (device decode less the kernels); k2's other forms, each in turns
-    with the default and held bit-equal to it. -> per-kernel times."""
+    glue (device decode less the kernels). -> per-kernel times."""
     import torch
 
     from foldcomp_tpu_torch.kernels import fused_decode as FD
@@ -811,8 +802,8 @@ def device_decode(dev, card, uniq, err, entries=8192):
     def k1(o=order):
         return FD.tails(recs, fwd9, *lane, order=o)
 
-    def k2(o=order, **kw):
-        return FD.backbone(recs, t9, fwd9, first, *lane, order=o, **kw)
+    def k2(o=order):
+        return FD.backbone(recs, t9, fwd9, first, *lane, order=o)
 
     per_kernel = {
         "k1": (k1, lambda: FD.tails_plain(recs, FD.n_ca_lengths(recs), fwd9,
@@ -847,27 +838,6 @@ def device_decode(dev, card, uniq, err, entries=8192):
     # k3 over every row, the padding's too: what skipping it saves
     times["k3"]["all_rows_ms"] = cuda_ms(
         torch, lambda: FD.sidechain(*bb, pr["code"], pr["sct"], nl_out), 10)
-    # k2's other forms, in turns with the default: the blended rows staged
-    # in the scratch and copied out by a second kernel (a thread per row,
-    # per residue, or per lane); and, measurement only, without the copy
-    forms = {"staged": {"staged": True},
-             "staged_copy_by_residue": {"staged": True, "copy": 2},
-             "staged_copy_by_lane": {"staged": True, "copy": 3},
-             "staged_no_copy": {"staged": True, "copy": 0}}
-    times["k2"]["forms"] = {}
-    for name, kw in forms.items():
-        d1 = cuda_ms(torch, k2, 10)
-        f1 = cuda_ms(torch, lambda: k2(**kw), 10)
-        f2 = cuda_ms(torch, lambda: k2(**kw), 10)
-        d2 = cuda_ms(torch, k2, 10)
-        same = owned_max(k2(**kw), bb, tat) if kw.get("copy", True) \
-            else 0.0
-        if same != 0.0:
-            raise AssertionError(f"k2 form {name} differs from the default "
-                                 f"by {same} A")
-        times["k2"]["forms"][name] = {"ms": min(f1, f2),
-                                      "default_ms": min(d1, d2),
-                                      "runs_ms": [d1, f1, f2, d2]}
     del bb, t9
     ms_kern = min(ms_kern_a, ms_kern_b)
     ms_plain = min(ms_plain_a, ms_plain_b)

@@ -276,57 +276,54 @@ k1_tails(const uint8_t* __restrict__ recs, const float* __restrict__ seed,
 
 // k2: seed, forward scan, reverse C->N sweep and blend of each lane
 // (_make_backbone_kernel, pallas_decode.py:227-296, after the seed roll of
-// :596-610).
+// :596-610), in two launches: k2_backbone computes each lane's rows into
+// scratch planes at its thread's column, k2_copy_out moves them to the
+// lane's column of the output planes ox/oy/oz [3*SEG, NL].
 //
-// Work: one thread per lane at a time, on a grid of `grid` blocks that
-// walks the lanes in the order `order` gives (lane_order: by tat, longest
-// first, stable), so a warp's lanes have one length: no thread idles while
-// a longer lane of its warp runs on, and the lanes of one length stay in
-// pack order, so a warp's stores fall on neighbouring lanes. A lane walks
-// its own rows only, 0 .. tat-1 (tat = 3*seg_m): rows >= tat are pack
-// padding, neither computed nor written, and pad lanes (seg_m 1) do the
-// 3-row blend alone.
+// k2_backbone: one thread per lane, the lanes in the order `order` gives
+// (lane_order: by tat, longest first, stable), so that a warp's lanes have
+// one length and none waits for a longer one (in pack order the warps of
+// the B=8192 batch walk 1.46x its real rows). A lane walks its own rows
+// only, 0 .. tat-1 (tat = 3*seg_m): rows >= tat are pack padding, neither
+// computed nor written, and pad lanes (seg_m 1) do the 3-row blend alone.
 //  - Seed: with tails9 (refine_iters >= 2), lane l-1's blended tail (lane
 //    -1 wraps to NL-1, as jnp.roll and torch.roll do) unless is_first[l];
 //    else the lane's own anchor seed fwd9.
-//  - Forward: rows 0 .. tat-4 go to the output planes ox/oy/oz (or to
-//    scratch planes sx/sy/sz at the thread's column); the last three stay
-//    in registers.
+//  - Forward: rows 0 .. tat-4 to the scratch planes sx/sy/sz at column i,
+//    the thread's place in the order, so a warp stores one aligned 128-byte
+//    line a plane; the last three rows stay in registers. Each residue's
+//    record bytes are loaded a step ahead.
 //  - Reverse: down from row tat-1. Rows tat-1..tat-3 are the stored
 //    anchors ranc; row r <= tat-4 is placed from the reverse atoms at
 //    r+1..r+3 (registers), its bond angle from forward rows r..r+2 (row r
-//    read back, r+1 and r+2 in registers), its torsion recomputed from
-//    the record; then row r is overwritten with the blend
-//    (f*(tat-r) + rev*r)/tat. Each residue's three forward rows are loaded
-//    one residue ahead.
+//    read back a residue ahead, r+1 and r+2 in registers), its torsion from
+//    the record; then the blend (f*(tat-r) + rev*r)/tat goes back into
+//    scratch row r, in place.
 // The N-CA length comes from the record's residue code (fwd_step), the
 // bond lengths of the reverse cycle C-N, CA-C, N-CA by row, all as the
 // TPU kernel has them. No VMEM-style limit on SEG (the TPU kernel's 3*SEG
 // scratch capped SEG at ~96).
 //
-// Bound: instruction issue. A residue costs 6 placements, 6 (cos, sin)
-// pairs in the forward and 3 in the reverse, 3
-// bond angles (2 square roots and a division each) and 9 blend divisions,
-// against 8 B of records in and 36 B of rows out; the forward rows' round
-// trip through the planes adds 72 B a residue.
-// kStaged: the blended rows go back into the scratch planes, in place,
-// at the thread's column (k2_copy_out moves them to the lanes' columns);
-// else straight into the output planes at the lane's column.
-template <bool kStaged>
+// Bound (PERF.md, PR 5): the forward runs near the issue rate (k1, the
+// same loop without the stores, at ~0.095 ms for B=8192); the reverse's
+// arithmetic and divisions hide behind its loads and stores. The blend's
+// stores cost ~0.31 ms when they went straight to the lanes' columns of
+// the output planes, ~0.04 ms in place at the thread's; so they are
+// staged, and the copy moves the 36 B a row at ~2 TB/s with every store a
+// whole line.
 __global__ void __launch_bounds__(128)
 k2_backbone(const uint8_t* __restrict__ recs, const float* __restrict__ tails9,
             const float* __restrict__ fwd9,
             const uint8_t* __restrict__ is_first,
             const float* __restrict__ ranc, const int* __restrict__ tat_,
             const float* __restrict__ mins6, const float* __restrict__ cont6,
-            const int* __restrict__ order, float* __restrict__ ox,
-            float* __restrict__ oy, float* __restrict__ oz,
-            float* __restrict__ sx, float* __restrict__ sy,
-            float* __restrict__ sz, int* __restrict__ pos, int seg, int nl) {
+            const int* __restrict__ order, float* __restrict__ sx,
+            float* __restrict__ sy, float* __restrict__ sz,
+            int* __restrict__ pos, int seg, int nl) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= nl) return;
   const int l = order[i];
-  if (kStaged) pos[l] = i;
+  pos[l] = i;
   const int tat = min(tat_[l], 3 * seg);
   if (tat < 3) return;
   const int sm = tat / 3;  // the lane's residues
@@ -346,7 +343,6 @@ k2_backbone(const uint8_t* __restrict__ recs, const float* __restrict__ tails9,
     b = load3(fwd9, 3, nl, l);
     c = load3(fwd9, 6, nl, l);
   }
-  // forward rows 0 .. tat-4 to the scratch planes at column i
   uint2 w = ln.rec(0, 8);  // residue k's bytes, loaded a step ahead
   for (int k = 0; k < sm - 1; ++k) {
     const uint2 cur = w;
@@ -362,13 +358,9 @@ k2_backbone(const uint8_t* __restrict__ recs, const float* __restrict__ tails9,
   auto blend = [&](int r, V3 f, V3 w) {
     const float w_r = (float)r;
     const float w_f = tatf - w_r;
-    const V3 o = v3((f.x * w_f + w.x * w_r) / tf,
-                    (f.y * w_f + w.y * w_r) / tf,
-                    (f.z * w_f + w.z * w_r) / tf);
-    if (kStaged)
-      put_row(sx, sy, sz, r, nl, i, o);
-    else
-      put_row(ox, oy, oz, r, nl, l, o);
+    put_row(sx, sy, sz, r, nl, i,
+            v3((f.x * w_f + w.x * w_r) / tf, (f.y * w_f + w.y * w_r) / tf,
+               (f.z * w_f + w.z * w_r) / tf));
   };
   // reverse atoms at rows r+1..r+3 and forward atoms at r+1, r+2
   V3 v3_ = load3(ranc, 6, nl, l), v2 = load3(ranc, 3, nl, l),
@@ -412,12 +404,10 @@ k2_backbone(const uint8_t* __restrict__ recs, const float* __restrict__ tails9,
   }
 }
 
-// k2's copy-out: rows r < tat of lane l from the staging column pos[l]
-// (the thread that walked the lane) to the output planes, a warp on 32
-// neighbouring lanes. kMode 1: one thread per (row, lane); 2: one thread
-// per (residue, lane), its three rows; 3: one thread per lane, residue by
-// residue.
-template <int kMode>
+// k2's copy-out: residue s (rows 3s .. 3s+2) of lane l, s < seg_m, from
+// the scratch column pos[l] (the thread that walked the lane) to the
+// lane's column of the output planes; one thread per (residue, lane), so a
+// warp stores 32 neighbouring lanes, and loads before it stores.
 __global__ void __launch_bounds__(256)
 k2_copy_out(const float* __restrict__ sx, const float* __restrict__ sy,
             const float* __restrict__ sz, const int* __restrict__ pos,
@@ -425,54 +415,23 @@ k2_copy_out(const float* __restrict__ sx, const float* __restrict__ sy,
             float* __restrict__ oy, float* __restrict__ oz, int seg,
             int nl) {
   const int l = blockIdx.x * blockDim.x + threadIdx.x;
-  if (l >= nl) return;
-  const int tat = min(tat_[l], 3 * seg);
+  const int r = 3 * blockIdx.y;
+  if (l >= nl || r >= min(tat_[l], 3 * seg)) return;
   const int p = pos[l];
-  auto copy = [&](int r) {
-    const size_t src = (size_t)r * nl + p, dst = (size_t)r * nl + l;
-    ox[dst] = sx[src];
-    oy[dst] = sy[src];
-    oz[dst] = sz[src];
-  };
-  if (kMode == 1) {
-    if (blockIdx.y < tat) copy(blockIdx.y);
-  } else if (kMode == 2) {
-    const int r = 3 * blockIdx.y;
-    if (r < tat) {
-      float v[9];
+  float v[9];
 #pragma unroll
-      for (int k = 0; k < 3; ++k) {
-        const size_t src = (size_t)(r + k) * nl + p;
-        v[3 * k] = sx[src];
-        v[3 * k + 1] = sy[src];
-        v[3 * k + 2] = sz[src];
-      }
+  for (int k = 0; k < 3; ++k) {
+    const size_t src = (size_t)(r + k) * nl + p;
+    v[3 * k] = sx[src];
+    v[3 * k + 1] = sy[src];
+    v[3 * k + 2] = sz[src];
+  }
 #pragma unroll
-      for (int k = 0; k < 3; ++k) {
-        const size_t dst = (size_t)(r + k) * nl + l;
-        ox[dst] = v[3 * k];
-        oy[dst] = v[3 * k + 1];
-        oz[dst] = v[3 * k + 2];
-      }
-    }
-  } else {
-    for (int r = 0; r < tat; r += 3) {
-      float v[9];
-#pragma unroll
-      for (int k = 0; k < 3; ++k) {
-        const size_t src = (size_t)(r + k) * nl + p;
-        v[3 * k] = sx[src];
-        v[3 * k + 1] = sy[src];
-        v[3 * k + 2] = sz[src];
-      }
-#pragma unroll
-      for (int k = 0; k < 3; ++k) {
-        const size_t dst = (size_t)(r + k) * nl + l;
-        ox[dst] = v[3 * k];
-        oy[dst] = v[3 * k + 1];
-        oz[dst] = v[3 * k + 2];
-      }
-    }
+  for (int k = 0; k < 3; ++k) {
+    const size_t dst = (size_t)(r + k) * nl + l;
+    ox[dst] = v[3 * k];
+    oy[dst] = v[3 * k + 1];
+    oz[dst] = v[3 * k + 2];
   }
 }
 
@@ -806,33 +765,23 @@ cudaError_t fd_tails(const uint8_t* recs, const float* seed,
   return cudaGetLastError();
 }
 
-// k2, one thread per lane; sx, sy, sz: [3*SEG, NL] float scratch planes
-// for the forward rows. tails9 null: the seeds are fwd9 (refine_iters 1).
-// staged: the blend rows through the scratch and k2_copy_out (its kMode
-// copy, 0 for none: measurement only), with pos an [NL] int scratch.
+// k2: k2_backbone, then k2_copy_out, on the stream. sx, sy, sz: [3*SEG,
+// NL] float scratch planes, pos: [NL] int scratch. tails9 null: the seeds
+// are fwd9 (refine_iters 1).
 cudaError_t fd_backbone(const uint8_t* recs, const float* tails9,
                         const float* fwd9, const uint8_t* is_first,
                         const float* ranc, const int* tat, const float* mins6,
                         const float* cont6, const int* order, float* ox,
                         float* oy, float* oz, float* sx, float* sy,
-                        float* sz, int* pos, int seg, int nl, int staged,
-                        int copy, cudaStream_t stream) {
-  auto kern = staged ? k2_backbone<true> : k2_backbone<false>;
-  kern<<<blocks_for(nl, 128), 128, 0, stream>>>(
-      recs, tails9, fwd9, is_first, ranc, tat, mins6, cont6, order, ox, oy,
-      oz, sx, sy, sz, pos, seg, nl);
+                        float* sz, int* pos, int seg, int nl,
+                        cudaStream_t stream) {
+  k2_backbone<<<blocks_for(nl, 128), 128, 0, stream>>>(
+      recs, tails9, fwd9, is_first, ranc, tat, mins6, cont6, order, sx, sy,
+      sz, pos, seg, nl);
   cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess || !staged || !copy) return e;
-  const unsigned gx = blocks_for(nl, 256);
-  if (copy == 1)
-    k2_copy_out<1><<<dim3(gx, 3 * seg), 256, 0, stream>>>(
-        sx, sy, sz, pos, tat, ox, oy, oz, seg, nl);
-  else if (copy == 2)
-    k2_copy_out<2><<<dim3(gx, seg), 256, 0, stream>>>(
-        sx, sy, sz, pos, tat, ox, oy, oz, seg, nl);
-  else
-    k2_copy_out<3><<<gx, 256, 0, stream>>>(sx, sy, sz, pos, tat, ox, oy, oz,
-                                           seg, nl);
+  if (e != cudaSuccess) return e;
+  k2_copy_out<<<dim3(blocks_for(nl, 256), seg), 256, 0, stream>>>(
+      sx, sy, sz, pos, tat, ox, oy, oz, seg, nl);
   return cudaGetLastError();
 }
 

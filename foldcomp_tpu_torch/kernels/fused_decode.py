@@ -322,18 +322,18 @@ def tails(recs, seed, ranc, tat, mins6, cont6, order=None):
 
 
 def backbone(recs, tails9, fwd9, is_first, ranc, tat, mins6, cont6,
-             order=None, staged=False, copy=1):
+             order=None):
     """k2 -> blended backbone rows [3*SEG, NL] x3.
 
     Seeds: lane l starts from lane l-1's k1 tail (tails9 [9, NL], rows
     comp*3 + atom; lane -1 is lane NL-1) unless is_first[l], and from its
     own fwd9 when tails9 is None (refine_iters 1). The N-CA lengths come
-    from the records. On a CUDA device the kernel computes and writes rows
+    from the records. On a CUDA device the kernels compute and write rows
     r < tat[l] only: rows >= tat (pack padding) of a CUDA result are
-    unspecified. The plain version on the CPU computes every row.
-    order: as for `tails`. staged: the blended rows go through the
-    scratch planes, and a second kernel copies them to the lanes' columns
-    in its form `copy` (0 leaves it out, for measurement only)."""
+    unspecified. The plain version on the CPU computes every row. order:
+    as for `tails`. The CUDA path is two launches, k2_backbone into
+    scratch planes at each thread's column and k2_copy_out to the lanes'
+    columns, counted as one launch of k2."""
     global K2_LAUNCHES
     if recs.device.type == "cpu":
         return backbone_rolled_plain(recs, tails9, fwd9, is_first, ranc,
@@ -347,14 +347,12 @@ def backbone(recs, tails9, fwd9, is_first, ranc, tat, mins6, cont6,
     outs = tuple(torch.empty((3 * seg, nl), dtype=F32, device=dev)
                  for _ in range(3))
     if nl and seg:
-        # the forward rows, at each thread's column
         scratch = tuple(torch.empty((3 * seg, nl), dtype=F32, device=dev)
                         for _ in range(3))
         pos = torch.empty((nl,), dtype=torch.int32, device=dev)
         _launch(lib.fd_backbone, "k2 backbone", dev,
                 *_ptrs(recs, tails9, fwd9, is_first, ranc, tat, mins6, cont6,
-                       order, *outs, *scratch, pos), seg, nl, int(staged),
-                int(copy))
+                       order, *outs, *scratch, pos), seg, nl)
         K2_LAUNCHES += 1
     return outs
 
