@@ -407,31 +407,84 @@ k2_backbone(const uint8_t* __restrict__ recs, const float* __restrict__ tails9,
 // k2's copy-out: residue s (rows 3s .. 3s+2) of lane l, s < seg_m, from
 // the scratch column pos[l] (the thread that walked the lane) to the
 // lane's column of the output planes; one thread per (residue, lane), so a
-// warp stores 32 neighbouring lanes, and loads before it stores.
+// warp stores 32 neighbouring lanes, and loads before it stores. kForm
+// (measurement): 1, the loads and stores as streaming (last use); 2, a
+// thread per (residue, 4 lanes), 16-byte stores.
+template <int kForm>
 __global__ void __launch_bounds__(256)
 k2_copy_out(const float* __restrict__ sx, const float* __restrict__ sy,
             const float* __restrict__ sz, const int* __restrict__ pos,
             const int* __restrict__ tat_, float* __restrict__ ox,
             float* __restrict__ oy, float* __restrict__ oz, int seg,
             int nl) {
-  const int l = blockIdx.x * blockDim.x + threadIdx.x;
   const int r = 3 * blockIdx.y;
+  if (kForm == 2) {
+    const int l0 = 4 * (blockIdx.x * blockDim.x + threadIdx.x);
+    if (l0 >= nl) return;
+    float v[4][9];
+    bool any = false;
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const int l = l0 + q;
+      const bool own = l < nl && r < min(tat_[l], 3 * seg);
+      any |= own;
+      const int p = own ? pos[l] : 0;
+#pragma unroll
+      for (int k = 0; k < 3; ++k) {
+        const size_t src = (size_t)(r + k) * nl + p;
+        v[q][3 * k] = own ? sx[src] : 0.f;
+        v[q][3 * k + 1] = own ? sy[src] : 0.f;
+        v[q][3 * k + 2] = own ? sz[src] : 0.f;
+      }
+    }
+    if (!any) return;
+    const bool full = l0 + 3 < nl && r < min(tat_[l0], 3 * seg) &&
+                      r < min(tat_[l0 + 1], 3 * seg) &&
+                      r < min(tat_[l0 + 2], 3 * seg) &&
+                      r < min(tat_[l0 + 3], 3 * seg);
+#pragma unroll
+    for (int k = 0; k < 3; ++k) {
+      const size_t dst = (size_t)(r + k) * nl + l0;
+      float* o[3] = {ox, oy, oz};
+#pragma unroll
+      for (int c = 0; c < 3; ++c) {
+        if (full && (nl & 3) == 0) {
+          *reinterpret_cast<float4*>(o[c] + dst) =
+              make_float4(v[0][3 * k + c], v[1][3 * k + c], v[2][3 * k + c],
+                          v[3][3 * k + c]);
+        } else {
+#pragma unroll
+          for (int q = 0; q < 4; ++q)
+            if (l0 + q < nl && r < min(tat_[l0 + q], 3 * seg))
+              o[c][dst + q] = v[q][3 * k + c];
+        }
+      }
+    }
+    return;
+  }
+  const int l = blockIdx.x * blockDim.x + threadIdx.x;
   if (l >= nl || r >= min(tat_[l], 3 * seg)) return;
   const int p = pos[l];
   float v[9];
 #pragma unroll
   for (int k = 0; k < 3; ++k) {
     const size_t src = (size_t)(r + k) * nl + p;
-    v[3 * k] = sx[src];
-    v[3 * k + 1] = sy[src];
-    v[3 * k + 2] = sz[src];
+    v[3 * k] = kForm == 1 ? __ldcs(sx + src) : sx[src];
+    v[3 * k + 1] = kForm == 1 ? __ldcs(sy + src) : sy[src];
+    v[3 * k + 2] = kForm == 1 ? __ldcs(sz + src) : sz[src];
   }
 #pragma unroll
   for (int k = 0; k < 3; ++k) {
     const size_t dst = (size_t)(r + k) * nl + l;
-    ox[dst] = v[3 * k];
-    oy[dst] = v[3 * k + 1];
-    oz[dst] = v[3 * k + 2];
+    if (kForm == 1) {
+      __stcs(ox + dst, v[3 * k]);
+      __stcs(oy + dst, v[3 * k + 1]);
+      __stcs(oz + dst, v[3 * k + 2]);
+    } else {
+      ox[dst] = v[3 * k];
+      oy[dst] = v[3 * k + 1];
+      oz[dst] = v[3 * k + 2];
+    }
   }
 }
 
@@ -773,15 +826,22 @@ cudaError_t fd_backbone(const uint8_t* recs, const float* tails9,
                         const float* ranc, const int* tat, const float* mins6,
                         const float* cont6, const int* order, float* ox,
                         float* oy, float* oz, float* sx, float* sy,
-                        float* sz, int* pos, int seg, int nl,
+                        float* sz, int* pos, int seg, int nl, int copy_form,
                         cudaStream_t stream) {
   k2_backbone<<<blocks_for(nl, 128), 128, 0, stream>>>(
       recs, tails9, fwd9, is_first, ranc, tat, mins6, cont6, order, sx, sy,
       sz, pos, seg, nl);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return e;
-  k2_copy_out<<<dim3(blocks_for(nl, 256), seg), 256, 0, stream>>>(
-      sx, sy, sz, pos, tat, ox, oy, oz, seg, nl);
+  if (copy_form == 2)
+    k2_copy_out<2><<<dim3(blocks_for(nl, 1024), seg), 256, 0, stream>>>(
+        sx, sy, sz, pos, tat, ox, oy, oz, seg, nl);
+  else if (copy_form == 1)
+    k2_copy_out<1><<<dim3(blocks_for(nl, 256), seg), 256, 0, stream>>>(
+        sx, sy, sz, pos, tat, ox, oy, oz, seg, nl);
+  else
+    k2_copy_out<0><<<dim3(blocks_for(nl, 256), seg), 256, 0, stream>>>(
+        sx, sy, sz, pos, tat, ox, oy, oz, seg, nl);
   return cudaGetLastError();
 }
 

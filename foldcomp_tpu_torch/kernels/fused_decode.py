@@ -322,7 +322,7 @@ def tails(recs, seed, ranc, tat, mins6, cont6, order=None):
 
 
 def backbone(recs, tails9, fwd9, is_first, ranc, tat, mins6, cont6,
-             order=None):
+             order=None, copy_form=0):
     """k2 -> blended backbone rows [3*SEG, NL] x3.
 
     Seeds: lane l starts from lane l-1's k1 tail (tails9 [9, NL], rows
@@ -333,7 +333,8 @@ def backbone(recs, tails9, fwd9, is_first, ranc, tat, mins6, cont6,
     unspecified. The plain version on the CPU computes every row. order:
     as for `tails`. The CUDA path is two launches, k2_backbone into
     scratch planes at each thread's column and k2_copy_out to the lanes'
-    columns, counted as one launch of k2."""
+    columns, counted as one launch of k2. copy_form: k2_copy_out's
+    measurement forms (csrc/fused_decode.cu kForm)."""
     global K2_LAUNCHES
     if recs.device.type == "cpu":
         return backbone_rolled_plain(recs, tails9, fwd9, is_first, ranc,
@@ -352,7 +353,7 @@ def backbone(recs, tails9, fwd9, is_first, ranc, tat, mins6, cont6,
         pos = torch.empty((nl,), dtype=torch.int32, device=dev)
         _launch(lib.fd_backbone, "k2 backbone", dev,
                 *_ptrs(recs, tails9, fwd9, is_first, ranc, tat, mins6, cont6,
-                       order, *outs, *scratch, pos), seg, nl)
+                       order, *outs, *scratch, pos), seg, nl, int(copy_form))
         K2_LAUNCHES += 1
     return outs
 
