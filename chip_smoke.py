@@ -149,9 +149,6 @@ def ptxas_report(log):
                                     "k2_copy_out", "k3_sidechain",
                                     "k3_tables", "k4_merged")
                         if k in m.group(1)), m.group(1))
-            t = re.search(r"k2_copy_outILi(\d)E", m.group(1))
-            if t:
-                cur = f"k2_copy_out_{t.group(1)}"
             out.setdefault(cur, {})
             continue
         if cur is None:
@@ -805,8 +802,8 @@ def device_decode(dev, card, uniq, err, entries=8192):
     def k1(o=order):
         return FD.tails(recs, fwd9, *lane, order=o)
 
-    def k2(o=order, **kw):
-        return FD.backbone(recs, t9, fwd9, first, *lane, order=o, **kw)
+    def k2(o=order):
+        return FD.backbone(recs, t9, fwd9, first, *lane, order=o)
 
     per_kernel = {
         "k1": (k1, lambda: FD.tails_plain(recs, FD.n_ca_lengths(recs), fwd9,
@@ -838,20 +835,6 @@ def device_decode(dev, card, uniq, err, entries=8192):
         times[k]["pack_order_ms"] = cuda_ms(torch,
                                             lambda: kern(pack_order), 10)
     times["k2"]["order_ms"] = cuda_ms(torch, lambda: FD.lane_order(tat), 10)
-    # k2_copy_out's other forms, in turns with the default
-    times["k2"]["forms"] = {}
-    for name, kw in (("copy_streaming", {"copy_form": 1}),
-                     ("copy_16_byte_stores", {"copy_form": 2})):
-        d1 = cuda_ms(torch, k2, 10)
-        f1 = cuda_ms(torch, lambda: k2(**kw), 10)
-        f2 = cuda_ms(torch, lambda: k2(**kw), 10)
-        d2 = cuda_ms(torch, k2, 10)
-        same = owned_max(k2(**kw), bb, tat)
-        if same != 0.0:
-            raise AssertionError(f"k2 form {name}: {same} A")
-        times["k2"]["forms"][name] = {"ms": min(f1, f2),
-                                      "default_ms": min(d1, d2),
-                                      "runs_ms": [d1, f1, f2, d2]}
     # k3 over every row, the padding's too: what skipping it saves
     times["k3"]["all_rows_ms"] = cuda_ms(
         torch, lambda: FD.sidechain(*bb, pr["code"], pr["sct"], nl_out), 10)

@@ -114,7 +114,7 @@ def _bind(lib):
     vp, ci = ctypes.c_void_p, ctypes.c_int
     lib.fd_set_tables.argtypes = [vp, vp, vp, vp, ci]
     lib.fd_tails.argtypes = [vp] * 8 + [ci, ci, vp]
-    lib.fd_backbone.argtypes = [vp] * 16 + [ci, ci, ci, vp]
+    lib.fd_backbone.argtypes = [vp] * 16 + [ci, ci, vp]
     lib.fd_sidechain.argtypes = [vp] * 8 + [ci, ci, ci, vp]
     lib.fe_merged.argtypes = [vp] * 13 + [ctypes.c_float, ci, ci, vp]
     for fn in (lib.fd_set_tables, lib.fd_tails, lib.fd_backbone,

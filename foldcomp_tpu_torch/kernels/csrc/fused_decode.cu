@@ -4,19 +4,28 @@
 // Replaces the three Pallas TPU kernels of
 // foldcomp_tpu/kernels/pallas_decode.py:
 //   k1 fd_tails      <- _make_tails_kernel      (pallas_decode.py:186)
-//   k2 fd_backbone   <- _make_backbone_kernel   (pallas_decode.py:227)
+//   k2 fd_backbone   <- _make_backbone_kernel   (pallas_decode.py:227),
+//                       with the seed roll of :596-610 and the N-CA
+//                       lengths of _class_prep (:405-437)
 //   k3 fd_sidechain  <- _make_sidechain_kernel  (pallas_decode.py:338)
 // Each computes what the Pallas kernel computes; the plain PyTorch
-// versions beside them (fused_decode.py tails_plain / backbone_plain /
-// sidechain_plain) are the oracle.
+// versions beside them (fused_decode.py tails_plain / backbone_rolled_plain
+// / sidechain_plain) are the oracle, bit for bit on the rows a lane owns.
 //
 // Layouts are the pack's lane-minor ones (codec/batch.py
-// pack_decode_batch_lanes): row-major [rows, NL], so that the threads of a
-// warp, one per lane, read neighbouring addresses.
+// pack_decode_batch_lanes): row-major [rows, NL]. k1 and k2 take one
+// thread per lane in the order lane_order gives (by row count, longest
+// first), so that a warp's lanes have one length; k2 stages its rows at
+// the thread's column and copies them to the lane's (k2_copy_out); k3
+// walks groups of 32 neighbouring lanes. Each walks a lane's own rows
+// only (r < tat = 3*seg_m); the rest is pack padding and is left
+// unwritten. On an H100 at B=8192 (PERF.md, PR 5) k2 takes ~0.42 ms of
+// which the copy ~0.15; k1, the forward alone, runs near the issue rate.
 //
 // Float rules (nvcc -fmad=false, no --use_fast_math; build.py):
 //  - no FMA contraction, so every expression rounds in the JAX order;
-//  - cosf/sinf (full precision), not __cosf/__sinf;
+//  - cosf/sinf (full precision, through sincosf: the same values from one
+//    range reduction), not __cosf/__sinf;
 //  - rsqrtf where JAX uses lax.rsqrt, sqrtf and IEEE '/' where it uses
 //    sqrt then divide;
 //  - rintf (round half to even) for jnp.round; roundf would round half
@@ -407,84 +416,31 @@ k2_backbone(const uint8_t* __restrict__ recs, const float* __restrict__ tails9,
 // k2's copy-out: residue s (rows 3s .. 3s+2) of lane l, s < seg_m, from
 // the scratch column pos[l] (the thread that walked the lane) to the
 // lane's column of the output planes; one thread per (residue, lane), so a
-// warp stores 32 neighbouring lanes, and loads before it stores. kForm
-// (measurement): 1, the loads and stores as streaming (last use); 2, a
-// thread per (residue, 4 lanes), 16-byte stores.
-template <int kForm>
+// warp stores 32 neighbouring lanes, and loads before it stores.
 __global__ void __launch_bounds__(256)
 k2_copy_out(const float* __restrict__ sx, const float* __restrict__ sy,
             const float* __restrict__ sz, const int* __restrict__ pos,
             const int* __restrict__ tat_, float* __restrict__ ox,
             float* __restrict__ oy, float* __restrict__ oz, int seg,
             int nl) {
-  const int r = 3 * blockIdx.y;
-  if (kForm == 2) {
-    const int l0 = 4 * (blockIdx.x * blockDim.x + threadIdx.x);
-    if (l0 >= nl) return;
-    float v[4][9];
-    bool any = false;
-#pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      const int l = l0 + q;
-      const bool own = l < nl && r < min(tat_[l], 3 * seg);
-      any |= own;
-      const int p = own ? pos[l] : 0;
-#pragma unroll
-      for (int k = 0; k < 3; ++k) {
-        const size_t src = (size_t)(r + k) * nl + p;
-        v[q][3 * k] = own ? sx[src] : 0.f;
-        v[q][3 * k + 1] = own ? sy[src] : 0.f;
-        v[q][3 * k + 2] = own ? sz[src] : 0.f;
-      }
-    }
-    if (!any) return;
-    const bool full = l0 + 3 < nl && r < min(tat_[l0], 3 * seg) &&
-                      r < min(tat_[l0 + 1], 3 * seg) &&
-                      r < min(tat_[l0 + 2], 3 * seg) &&
-                      r < min(tat_[l0 + 3], 3 * seg);
-#pragma unroll
-    for (int k = 0; k < 3; ++k) {
-      const size_t dst = (size_t)(r + k) * nl + l0;
-      float* o[3] = {ox, oy, oz};
-#pragma unroll
-      for (int c = 0; c < 3; ++c) {
-        if (full && (nl & 3) == 0) {
-          *reinterpret_cast<float4*>(o[c] + dst) =
-              make_float4(v[0][3 * k + c], v[1][3 * k + c], v[2][3 * k + c],
-                          v[3][3 * k + c]);
-        } else {
-#pragma unroll
-          for (int q = 0; q < 4; ++q)
-            if (l0 + q < nl && r < min(tat_[l0 + q], 3 * seg))
-              o[c][dst + q] = v[q][3 * k + c];
-        }
-      }
-    }
-    return;
-  }
   const int l = blockIdx.x * blockDim.x + threadIdx.x;
+  const int r = 3 * blockIdx.y;
   if (l >= nl || r >= min(tat_[l], 3 * seg)) return;
   const int p = pos[l];
   float v[9];
 #pragma unroll
   for (int k = 0; k < 3; ++k) {
     const size_t src = (size_t)(r + k) * nl + p;
-    v[3 * k] = kForm == 1 ? __ldcs(sx + src) : sx[src];
-    v[3 * k + 1] = kForm == 1 ? __ldcs(sy + src) : sy[src];
-    v[3 * k + 2] = kForm == 1 ? __ldcs(sz + src) : sz[src];
+    v[3 * k] = sx[src];
+    v[3 * k + 1] = sy[src];
+    v[3 * k + 2] = sz[src];
   }
 #pragma unroll
   for (int k = 0; k < 3; ++k) {
     const size_t dst = (size_t)(r + k) * nl + l;
-    if (kForm == 1) {
-      __stcs(ox + dst, v[3 * k]);
-      __stcs(oy + dst, v[3 * k + 1]);
-      __stcs(oz + dst, v[3 * k + 2]);
-    } else {
-      ox[dst] = v[3 * k];
-      oy[dst] = v[3 * k + 1];
-      oz[dst] = v[3 * k + 2];
-    }
+    ox[dst] = v[3 * k];
+    oy[dst] = v[3 * k + 1];
+    oz[dst] = v[3 * k + 2];
   }
 }
 
@@ -826,22 +782,15 @@ cudaError_t fd_backbone(const uint8_t* recs, const float* tails9,
                         const float* ranc, const int* tat, const float* mins6,
                         const float* cont6, const int* order, float* ox,
                         float* oy, float* oz, float* sx, float* sy,
-                        float* sz, int* pos, int seg, int nl, int copy_form,
+                        float* sz, int* pos, int seg, int nl,
                         cudaStream_t stream) {
   k2_backbone<<<blocks_for(nl, 128), 128, 0, stream>>>(
       recs, tails9, fwd9, is_first, ranc, tat, mins6, cont6, order, sx, sy,
       sz, pos, seg, nl);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return e;
-  if (copy_form == 2)
-    k2_copy_out<2><<<dim3(blocks_for(nl, 1024), seg), 256, 0, stream>>>(
-        sx, sy, sz, pos, tat, ox, oy, oz, seg, nl);
-  else if (copy_form == 1)
-    k2_copy_out<1><<<dim3(blocks_for(nl, 256), seg), 256, 0, stream>>>(
-        sx, sy, sz, pos, tat, ox, oy, oz, seg, nl);
-  else
-    k2_copy_out<0><<<dim3(blocks_for(nl, 256), seg), 256, 0, stream>>>(
-        sx, sy, sz, pos, tat, ox, oy, oz, seg, nl);
+  k2_copy_out<<<dim3(blocks_for(nl, 256), seg), 256, 0, stream>>>(
+      sx, sy, sz, pos, tat, ox, oy, oz, seg, nl);
   return cudaGetLastError();
 }
 

@@ -300,9 +300,10 @@ def _launch(fn, name, dev, *args):
 
 def tails(recs, seed, ranc, tat, mins6, cont6, order=None):
     """k1 -> [9, NL] blended tails of the forward scan from `seed` ([9,
-    NL] rows atom*3 + comp). The N-CA lengths come from the records.
-    order (i32 [NL]): the order the threads walk the lanes in, lane_order
-    (tat) when None; it changes no value."""
+    NL] rows atom*3 + comp). The N-CA lengths come from the records (the
+    plain version on the CPU takes n_ca_lengths). order (i32 [NL], a
+    permutation of range(NL)): the order the threads walk the lanes in,
+    lane_order(tat) when None; it changes no value."""
     global K1_LAUNCHES
     if recs.device.type == "cpu":
         return tails_plain(recs, n_ca_lengths(recs), seed, ranc, tat,
@@ -322,7 +323,7 @@ def tails(recs, seed, ranc, tat, mins6, cont6, order=None):
 
 
 def backbone(recs, tails9, fwd9, is_first, ranc, tat, mins6, cont6,
-             order=None, copy_form=0):
+             order=None):
     """k2 -> blended backbone rows [3*SEG, NL] x3.
 
     Seeds: lane l starts from lane l-1's k1 tail (tails9 [9, NL], rows
@@ -333,8 +334,7 @@ def backbone(recs, tails9, fwd9, is_first, ranc, tat, mins6, cont6,
     unspecified. The plain version on the CPU computes every row. order:
     as for `tails`. The CUDA path is two launches, k2_backbone into
     scratch planes at each thread's column and k2_copy_out to the lanes'
-    columns, counted as one launch of k2. copy_form: k2_copy_out's
-    measurement forms (csrc/fused_decode.cu kForm)."""
+    columns, counted as one launch of k2."""
     global K2_LAUNCHES
     if recs.device.type == "cpu":
         return backbone_rolled_plain(recs, tails9, fwd9, is_first, ranc,
@@ -348,12 +348,14 @@ def backbone(recs, tails9, fwd9, is_first, ranc, tat, mins6, cont6,
     outs = tuple(torch.empty((3 * seg, nl), dtype=F32, device=dev)
                  for _ in range(3))
     if nl and seg:
+        # staging planes and each lane's staging column; freed on return,
+        # their memory is reused only by work ordered after k2 on the stream
         scratch = tuple(torch.empty((3 * seg, nl), dtype=F32, device=dev)
                         for _ in range(3))
         pos = torch.empty((nl,), dtype=torch.int32, device=dev)
         _launch(lib.fd_backbone, "k2 backbone", dev,
                 *_ptrs(recs, tails9, fwd9, is_first, ranc, tat, mins6, cont6,
-                       order, *outs, *scratch, pos), seg, nl, int(copy_form))
+                       order, *outs, *scratch, pos), seg, nl)
         K2_LAUNCHES += 1
     return outs
 
