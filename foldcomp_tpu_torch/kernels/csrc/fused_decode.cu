@@ -19,7 +19,7 @@
 // the thread's column and copies them to the lane's (k2_copy_out); k3
 // walks groups of 32 neighbouring lanes. Each walks a lane's own rows
 // only (r < tat = 3*seg_m); the rest is pack padding and is left
-// unwritten. On an H100 at B=8192 (PERF.md, PR 5) k2 takes ~0.42 ms of
+// unwritten. On an H100 at B=8192 (PERF.md §6) k2 takes ~0.42 ms, of
 // which the copy ~0.15; k1, the forward alone, runs near the issue rate.
 //
 // Float rules (nvcc -fmad=false, no --use_fast_math; build.py):
@@ -313,7 +313,7 @@ k1_tails(const uint8_t* __restrict__ recs, const float* __restrict__ seed,
 // TPU kernel has them. No VMEM-style limit on SEG (the TPU kernel's 3*SEG
 // scratch capped SEG at ~96).
 //
-// Bound (PERF.md, PR 5): the forward runs near the issue rate (k1, the
+// Bound (PERF.md §6): the forward runs near the issue rate (k1, the
 // same loop without the stores, at ~0.095 ms for B=8192); the reverse's
 // arithmetic and divisions hide behind its loads and stores. The blend's
 // stores cost ~0.31 ms when they went straight to the lanes' columns of
