@@ -102,25 +102,34 @@ TOL_REL_ULP = 4
 # HBM bytes/s and float32 operations/s outside the tensor cores
 PEAK_BYTES_S = 3.35e12
 PEAK_F32_S = 67e12
-# float operations per residue row, counted from the CUDA sources (a
-# sinf/cosf/rsqrtf/sqrtf/division counts as one): a NeRF placement is 62
-# in place_frame, + 8 from a (cos, sin) pair (place_cs), + 3 more from an
-# angle in degrees (place_deg); a dequantized field is 2
-FLOPS_PER_ROW = {
-    "k1": 3 * 73 + 6 * 2,                        # forward step
-    "k2": 3 * 73 + 6 * 2 + 3 * (31 + 70 + 12 + 2),  # + reverse, blend
-    "k3": 11 * 66 + 42 * 5,                      # table frames, offsets
+# What each decode kernel must do, counted from this run's inputs: inputs
+# read once, outputs written once, real lanes and residues only. A lane of
+# seg_m residues takes seg_m - 1 forward steps (k1, k2) and as many reverse
+# ones (k2); per residue, per step and per lane, (bytes, float operations):
+#  - a step reads its residue's 8 B record (the last residue's is never
+#    read; the N-CA length comes from the record's residue code) and costs
+#    3 NeRF placements of 73 (62 in place_frame, 8 for a (cos, sin) pair,
+#    3 for an angle in degrees; a sinf/cosf/rsqrtf/sqrtf/division counts
+#    as one) and 6 dequantized fields of 2; k2's reverse step 3 more
+#    placements of 70, 3 bond angles of 31 and 3 torsions of 2;
+#  - a k1 lane reads its seed fwd9, its next anchor rev9, tat and 12
+#    quantizer floats (124 B) and writes a 9-float tail (36 B), blended at
+#    4 operations a float;
+#  - a k2 lane reads one 36 B seed (lane l-1's tail, or its own fwd9 where
+#    it is a protein's first segment), is_first, rev9, tat and the 12
+#    floats (125 B); k2 writes and blends 9 floats a residue (36 B, 3 x 12);
+#  - k3 reads 9 backbone floats, a code and 11 torsion codes and writes 42
+#    int16 and 3 floats a residue (147 B), 11 placements of 66 and 42
+#    offsets of 5.
+DECODE_WORK = {
+    "k1": {"residue": (0, 0), "step": (8, 3 * 73 + 6 * 2),
+           "lane": (124 + 36, 9 * 4)},
+    "k2": {"residue": (36, 3 * 12),
+           "step": (8, 3 * 73 + 6 * 2 + 3 * (70 + 31 + 2)),
+           "lane": (125, 0)},
+    "k3": {"residue": (36 + 4 + 11 + 84 + 12, 11 * 66 + 42 * 5),
+           "step": (0, 0), "lane": (0, 0)},
 }
-# bytes each decode kernel must move, per residue row and per lane (inputs
-# read once, outputs written once, real rows only): k1 and k2 read 8 B of
-# record a row (the N-CA length comes from the record's residue code); a
-# k1 lane reads its seed, next anchor, tat, order entry and 12 quantizer
-# floats (128 B) and writes a 9-float tail; a k2 lane reads tails9, fwd9,
-# is_first, rev9, tat, its order entry and the 12 floats (165 B), and k2
-# writes 9 floats a row; k3 reads 9 backbone floats, a code and 11 torsion
-# codes and writes 42 int16 and 3 floats a row
-BYTES_PER_ROW = {"k1": 8, "k2": 8 + 36, "k3": 36 + 4 + 11 + 84 + 12}
-BYTES_PER_LANE = {"k1": 128 + 36, "k2": 165, "k3": 0}
 # k4 (fused_encode.cu): 6 double-f32 cosines (a division, a square root
 # and ~20 operations each), 11 side-chain cosines (~25 each), the rescue
 # bounds and the division of the millimetre grid, per residue
@@ -786,7 +795,7 @@ def device_decode(dev, card, uniq, err, entries=8192):
     recs, fwd9, lane, order, first, tat = (pr["recs"], pr["fwd9"],
                                            pr["lane"], pr["order"],
                                            ta["is_first"], pr["tat"])
-    pack_order = torch.arange(order.numel(), dtype=torch.int32, device=dev)
+    pack_order = FD.lane_order(tat, by_length=False)
     t9 = FD.tails(recs, fwd9, *lane, order=order)
     t9p = FD.tails_plain(recs, FD.n_ca_lengths(recs), fwd9, *lane)
     bb = FD.backbone(recs, t9, fwd9, first, *lane, order=order)
@@ -815,20 +824,24 @@ def device_decode(dev, card, uniq, err, entries=8192):
                lambda: FD.sidechain_plain(*bb, pr["code"], pr["sct"],
                                           nl_out)),
     }
-    # the rows each kernel must compute: the real lanes' residue rows
+    # the work each kernel must do: the real lanes, their residue rows and
+    # their forward steps
     nl_real = sum(f.n_anchor - 1 for f in big)
     rows = int(ta["seg_m"][:nl_real].sum())
+    count = {"residue": rows, "step": rows - nl_real, "lane": nl_real}
     times = {}
     for k, (kern, plain_k) in per_kernel.items():
         p1 = cuda_ms(torch, plain_k, 2)
         r1 = cuda_ms(torch, kern, 10)
         r2 = cuda_ms(torch, kern, 10)
         p2 = cuda_ms(torch, plain_k, 2)
-        n_bytes = BYTES_PER_ROW[k] * rows + BYTES_PER_LANE[k] * nl_real
-        b_ms, b_by = bound(n_bytes, FLOPS_PER_ROW[k] * rows)
+        n_bytes, n_ops = (sum(w[i] * count[u]
+                              for u, w in DECODE_WORK[k].items())
+                          for i in (0, 1))
+        b_ms, b_by = bound(n_bytes, n_ops)
         times[k] = {"ms": min(r1, r2), "plain_ms": min(p1, p2),
                     "runs_ms": [p1, r1, r2, p2], "bytes": n_bytes,
-                    "bound_ms": b_ms, "bound_by": b_by,
+                    "operations": n_ops, "bound_ms": b_ms, "bound_by": b_by,
                     "bound_share": b_ms / min(r1, r2)}
     # k1 and k2 with the lanes in pack order: what the lane order saves
     for k, kern in (("k1", k1), ("k2", k2)):

@@ -66,9 +66,9 @@ BLEN32 = _extend_codes(np.asarray(BOND_LEN, np.float32))   # [32, 14]
 BANG32 = _extend_codes(np.asarray(BOND_ANG, np.float32))   # [32, 14]
 
 # scalar constants of the CUDA kernels, in the order of the K_* indices of
-# kernels/csrc/fused_decode.cu (PRO_CODE as a float, exact)
+# kernels/csrc/fused_decode.cu (PRO_CODE goes to the kernels as an int)
 KERNEL_CONSTS = np.asarray([C_TO_N, CA_TO_C, N_TO_CA, RADK, SC_CONT,
-                            SC_MIN, PRO_N_TO_CA, PRO_CODE], np.float32)
+                            SC_MIN, PRO_N_TO_CA], np.float32)
 
 # ---------------------------------------------------------------------------
 # encode constants, retyped from foldcomp_tpu/kernels/encode.py and

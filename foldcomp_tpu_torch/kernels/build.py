@@ -112,7 +112,7 @@ def build() -> str:
 
 def _bind(lib):
     vp, ci = ctypes.c_void_p, ctypes.c_int
-    lib.fd_set_tables.argtypes = [vp, vp, vp, vp, ci]
+    lib.fd_set_tables.argtypes = [vp, vp, vp, vp, ci, ci]
     lib.fd_tails.argtypes = [vp] * 8 + [ci, ci, vp]
     lib.fd_backbone.argtypes = [vp] * 16 + [ci, ci, vp]
     lib.fd_sidechain.argtypes = [vp] * 8 + [ci, ci, ci, vp]
@@ -141,7 +141,8 @@ def load(device=None):
                     np.ascontiguousarray(tables.KERNEL_CONSTS, np.float32)]
             with torch.cuda.device(idx):
                 err = _LIB.fd_set_tables(*(a.ctypes.data for a in arrs),
-                                         len(tables.KERNEL_CONSTS))
+                                         len(tables.KERNEL_CONSTS),
+                                         int(tables.PRO_CODE))
             if err != 0:
                 raise RuntimeError(f"fd_set_tables on cuda:{idx} failed: "
                                    f"cudaError {err}")

@@ -44,13 +44,14 @@
 // fd_set_tables fills the current device's copy, and build.py calls it
 // once for each device before that device's first launch.
 enum { K_C_TO_N = 0, K_CA_TO_C, K_N_TO_CA, K_RADK, K_SC_CONT, K_SC_MIN,
-       K_PRO_N_TO_CA, K_PRO_CODE, K_COUNT };
+       K_PRO_N_TO_CA, K_COUNT };
 #define N_CODES 32
 #define MAX_ATOM 14
 __constant__ int c_pred[N_CODES * MAX_ATOM * 3];
 __constant__ float c_blen[N_CODES * MAX_ATOM];
 __constant__ float c_bang[N_CODES * MAX_ATOM];
 __constant__ float c_k[K_COUNT];
+__constant__ int c_pro_code;  // proline's 5-bit residue code
 
 struct V3 {
   float x, y, z;
@@ -193,9 +194,8 @@ __device__ __forceinline__ void fwd_step(const Lane& ln, uint2 w, V3* a,
   float ncac = ln.deq(3, b7);
   float cacn = ln.deq(4, b5);
   float cnca = ln.deq(5, b6);
-  const float n_ca = (b0 >> 3) == __float2int_rz(c_k[K_PRO_CODE])
-                         ? c_k[K_PRO_N_TO_CA]
-                         : c_k[K_N_TO_CA];
+  const float n_ca =
+      (b0 >> 3) == c_pro_code ? c_k[K_PRO_N_TO_CA] : c_k[K_N_TO_CA];
   V3 n = place_deg(*a, *b, *c, c_k[K_C_TO_N], cacn, cs_deg(ln.torsion(0, w)));
   V3 ca = place_deg(*b, *c, n, n_ca, cnca, cs_deg(ln.torsion(1, w)));
   V3 cc = place_deg(*c, n, ca, c_k[K_CA_TO_C], ncac,
@@ -752,12 +752,14 @@ extern "C" {
 // tables from them on the device and waits for that.
 cudaError_t fd_set_tables(const int* pred32, const float* blen32,
                           const float* bang32, const float* consts,
-                          int n_consts) {
+                          int n_consts, int pro_code) {
   if (n_consts != K_COUNT) return cudaErrorInvalidValue;
   cudaError_t e = cudaMemcpyToSymbol(c_pred, pred32, sizeof(c_pred));
   if (e == cudaSuccess) e = cudaMemcpyToSymbol(c_blen, blen32, sizeof(c_blen));
   if (e == cudaSuccess) e = cudaMemcpyToSymbol(c_bang, bang32, sizeof(c_bang));
   if (e == cudaSuccess) e = cudaMemcpyToSymbol(c_k, consts, sizeof(c_k));
+  if (e == cudaSuccess)
+    e = cudaMemcpyToSymbol(c_pro_code, &pro_code, sizeof(c_pro_code));
   if (e != cudaSuccess) return e;
   k3_tables<<<1, 512>>>();
   e = cudaGetLastError();

@@ -78,12 +78,25 @@ def n_ca_lengths(recs):
                                     device=recs.device))
 
 
-def lane_order(tat):
-    """i32 [NL] permutation of the lanes by tat, longest first, stable (the
-    lanes of one length in pack order): the order k1 and k2 walk them in,
-    so that a warp's lanes have one length."""
-    return torch.argsort(tat, descending=True, stable=True) \
-        .to(torch.int32)
+class LaneOrder:
+    """The order k1 and k2 walk a batch's lanes in: perm, i32 [NL], a
+    permutation of range(NL). The kernels index the lanes by it, so only
+    lane_order makes one, and the wrappers take no other order."""
+    __slots__ = ("perm",)
+
+    def __init__(self, perm):
+        self.perm = perm
+
+
+def lane_order(tat, by_length: bool = True) -> LaneOrder:
+    """The lanes by tat, longest first, stable (the lanes of one length in
+    pack order), so that a warp's lanes have one length; by_length False
+    gives the pack order itself."""
+    if not by_length:
+        return LaneOrder(torch.arange(tat.numel(), dtype=torch.int32,
+                                      device=tat.device))
+    return LaneOrder(torch.argsort(tat, descending=True, stable=True)
+                     .to(torch.int32))
 
 
 # ---------------------------------------------------------------------------
@@ -252,6 +265,8 @@ def _cuda_lib(t):
 
 
 def _check(name, t, dtype, shape, device):
+    if t is None:
+        raise ValueError(f"{name}: None, expected {dtype} {tuple(shape)}")
     if t.device != device:
         raise ValueError(f"{name}: on {t.device}, expected {device}")
     if t.dtype != dtype:
@@ -263,9 +278,11 @@ def _check(name, t, dtype, shape, device):
         raise ValueError(f"{name}: not contiguous")
 
 
-def _check_lane_inputs(recs, ranc, tat, mins6, cont6, order, **seeds):
-    """Check the lane inputs of k1 and k2 (each seed tensor [9, NL] f32,
-    is_first [NL] bool); -> (SEG, NL)."""
+def _check_lane_inputs(recs, ranc, tat, mins6, cont6, order, seeds,
+                       is_first=None):
+    """Check the lane inputs of k1 and k2: seeds, {name: [9, NL] f32};
+    is_first, [NL] bool, where the kernel reads it; order, a LaneOrder.
+    -> (SEG, NL)."""
     if recs.dim() != 3 or recs.shape[0] != 8:
         raise ValueError(f"recs: shape {tuple(recs.shape)}, expected "
                          "[8, SEG, NL]")
@@ -273,15 +290,17 @@ def _check_lane_inputs(recs, ranc, tat, mins6, cont6, order, **seeds):
     dev = recs.device
     _check("recs", recs, torch.uint8, (8, seg, nl), dev)
     for name, t in seeds.items():
-        if name == "is_first":
-            _check(name, t, torch.bool, (nl,), dev)
-        elif t is not None:
-            _check(name, t, F32, (9, nl), dev)
+        _check(name, t, F32, (9, nl), dev)
+    if is_first is not None:
+        _check("is_first", is_first, torch.bool, (nl,), dev)
     _check("ranc", ranc, F32, (9, nl), dev)
     _check("tat", tat, torch.int32, (nl,), dev)
     _check("mins6", mins6, F32, (6, nl), dev)
     _check("cont6", cont6, F32, (6, nl), dev)
-    _check("order", order, torch.int32, (nl,), dev)
+    if not isinstance(order, LaneOrder):
+        raise TypeError(f"order: {type(order).__name__}, expected a "
+                        "LaneOrder from lane_order")
+    _check("order", order.perm, torch.int32, (nl,), dev)
     return seg, nl
 
 
@@ -301,9 +320,9 @@ def _launch(fn, name, dev, *args):
 def tails(recs, seed, ranc, tat, mins6, cont6, order=None):
     """k1 -> [9, NL] blended tails of the forward scan from `seed` ([9,
     NL] rows atom*3 + comp). The N-CA lengths come from the records (the
-    plain version on the CPU takes n_ca_lengths). order (i32 [NL], a
-    permutation of range(NL)): the order the threads walk the lanes in,
-    lane_order(tat) when None; it changes no value."""
+    plain version on the CPU takes n_ca_lengths). order (a LaneOrder of
+    these lanes): the order the threads walk the lanes in, lane_order(tat)
+    when None; it changes no value."""
     global K1_LAUNCHES
     if recs.device.type == "cpu":
         return tails_plain(recs, n_ca_lengths(recs), seed, ranc, tat,
@@ -312,12 +331,12 @@ def tails(recs, seed, ranc, tat, mins6, cont6, order=None):
     if order is None:
         order = lane_order(tat)
     seg, nl = _check_lane_inputs(recs, ranc, tat, mins6, cont6, order,
-                                 seed=seed)
+                                 {"seed": seed})
     out = torch.empty((9, nl), dtype=F32, device=recs.device)
     if nl:
         _launch(lib.fd_tails, "k1 tails", recs.device,
-                *_ptrs(recs, seed, ranc, tat, mins6, cont6, order, out), seg,
-                nl)
+                *_ptrs(recs, seed, ranc, tat, mins6, cont6, order.perm, out),
+                seg, nl)
         K1_LAUNCHES += 1
     return out
 
@@ -342,8 +361,13 @@ def backbone(recs, tails9, fwd9, is_first, ranc, tat, mins6, cont6,
     lib = _cuda_lib(recs)
     if order is None:
         order = lane_order(tat)
-    seg, nl = _check_lane_inputs(recs, ranc, tat, mins6, cont6, order,
-                                 tails9=tails9, fwd9=fwd9, is_first=is_first)
+    if tails9 is None:      # refine_iters 1: k2 reads fwd9 alone
+        seg, nl = _check_lane_inputs(recs, ranc, tat, mins6, cont6, order,
+                                     {"fwd9": fwd9})
+    else:
+        seg, nl = _check_lane_inputs(recs, ranc, tat, mins6, cont6, order,
+                                     {"tails9": tails9, "fwd9": fwd9},
+                                     is_first)
     dev = recs.device
     outs = tuple(torch.empty((3 * seg, nl), dtype=F32, device=dev)
                  for _ in range(3))
@@ -355,7 +379,7 @@ def backbone(recs, tails9, fwd9, is_first, ranc, tat, mins6, cont6,
         pos = torch.empty((nl,), dtype=torch.int32, device=dev)
         _launch(lib.fd_backbone, "k2 backbone", dev,
                 *_ptrs(recs, tails9, fwd9, is_first, ranc, tat, mins6, cont6,
-                       order, *outs, *scratch, pos), seg, nl)
+                       order.perm, *outs, *scratch, pos), seg, nl)
         K2_LAUNCHES += 1
     return outs
 

@@ -63,7 +63,7 @@ def _warp_row_steps(rows):
 def test_lane_order_is_a_stable_sort_by_tat(corpus, mixed512, small):
     _, ta = mixed512 if corpus == "mixed512" else small[corpus]
     tat = 3 * ta["seg_m"]
-    order = FD.lane_order(tat)
+    order = FD.lane_order(tat).perm
     assert order.dtype == torch.int32
     o = order.long()
     assert torch.equal(torch.sort(o).values, torch.arange(tat.numel()))
@@ -84,9 +84,35 @@ def test_lane_order_warps_walk_real_rows(mixed512):
     seg_m = ta["seg_m"].long()
     real = int(seg_m.sum())
     sorted_steps = _warp_row_steps(seg_m[FD.lane_order(3 * ta["seg_m"])
-                                         .long()])
+                                         .perm.long()])
     assert sorted_steps / real <= 1.01
     assert _warp_row_steps(seg_m) / real > 1.3
+
+
+def test_wrappers_take_only_a_lane_order(small):
+    """The kernels index the lanes by the order, so the wrappers' checks
+    take a LaneOrder of these lanes and refuse a bare tensor; the pack
+    order is the identity."""
+    _, ta = small["mixed"]
+    prep = FD.class_prep(*(ta[k] for k in PACK_KEYS[:6]), ta["seg_m"])
+    lane = (prep["rev9"], prep["tat"], prep["mins6"], prep["cont6"])
+    nl = prep["tat"].numel()
+    pack = FD.lane_order(prep["tat"], by_length=False)
+    assert torch.equal(pack.perm, torch.arange(nl, dtype=torch.int32))
+    seeds = {"fwd9": prep["fwd9"]}
+    seg = prep["recs"].shape[1]
+    assert FD._check_lane_inputs(prep["recs"], *lane, pack, seeds) \
+        == (seg, nl)
+    with pytest.raises(TypeError):
+        FD._check_lane_inputs(prep["recs"], *lane, pack.perm, seeds)
+    with pytest.raises(ValueError):
+        FD._check_lane_inputs(prep["recs"], *lane,
+                              FD.LaneOrder(pack.perm[1:]), seeds)
+    with pytest.raises(ValueError):
+        FD._check_lane_inputs(prep["recs"], *lane, pack, {"tails9": None})
+    with pytest.raises(TypeError):
+        FD._check_lane_inputs(prep["recs"], *lane, pack, seeds,
+                              is_first=ta["is_first"].to(torch.uint8))
 
 
 @pytest.mark.parametrize("corpus", ["mixed512", "mixed", "wide"])
