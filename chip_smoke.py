@@ -56,7 +56,19 @@ non-zero:
    byte-identical to `python -m foldcomp_tpu compress`); then the same
    entry point in this process
    with the launch counters reset just before and read just after: k4
-   must have launched.
+   must have launched;
+11. bb_wire, the backbone-only decode wire (`FOLDCOMP_TPU_WIRE=bb`; its
+   kernel and device parts run after phase 4, its CLI parts after phase 6):
+   k2 with its epilogue k2_bb_out (`fused_decode.backbone_only`) against
+   its plain version on phase 2's corpora and at B=8192, offsets within 1
+   i16 unit (0.1 mA) and CA within 1e-3 A on the rows each lane owns;
+   k2_bb_out alone, the bb call and the whole bb device decode timed with
+   CUDA events beside the full wire's; the D2H bytes and seconds of one
+   B=8192 batch on each wire; the link probe's MB/s and the wire it
+   chooses; then `decompress --fast` on phase 5's database with
+   FOLDCOMP_TPU_WIRE=bb in a subprocess, 64 sampled outputs held to phase
+   5's bound, and the same entry point in this process with the launch
+   counters around it: k2_bb must have launched and k3 not.
 
 Then the kernel summary (each kernel's launches on the main path, its
 largest difference from its plain version, its time and its plain
@@ -66,7 +78,9 @@ run's inputs), the card's `nvidia-smi` name and power limit, and as the
 last line {"ok": true, "device": {...}}. Exits non-zero without a CUDA
 device or outside a checkout of the repository.
 
-    python3 chip_smoke.py --quick       phases 1, 2 and 4 only, no last line
+    python3 chip_smoke.py --quick       phases 1, 2, 4 and phase 11's
+                                        kernel checks and device timings,
+                                        no last line
     python3 chip_smoke.py --ptxas F.cu  also the ptxas report of another
                                         source (an older k3, say) in phase 1
 """
@@ -88,14 +102,17 @@ TOL_I16 = 1
 # printed PDB coordinates carry 3 decimals: rounding adds <= 5e-4 A
 PRINT_SLACK_A = 5e-4
 _DEC = "foldcomp_tpu_torch/kernels/csrc/fused_decode.cu"
-SOURCES = {"k1": _DEC, "k2": _DEC, "k3": _DEC,
+SOURCES = {"k1": _DEC, "k2": _DEC, "k2_bb": _DEC, "k3": _DEC,
            "k4": "foldcomp_tpu_torch/kernels/csrc/fused_encode.cu"}
 REPLACES = {"k1": "foldcomp_tpu/kernels/pallas_decode.py:186",
             "k2": "foldcomp_tpu/kernels/pallas_decode.py:227",
+            "k2_bb": "foldcomp_tpu/kernels/pallas_decode.py:529",
             "k3": "foldcomp_tpu/kernels/pallas_decode.py:338",
             "k4": "foldcomp_tpu/kernels/pallas_encode.py:147"}
-NAMES = {"k1": "k1_tails", "k2": "k2_backbone", "k3": "k3_sidechain",
-         "k4": "k4_merged_encode"}
+NAMES = {"k1": "k1_tails", "k2": "k2_backbone", "k2_bb": "k2_bb_out",
+         "k3": "k3_sidechain", "k4": "k4_merged_encode"}
+# the bb wire's offsets: 0.1 mA units
+BB_UNIT_A = 1e-4
 # relt/relb use rsqrtf, as the JAX kernel uses lax.rsqrt
 TOL_REL_ULP = 4
 # one H100 SXM's published peaks (NVIDIA's data sheet, at a 700 W limit):
@@ -120,13 +137,19 @@ PEAK_F32_S = 67e12
 #    floats (125 B); k2 writes and blends 9 floats a residue (36 B, 3 x 12);
 #  - k3 reads 9 backbone floats, a code and 11 torsion codes and writes 42
 #    int16 and 3 floats a residue (147 B), 11 placements of 66 and 42
-#    offsets of 5.
+#    offsets of 5;
+#  - the bb call (k2 and k2_bb_out, _run_backbone_only's function) does
+#    k2's work but writes 6 int16 offsets and 3 floats a residue (24 B),
+#    each offset a subtraction, a product, a rounding and a clip of 2.
 DECODE_WORK = {
     "k1": {"residue": (0, 0), "step": (8, 3 * 73 + 6 * 2),
            "lane": (124 + 36, 9 * 4)},
     "k2": {"residue": (36, 3 * 12),
            "step": (8, 3 * 73 + 6 * 2 + 3 * (70 + 31 + 2)),
            "lane": (125, 0)},
+    "k2_bb": {"residue": (24, 3 * 12 + 6 * 5),
+              "step": (8, 3 * 73 + 6 * 2 + 3 * (70 + 31 + 2)),
+              "lane": (125, 0)},
     "k3": {"residue": (36 + 4 + 11 + 84 + 12, 11 * 66 + 42 * 5),
            "step": (0, 0), "lane": (0, 0)},
 }
@@ -155,8 +178,9 @@ def ptxas_report(log):
                       r"for) '?(\w+)", line)
         if m:
             cur = next((k for k in ("k1_tails", "k2_backbone",
-                                    "k2_copy_out", "k3_sidechain",
-                                    "k3_tables", "k4_merged")
+                                    "k2_copy_out", "k2_bb_out",
+                                    "k3_sidechain", "k3_tables",
+                                    "k4_merged")
                         if k in m.group(1)), m.group(1))
             out.setdefault(cur, {})
             continue
@@ -674,16 +698,11 @@ def e2e_compress(work, card, uniq):
 
 def decode_kernels(dev, uniq, err):
     """Phase 2: k1, k2 and k3 against their plain versions on `dev`, on
-    the same inputs, at refine_iters 1 and 2: a mixed batch of 512
-    entries, a corpus with SEG > 96, and one packed without the 8-row
-    bucket (SEG % 4 != 0); then the mixed batch with lane 0 made a
-    continuation (is_first[0] false), so that k2's seed roll wraps to lane
-    NL-1. k1 and k2 within TOL_A on the rows each lane owns, k3 within
-    TOL_I16 and TOL_A on its residues. err keeps each kernel's largest
-    difference; raises past a tolerance."""
+    the same inputs (kernel_cases). k1 and k2 within TOL_A on the rows each
+    lane owns, k3 within TOL_I16 and TOL_A on its residues. err keeps each
+    kernel's largest difference; raises past a tolerance."""
     import torch
 
-    from foldcomp_tpu_torch.codec.encoder import encode
     from foldcomp_tpu_torch.kernels import fused_decode as FD
 
     def compare(arrays, ta, pr, refine_iters, is_first):
@@ -720,6 +739,25 @@ def decode_kernels(dev, uniq, err):
                 err[k] = max(err[k], got[k])
         return got
 
+    for label, arrays, ta, pr, r, first in kernel_cases(dev, uniq):
+        got = compare(arrays, ta, pr, r, first)
+        torch.cuda.synchronize()
+        emit("kernels", corpus=label, refine_iters=r,
+             lane0_wraps=first is not ta["is_first"],
+             seg=int(arrays["seg_records"].shape[1]),
+             lanes=int(arrays["seg_records"].shape[2]),
+             max_abs=got, tol={"f32_A": TOL_A, "i16_units": TOL_I16})
+
+
+def kernel_cases(dev, uniq):
+    """Phase 2's inputs: yields (corpus, arrays, tensors, class_prep dict,
+    refine_iters, is_first) for a mixed batch of 512 entries, a corpus
+    with SEG > 96 and one packed without the 8-row bucket (SEG % 4 != 0),
+    at refine_iters 1 and 2, then the mixed batch at 2 with lane 0 made a
+    continuation (is_first[0] false), so that k2's seed roll wraps to lane
+    NL-1."""
+    from foldcomp_tpu_torch.codec.encoder import encode
+
     rng = random.Random(0)
     mixed = [uniq[rng.choice(BENCH_LENGTHS)] for _ in range(512)]
     wide_u = [encode(synthesize(n, seed=i), anchor_threshold=200)
@@ -735,19 +773,12 @@ def decode_kernels(dev, uniq, err):
             raise AssertionError("wide corpus does not exceed SEG 96")
         if label == "odd_seg" and not seg % 4:
             raise AssertionError(f"odd_seg corpus has SEG {seg}")
-        cases = [(1, False), (2, False)]
+        yield label, arrays, ta, pr, 1, ta["is_first"]
+        yield label, arrays, ta, pr, 2, ta["is_first"]
         if label == "mixed512":
-            cases.append((2, True))
-        for r, wrap in cases:
-            first = ta["is_first"]
-            if wrap:
-                first = first.clone()
-                first[0] = False
-            got = compare(arrays, ta, pr, r, first)
-            torch.cuda.synchronize()
-            emit("kernels", corpus=label, refine_iters=r, lane0_wraps=wrap,
-                 seg=int(seg), lanes=int(arrays["seg_records"].shape[2]),
-                 max_abs=got, tol={"f32_A": TOL_A, "i16_units": TOL_I16})
+            first = ta["is_first"].clone()
+            first[0] = False
+            yield label, arrays, ta, pr, 2, first
 
 
 def device_decode(dev, card, uniq, err, entries=8192):
@@ -872,6 +903,236 @@ def device_decode(dev, card, uniq, err, entries=8192):
     return times
 
 
+def bb_owned_max(got, want, seg_m):
+    """(offset units, CA A): the largest |difference| of two bb-wire
+    outputs (off [NL_out, SEG, 6], ca [NL_out, SEG, 3]) on the rows each
+    lane owns (s < seg_m)."""
+    import torch
+    own = torch.arange(got[0].shape[1], device=seg_m.device)[None, :] \
+        < seg_m[:got[0].shape[0], None]
+    return ((got[0].int() - want[0].int()).abs()[own].max().item(),
+            (got[1] - want[1]).abs()[own].max().item())
+
+
+def hold_bb(label, got, want, seg_m, err):
+    """Gate a bb-wire output against its plain version: offsets within
+    TOL_I16 units, CA within TOL_A, on owned rows. -> the difference."""
+    d_off, d_ca = bb_owned_max(got, want, seg_m)
+    if not (d_off <= TOL_I16 and d_ca <= TOL_A):
+        raise AssertionError(f"{label}: k2_bb vs plain: off {d_off} units, "
+                             f"ca {d_ca} A")
+    err["k2_bb"] = max(err["k2_bb"], d_off * BB_UNIT_A, d_ca)
+    return {"off_units": d_off, "ca_A": d_ca}
+
+
+def bb_kernels(dev, uniq, err):
+    """Phase 11, kernels: backbone_only (k2_backbone and k2_bb_out) against
+    bb_epilogue_plain(backbone_rolled_plain(...)) on phase 2's inputs."""
+    import torch
+
+    from foldcomp_tpu_torch.kernels import fused_decode as FD
+
+    for label, arrays, ta, pr, r, first in kernel_cases(dev, uniq):
+        recs, fwd9, lane = pr["recs"], pr["fwd9"], pr["lane"]
+        tails9 = FD.tails(recs, fwd9, *lane, order=pr["order"]) \
+            if r >= 2 else None
+        nl_out = arrays["nl_out"]
+        got = FD.backbone_only(recs, tails9, fwd9, first, *lane, ta["seg_m"],
+                               nl_out, order=pr["order"])
+        want = FD.bb_epilogue_plain(*FD.backbone_rolled_plain(
+            recs, tails9, fwd9, first, *lane), nl_out)
+        d = hold_bb(label, got, want, ta["seg_m"], err)
+        torch.cuda.synchronize()
+        emit("bb_wire", part="kernels", corpus=label, refine_iters=r,
+             lane0_wraps=first is not ta["is_first"],
+             seg=int(arrays["seg_records"].shape[1]),
+             lanes=int(arrays["seg_records"].shape[2]), max_abs=d,
+             tol={"i16_units": TOL_I16, "ca_A": TOL_A})
+
+
+def d2h(outs):
+    """(seconds, bytes) of one decode output's copy to the host, as the
+    stream makes it (codec/batch.py _outs_to_host: pageable memory)."""
+    import torch
+
+    from foldcomp_tpu_torch.codec.batch import _outs_to_host
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    host = _outs_to_host(outs)
+    dt = time.perf_counter() - t0
+    return dt, sum(a.nbytes for a in host if not isinstance(a, str))
+
+
+def bb_device(dev, card, uniq, err, entries=8192):
+    """Phase 11, device: the B=8192 batch of phase 4 on the bb wire.
+    backbone_only against its plain version; k2_bb_out alone (fd_bb_out on
+    rows fd_backbone staged), the bb call (k2_backbone + k2_bb_out) beside
+    the full wire's k2 (k2_backbone + k2_copy_out), its plain version, and
+    the whole device decode on each wire, all by CUDA events in turns; the
+    D2H seconds and bytes of each wire's output; the link probe.
+    -> k2_bb's times and bound."""
+    import torch
+
+    from foldcomp_tpu_torch import cli
+    from foldcomp_tpu_torch.codec import batch as CB
+    from foldcomp_tpu_torch.kernels import fused_decode as FD
+
+    rng = random.Random(0)
+    big = [uniq[rng.choice(BENCH_LENGTHS)] for _ in range(entries)]
+    arrays, _, ta, pr = prep_of(big, dev)
+    fused_args = tuple(ta[k] for k in DECODE_KEYS)
+    nl_out = arrays["nl_out"]
+    recs, fwd9, lane, order, first, seg_m = (pr["recs"], pr["fwd9"],
+                                             pr["lane"], pr["order"],
+                                             ta["is_first"], ta["seg_m"])
+    t9 = FD.tails(recs, fwd9, *lane, order=order)
+
+    def bb_call():
+        return FD.backbone_only(recs, t9, fwd9, first, *lane, seg_m, nl_out,
+                                order=order)
+
+    def full_k2():
+        return FD.backbone(recs, t9, fwd9, first, *lane, order=order)
+
+    def plain():
+        return FD.bb_epilogue_plain(*FD.backbone_rolled_plain(
+            recs, t9, fwd9, first, *lane), nl_out)
+
+    got = bb_call()
+    d = hold_bb(f"B={entries}", got, plain(), seg_m, err)
+
+    # k2_bb_out alone, on rows fd_backbone staged in planes of our own
+    lib = FD._cuda_lib(recs)
+    seg, nl = recs.shape[1], recs.shape[2]
+    planes = [torch.empty((3 * seg, nl), dtype=torch.float32, device=dev)
+              for _ in range(6)]
+    pos = torch.empty((nl,), dtype=torch.int32, device=dev)
+    FD._launch(lib.fd_backbone, "k2 backbone", dev, *FD._ptrs(
+        recs, t9, fwd9, first, *lane, order.perm, *planes, pos), seg, nl)
+    alone = tuple(torch.empty_like(t) for t in got)
+
+    def bb_out():
+        FD._launch(lib.fd_bb_out, "k2_bb_out", dev, *FD._ptrs(
+            *planes[3:], pos, seg_m, *alone), seg, nl, alone[0].shape[0])
+
+    bb_out()
+    d_alone = bb_owned_max(alone, got, seg_m)
+    if d_alone != (0, 0.0):
+        raise AssertionError(f"k2_bb_out alone vs backbone_only: {d_alone}")
+
+    runs = {}
+    for name, fn, reps in (("bb_call", bb_call, 10), ("full_k2", full_k2, 10),
+                           ("bb_out", bb_out, 20)):
+        runs[name] = [cuda_ms(torch, fn, reps), cuda_ms(torch, fn, reps)]
+    p1 = cuda_ms(torch, plain, 2)
+    p2 = cuda_ms(torch, plain, 2)
+    del planes, pos, alone, got
+
+    def decode(wire):
+        return FD.decode_seg_fused(*fused_args, refine_iters=2,
+                                   nl_out=nl_out, wire=wire)
+
+    dec = {"full": [], "bb": []}
+    xfer = {"full": [], "bb": []}
+    for wire in ("full", "bb", "bb", "full"):
+        dec[wire].append(cuda_ms(torch, lambda: decode(wire), 10))
+        outs = decode(wire)
+        dt, nbytes = d2h(("bb",) + outs if wire == "bb" else outs)
+        xfer[wire].append({"seconds": dt, "bytes": nbytes,
+                           "mb_per_s": nbytes / dt / 1e6})
+        del outs
+
+    probes = [cli._run_probe() for _ in range(2)]
+    in_band = [r in ("ok", "slow")
+               and CB._BB_WIRE_MIN_MBS <= m < CB._BB_WIRE_MAX_MBS
+               for r, m in probes]
+
+    nl_real = sum(f.n_anchor - 1 for f in big)
+    rows = int(seg_m[:nl_real].sum())
+    count = {"residue": rows, "step": rows - nl_real, "lane": nl_real}
+    n_bytes, n_ops = (sum(w[i] * count[u]
+                          for u, w in DECODE_WORK["k2_bb"].items())
+                      for i in (0, 1))
+    b_ms, b_by = bound(n_bytes, n_ops)
+    ms = min(runs["bb_call"])
+    out_bytes = 24 * rows
+    emit("bb_wire", part="device", gpu=card, entries=len(big),
+         lanes_real=nl_real, rows_real=rows, seg=int(seg), lanes=int(nl),
+         nl_out=nl_out, kernel_vs_plain=d,
+         k2_bb_out_ms=min(runs["bb_out"]), k2_bb_out_runs_ms=runs["bb_out"],
+         k2_bb_out_bytes=60 * rows,
+         k2_bb_out_bound_ms=bound(60 * rows, 30 * rows)[0],
+         bb_call_ms=ms, bb_call_runs_ms=runs["bb_call"],
+         full_k2_ms=min(runs["full_k2"]), full_k2_runs_ms=runs["full_k2"],
+         k2_backbone_ms_derived=ms - min(runs["bb_out"]),
+         bb_call_plain_ms=min(p1, p2), bb_call_plain_runs_ms=[p1, p2],
+         bb_call_bytes=n_bytes, bb_call_operations=n_ops,
+         bb_call_bound_ms=b_ms, bb_call_bound_by=b_by,
+         bb_call_bound_share=b_ms / ms, bb_real_rows_bytes=out_bytes,
+         device_decode_ms={w: min(v) for w, v in dec.items()},
+         device_decode_runs_ms=dec, d2h=xfer,
+         d2h_share_of_full=min(x["seconds"] for x in xfer["bb"])
+         / min(x["seconds"] for x in xfer["full"]),
+         probe=[{"result": r, "mb_per_s": m} for r, m in probes],
+         probe_chooses_bb=in_band,
+         bb_band_mb_per_s=[CB._BB_WIRE_MIN_MBS, CB._BB_WIRE_MAX_MBS])
+    return {"ms": ms, "plain_ms": min(p1, p2), "bound_ms": b_ms,
+            "bound_by": b_by}
+
+
+def bb_cli(work, db, names, card, hold):
+    """Phase 11, CLI: `decompress --fast` with FOLDCOMP_TPU_WIRE=bb on
+    phase 5's database in a subprocess, 64 sampled outputs held by `hold`
+    (phase 5's bound), then in this process with the launch counters
+    around it. -> the in-process run's launch counts."""
+    import torch
+
+    from foldcomp_tpu_torch import cli
+    from foldcomp_tpu_torch.kernels import fused_decode as FD
+    from foldcomp_tpu_torch.kernels import fused_encode as FE
+
+    env = dict(os.environ, PYTHONPATH=str(REPO), FOLDCOMP_TPU_WIRE="bb")
+    env.pop("FOLDCOMP_TORCH_DEVICE", None)
+    out = work / "pdb_db_bb"
+    t0 = time.perf_counter()
+    r = subprocess.run(
+        [sys.executable, "-m", "foldcomp_tpu_torch", "decompress", "--fast",
+         str(db), str(out), "--db"], cwd=str(REPO), env=env,
+        capture_output=True, text=True, timeout=600)
+    wall = time.perf_counter() - t0
+    if r.returncode != 0:
+        raise AssertionError(f"bb CLI rc {r.returncode}: {r.stderr[-4000:]}")
+    worst = hold(out, names)
+    emit("bb_wire", part="e2e", gpu=card, entries=len(names),
+         command="FOLDCOMP_TPU_WIRE=bb python -m foldcomp_tpu_torch "
+                 "decompress --fast <db> <out> --db", wall_seconds=wall,
+         sampled=64, worst_dev_over_ref_A=worst)
+
+    saved = os.environ.get("FOLDCOMP_TPU_WIRE")
+    os.environ["FOLDCOMP_TPU_WIRE"] = "bb"
+    try:
+        FD.reset_launch_counts()
+        FE.reset_launch_counts()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(sys.stderr):
+            rc = cli.main(["decompress", "--fast", str(db),
+                           str(work / "pdb_db_bb_main"), "--db"])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = {**FD.launch_counts(), **FE.launch_counts()}
+    finally:
+        if saved is None:
+            os.environ.pop("FOLDCOMP_TPU_WIRE")
+        else:
+            os.environ["FOLDCOMP_TPU_WIRE"] = saved
+    emit("bb_wire", part="main_path", rc=rc, launches=counts,
+         wall_seconds=wall, gpu=card)
+    if rc != 0 or not (counts["k1"] > 0 and counts["k2"] > 0
+                       and counts["k2_bb"] > 0 and counts["k3"] == 0):
+        raise AssertionError(f"bb main path rc {rc}, launches {counts}")
+    return counts
+
+
 def main(argv=None) -> int:
     import argparse
     ap = argparse.ArgumentParser(description="Smoke run of "
@@ -927,7 +1188,7 @@ def main(argv=None) -> int:
          encode_seconds=time.perf_counter() - t0)
 
     # ---- 2. kernels against plain ----
-    err = {"k1": 0.0, "k2": 0.0, "k3": 0.0}
+    err = {"k1": 0.0, "k2": 0.0, "k2_bb": 0.0, "k3": 0.0}
     decode_kernels(dev, uniq, err)
     emit("kernels_per_device", devices=per_device_check(),
          tol={"f32_A": TOL_A, "i16_units": TOL_I16, "k4": K4_TOL})
@@ -941,6 +1202,11 @@ def main(argv=None) -> int:
 
     # ---- 4. device decode at the production batch ----
     times = device_decode(dev, card, uniq, err)
+    torch.cuda.empty_cache()
+
+    # ---- 11. the bb wire: kernels and device ----
+    bb_kernels(dev, uniq, err)
+    times["k2_bb"] = bb_device(dev, card, uniq, err)
     torch.cuda.empty_cache()
     if args.quick:
         return 0
@@ -971,25 +1237,36 @@ def main(argv=None) -> int:
         ref = verify.load_ref_dev()
         exact = {n: np.asarray(decode_exact(f).coords)
                  for n, f in uniq.items()}
-        reader = DatabaseReader(str(out))
-        try:
-            entries = list(reader.entries())
-        finally:
-            reader.close()
-        if len(entries) != len(picks):
-            raise AssertionError(f"{len(entries)} outputs for {len(picks)}")
-        worst = 0.0
-        for _, name, data in random.Random(2).sample(entries, 64):
-            n = int(name.rsplit("_L", 1)[1])
-            xyz = np.asarray(
-                [[float(ln[30:38]), float(ln[38:46]), float(ln[46:54])]
-                 for ln in bytes(data).decode().splitlines()
-                 if ln.startswith("ATOM")], np.float64)
-            m = min(len(xyz), len(exact[n]))
-            d = float(np.abs(xyz[:m] - exact[n][:m]).max())
-            worst = max(worst, d - ref[n])
-            if not d <= ref[n] + verify.REF_DEV_SLACK_A + PRINT_SLACK_A:
-                raise AssertionError(f"e2e {name}: dev {d} A vs ref {ref[n]}")
+
+        def hold(out_db, names):
+            """Every entry written; 64 sampled outputs per protein within
+            the JAX reference's deviation from the exact decoder + the
+            slack and the print's rounding. -> the worst excess."""
+            reader = DatabaseReader(str(out_db))
+            try:
+                entries = list(reader.entries())
+            finally:
+                reader.close()
+            if sorted(nm for _, nm, _ in entries) != sorted(names):
+                raise AssertionError(f"{len(entries)} outputs for "
+                                     f"{len(names)}")
+            worst = 0.0
+            for _, name, data in random.Random(2).sample(entries, 64):
+                n = int(name.rsplit("_L", 1)[1])
+                xyz = np.asarray(
+                    [[float(ln[30:38]), float(ln[38:46]), float(ln[46:54])]
+                     for ln in bytes(data).decode().splitlines()
+                     if ln.startswith("ATOM")], np.float64)
+                m = min(len(xyz), len(exact[n]))
+                d = float(np.abs(xyz[:m] - exact[n][:m]).max())
+                worst = max(worst, d - ref[n])
+                if not d <= ref[n] + verify.REF_DEV_SLACK_A + PRINT_SLACK_A:
+                    raise AssertionError(f"{out_db.name} {name}: dev {d} A "
+                                         f"vs ref {ref[n]}")
+            return worst
+
+        names = [f"e{i}_L{n}" for i, n in enumerate(picks)]
+        worst = hold(out, names)
         emit("e2e", gpu=card, entries=len(picks), residues=e2e_res,
              wall_seconds=wall, residues_per_s=e2e_res / wall,
              command="python -m foldcomp_tpu_torch decompress --fast "
@@ -1013,6 +1290,11 @@ def main(argv=None) -> int:
              residues_per_s=e2e_res / wall, gpu=card)
         if rc != 0 or not all(counts[k] > 0 for k in ("k1", "k2", "k3")):
             raise AssertionError(f"main path rc {rc}, launches {counts}")
+        for p in work.glob(out2.name + "*"):
+            p.unlink()
+
+        # ---- 11. the bb wire through the CLI ----
+        counts["k2_bb"] = bb_cli(work, db, names, card, hold)["k2_bb"]
         shutil.rmtree(work, ignore_errors=True)
         work.mkdir()
 
@@ -1026,7 +1308,7 @@ def main(argv=None) -> int:
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
-    # no single PyTorch call computes any of k1-k4: library_ms is null
+    # no single PyTorch call computes any of these: library_ms is null
     print(json.dumps({"kernels": [
         {"name": NAMES[k], "route": "cuda", "source": SOURCES[k],
          "replaces": REPLACES[k], "launches": counts[k],

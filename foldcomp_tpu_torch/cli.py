@@ -10,7 +10,9 @@ so that every exact route writes the same bytes as `python -m foldcomp_tpu`
 - `run_compress` (:609) and `_decompress_write` (:662);
 - `run_decompress`, `run_extract` and `run_check` (:861-1010);
 - `run_rmsd` and `run_subdb` (:1211-1259);
-- `main`'s flow (:1262-1452).
+- `main`'s flow (:1262-1452);
+- the link probe `_probe_info` (:719-818), measured with torch, which
+  here only chooses the decode wire (codec/batch.py use_bb_wire).
 
 So compress, decompress, extract, check, rmsd and subdb run here over
 files, directories, tars and databases. `compress --fast` and
@@ -20,7 +22,8 @@ mirroring _run_compress_fast / _run_decompress_fast (:467-606, :675-716).
 
 Not carried, because they bind the JAX package's device code: the db->db
 hybrid and sharded scheduler (:1377-1421), the sharded db extract
-(:1426-1432), the auto-`--fast` link probe of run_decompress (:871-885)
+(:1426-1432), the probe's other consumers (the auto-`--fast` of
+run_decompress, :871-885, and the batch size of fast_batch_size, :825)
 and `warmup` (:1279). Where foldcomp_tpu would take the scheduler or the
 sharded extract, this CLI takes the in-process route of the same mode,
 which writes the same bytes, and says so in one [Info] line on stderr;
@@ -500,6 +503,99 @@ def fast_batch_size() -> int:
         except ValueError:
             pass
     return FAST_BATCH
+
+
+# The link probe (foldcomp_tpu/cli.py:719-818), measured with torch. A
+# decode ships ~96 compact bytes per residue device->host on the full wire;
+# the probe calls a link below _FAST_MIN_LINK_MBS "slow". Here it drives
+# only the decode wire (codec/batch.py use_bb_wire); the JAX CLI's other
+# consumers of it, fast_batch_size (:825-846), batch decompress's
+# auto-`--fast` (:871-885) and the hybrid scheduler, are not carried.
+_FAST_MIN_LINK_MBS = 100.0
+
+_PROBE_CODE = """\
+import sys, time
+try:
+    import torch
+    present = torch.cuda.is_available()
+except Exception:
+    present = False
+if not present:
+    print("none")
+    sys.exit(0)
+try:
+    x = torch.zeros(8 << 20, dtype=torch.uint8)
+    dev = x.to("cuda")
+    torch.cuda.synchronize()         # H2D not timed: warm the path
+    t0 = time.perf_counter()
+    dev.cpu()                        # D2H to pageable memory, as decode ships
+    dt = time.perf_counter() - t0
+    mbs = (x.numel() / dt) / 1e6
+    print(("ok" if mbs >= %f else "slow") + " " + repr(mbs))
+except Exception:
+    # the card is up but the 8 MB D2H itself failed: a degraded link
+    print("slow 0")
+"""
+
+_PROBE_TTL_S = 600.0
+_PROBE_NONE_TTL_S = 120.0
+
+
+def _run_probe() -> tuple:
+    """('ok'|'slow'|'none', D2H MB/s) of the CUDA card, measured now in a
+    subprocess, so this process holds no CUDA context for it: 'none' when
+    torch finds no card."""
+    import subprocess
+    mbs = 0.0
+    try:
+        r = subprocess.run(
+            [sys.executable, "-c", _PROBE_CODE % _FAST_MIN_LINK_MBS],
+            capture_output=True, text=True, timeout=180)
+        toks = (r.stdout.strip().splitlines()[-1] if r.stdout
+                else "none").split()
+        result = toks[0]
+        if len(toks) > 1:
+            try:
+                mbs = float(toks[1])
+            except ValueError:
+                pass
+        if result not in ("ok", "slow", "none"):
+            result = "none"
+    except Exception:  # noqa: BLE001
+        result = "none"
+    return result, mbs
+
+
+def _probe_info() -> tuple:
+    """('ok'|'slow'|'none', link MB/s): _run_probe's answer, cached on
+    disk for _PROBE_TTL_S (_PROBE_NONE_TTL_S for 'none') in this
+    package's own file under the temporary directory.
+    FOLDCOMP_TPU_LINK=ok|slow|none overrides everything, with 0 MB/s."""
+    import json
+    import tempfile
+
+    forced = os.environ.get("FOLDCOMP_TPU_LINK")
+    if forced in ("ok", "slow", "none"):
+        return forced, 0.0
+    cache = os.path.join(tempfile.gettempdir(),
+                         f"foldcomp_tpu_torch_probe_{os.getuid()}.json")
+    try:
+        with open(cache) as fh:
+            d = json.load(fh)
+        ttl = _PROBE_TTL_S if d["result"] in ("ok", "slow") \
+            else _PROBE_NONE_TTL_S
+        if time.time() - d["ts"] < ttl and \
+                d["result"] in ("ok", "slow", "none"):
+            return d["result"], float(d.get("mbs", 0.0))
+    except Exception:  # noqa: BLE001
+        pass
+    result, mbs = _run_probe()
+    try:
+        with open(cache, "w") as fh:
+            json.dump(dict(ts=time.time(), result=result, mbs=mbs), fh)
+    except Exception:  # noqa: BLE001
+        pass
+    return result, mbs
 
 
 def _run_compress_fast(opts, entries, sink, sink_kind, output: str,

@@ -10,21 +10,26 @@ fragment tensors (`fragment_to_tensors`), the numpy compact wire
 (`_compact_coord_batch`), its scratch pool, and the sparse host finish with
 the FczData assembly (`finish_encode` -> `finish_encode_device`). Only the
 device stages and what touches their tensors are here, mirroring
-foldcomp_tpu/codec/batch.py (`_seg_decode_arrays`, `_outs_to_host`,
+foldcomp_tpu/codec/batch.py (`use_bb_wire`, the bb half of
+`pack_decode_batch_auto`, `_seg_decode_arrays`, `_outs_to_host`,
 `decode_fcz_batch`, `decode_fcz_to_pdb_batch`, `decode_fcz_stream`,
 `_pack_encode_wire_native`, `encode_submit`, `encode_finish`,
 `encode_tensor_batch`, `encode_fragment_batch`).
 
 Every entry point takes `device` (see backend.resolve_device). The decode
 pack runs with no segment-width cap: the CUDA backbone kernel takes any
-SEG, so there is no grid-core fallback to route wide segments to. Width
-classes and the backbone-only wire are not on this path. The encode takes
-any length and needs no protein block: every batch goes through k4, by its
-compact or its f32 loader.
+SEG, so there is no grid-core fallback to route wide segments to. Each
+decode call chooses its wire once (`use_bb_wire`): the full wire ships
+96 B a residue slot (k1, k2, k3), the backbone-only wire 24 B (k1, k2 and
+its epilogue k2_bb_out), and the host then places O and the side chains
+with the native codec. Width classes are not on this path. The encode
+takes any length and needs no protein block: every batch goes through k4,
+by its compact or its f32 loader.
 """
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import os
 import queue
 import threading
@@ -52,14 +57,58 @@ _PREFETCH = 2        # packed batches queued ahead of the device
 _SORT_WINDOW = 4     # batches per seg_sort_key window
 
 
+# below ~this D2H rate the full-atom wire (96 B/res) bounds the e2e wall
+# and the host side-chain pass is cheaper than the saved transfer; above
+# it the full wire is effectively free (foldcomp_tpu/codec/batch.py:752-756)
+_BB_WIRE_MAX_MBS = 200.0
+_BB_WIRE_MIN_MBS = 5.0
+
+
+def use_bb_wire() -> bool:
+    """The backbone-only D2H wire (foldcomp_tpu/codec/batch.py:759-786):
+    the device ships N and C as i16 0.1 mA offsets from an f32 CA, 24 B a
+    residue against 96 for the full wire, and the host places O and the
+    side chains with the native C codec (fcz_place_sc_from_bb, the
+    reference float op order).
+
+    FOLDCOMP_TPU_WIRE=bb forces it and =full (or any other value) pins the
+    full wire; unset, the link probe (cli._probe_info) decides: the bb
+    wire for a D2H rate in [_BB_WIRE_MIN_MBS, _BB_WIRE_MAX_MBS) MB/s.
+    Needs the native library: without it the answer is False."""
+    env = os.environ.get("FOLDCOMP_TPU_WIRE")
+    if env == "bb":
+        return get_lib() is not None
+    if env:
+        return False
+    from ..cli import _probe_info
+    result, mbs = _probe_info()
+    return result in ("ok", "slow") \
+        and _BB_WIRE_MIN_MBS <= mbs < _BB_WIRE_MAX_MBS \
+        and get_lib() is not None
+
+
+def pack_decode_wire(fczs, bb_wire: bool):
+    """pack_decode_batch_lanes, and for the bb wire each meta's side-chain
+    code stream and the arrays marked `bb_wire`, as
+    foldcomp_tpu/codec/batch.py pack_decode_batch_auto (:802-808) does."""
+    arrays, metas = pack_decode_batch_lanes(fczs)
+    if not bb_wire:
+        return arrays, metas
+    metas = [dataclasses.replace(m, sc_codes=np.asarray(f.sc_codes,
+                                                        np.uint8))
+             for m, f in zip(metas, fczs)]
+    return dict(arrays, bb_wire=True), metas
+
+
 def arrays_to_torch(arrays, device) -> dict:
     """The pack's numpy dict (the same one the JAX path takes) -> tensors
-    on `device`; `nl_out` stays a host int. Checks on the host what the
-    kernels take for granted: 1 <= seg_m <= SEG for every lane."""
+    on `device`; `nl_out` stays a host int and `bb_wire` a host bool.
+    Checks on the host what the kernels take for granted: 1 <= seg_m <= SEG
+    for every lane."""
     dev = resolve_device(device)
-    if "classes" in arrays or arrays.get("bb_wire"):
-        raise ValueError("width-classed and bb-wire packs are not ported; "
-                         "pack with pack_decode_batch_lanes")
+    if "classes" in arrays:
+        raise ValueError("width-classed packs are not ported; pack with "
+                         "pack_decode_batch_lanes")
     seg = arrays["seg_records"].shape[1]
     seg_m = arrays["seg_m"]
     if seg_m.size and (seg_m.min() < 1 or seg_m.max() > seg):
@@ -69,27 +118,35 @@ def arrays_to_torch(arrays, device) -> dict:
            for k, dt in _ARRAY_DTYPES.items()}
     nl = arrays.get("nl_out")
     out["nl_out"] = int(nl) if nl is not None else None
+    out["bb_wire"] = bool(arrays.get("bb_wire"))
     return out
 
 
 def _seg_decode_arrays(arrays, refine_iters=2):
-    """Device decode of a ragged-lane tensor dict -> (off, ca) tensors."""
-    return fused_decode.decode_seg_fused(
+    """Device decode of a ragged-lane tensor dict -> (off, ca) tensors, or
+    ("bb", off, ca) for a bb-wire pack."""
+    wire = "bb" if arrays.get("bb_wire") else "full"
+    out = fused_decode.decode_seg_fused(
         arrays["seg_records"], arrays["mins_lane"], arrays["cont_lane"],
         arrays["sc_codes_seg"], arrays["fwd9"], arrays["rev9"],
         arrays["is_first"], arrays["seg_m"], refine_iters=refine_iters,
-        nl_out=arrays["nl_out"])
+        nl_out=arrays["nl_out"], wire=wire)
+    return ("bb",) + out if wire == "bb" else out
 
 
 def _outs_to_host(outs):
-    """(off, ca) tensors -> numpy arrays for the shared host stitch."""
+    """Device decode output -> numpy arrays for the shared host stitch, in
+    the same form: (off, ca) or ("bb", off, ca)."""
+    if isinstance(outs[0], str):
+        return (outs[0],) + tuple(t.cpu().numpy() for t in outs[1:])
     off, ca = outs
     return off.cpu().numpy(), ca.cpu().numpy()
 
 
 def decode_fcz_host(fczs, refine_iters: int = 2, device=None):
-    """List[FczData] -> (host (off, ca) rows, per-protein metas)."""
-    arrays, metas = pack_decode_batch_lanes(fczs)
+    """List[FczData] -> (host decode output, per-protein metas), on the
+    wire use_bb_wire chooses."""
+    arrays, metas = pack_decode_wire(fczs, use_bb_wire())
     dev_arrays = arrays_to_torch(arrays, device)
     return _outs_to_host(_seg_decode_arrays(dev_arrays, refine_iters)), metas
 
@@ -125,8 +182,10 @@ def decode_fcz_stream(payload_iter, batch_size: int = 2048,
     _SORT_WINDOW batches, and results come out of a reorder buffer bounded
     by one window. Everything runs on the default
     CUDA stream. A short tail batch stays short: the kernels take any
-    lane count, so there is no per-shape compile to avoid by padding."""
+    lane count, so there is no per-shape compile to avoid by padding. The
+    wire (use_bb_wire) is chosen once, before the first batch."""
     dev = resolve_device(device)
+    bb_wire = use_bb_wire()
     n_workers = max(2, (os.cpu_count() or 4) - 1)
     pool = ThreadPoolExecutor(n_workers)
     xfer = ThreadPoolExecutor(1)
@@ -150,7 +209,7 @@ def decode_fcz_stream(payload_iter, batch_size: int = 2048,
             sel = order[i0:i0 + batch_size]
             batch = [window[j] for j in sel]
             if not put(([base + j for j in sel], batch,
-                        pool.submit(pack_decode_batch_lanes, batch))):
+                        pool.submit(pack_decode_wire, batch, bb_wire))):
                 return
 
     def producer():

@@ -10,8 +10,9 @@ results):
 - `_round_up` (:34) and `SegDecodeMeta` (:139);
 - `_arange`, `_ragged_arange` and `LANE_PAD` (:299-320);
 - `_pack_lanes_native` and `pack_decode_batch_lanes` (:323-551);
-- `seg_sort_key` (:569), `_gather_a14` (:912), `_assemble_protein` (:968)
-  and `_format_batch` (:1207);
+- `seg_sort_key` (:569), `_gather_a14` (:912, the ragged-lane full wire
+  and the backbone-only wire), `_assemble_protein` (:968) and
+  `_format_batch` (:1207);
 - the host finish (:1237-1635, `finish_encode_device` :1442);
 - `atoms_to_tensors_vec`, `fragment_to_tensors`, `_anchor_indices` and
   `encode_pdb_device` (:1637-1873);
@@ -19,11 +20,13 @@ results):
 - `finish_encode`, the host half of `encode_finish` (:2124-2176).
 
 Not carried: the grid packs `pack_decode_batch`/`pack_decode_batch_seg`,
-the width-class split `split_lanes_classes`, the backbone-only wire and the
-device probes `use_fused_decode`/`use_fused_encode`. `_gather_a14` and
-`_format_batch` take only the full wire's ragged-lane rows
-(off i16 [NL, SEG, 42], ca f32 [NL, SEG, 3]) as host arrays, the one form
-the port's decode emits.
+the width-class split `split_lanes_classes` and the device probes
+`use_fused_decode`/`use_fused_encode`. `_gather_a14` and `_format_batch`
+take the two forms the port's decode emits, as host arrays: the full
+wire's ragged-lane rows (off i16 [NL, SEG, 42], ca f32 [NL, SEG, 3]) and
+the backbone-only wire's ("bb", off i16 [NL, SEG, 6], ca f32 [NL, SEG, 3]),
+whose O and side chains the native codec places from the metas'
+`sc_codes`.
 """
 from __future__ import annotations
 
@@ -68,6 +71,7 @@ class SegDecodeMeta:
     lane_of: np.ndarray    # i64 [n]
     rec_of: np.ndarray     # i64 [n]
     res_base: int = 0      # row offset in the residue-space output [R]
+    sc_codes: np.ndarray | None = None  # u8 stream, bb-only wire mode
 
 
 _ARANGE = np.arange(0, dtype=np.int64)
@@ -339,9 +343,31 @@ def seg_sort_key(f):
 
 
 def _gather_a14(outs_np, m):
-    """Per-protein [n, 14, 3] atoms from the decode output: ragged-lane
-    rows off i16 [NL, SEG, 42] and ca f32 [NL, SEG, 3], stitched by the
-    host residue fancy-index (lane_of, rec_of)."""
+    """Per-protein [n, 14, 3] atoms from the decode output, stitched by
+    the host residue fancy-index (lane_of, rec_of): ragged-lane rows off
+    i16 [NL, SEG, 42] and ca f32 [NL, SEG, 3], or the bb wire's
+    ("bb", off i16 [NL, SEG, 6], ca f32 [NL, SEG, 3])."""
+    if isinstance(outs_np, tuple) and isinstance(outs_np[0], str) \
+            and outs_np[0] == "bb":
+        # bb-only wire: N/C i16 offsets from the f32 CA at a 0.1 mA
+        # quantum (finer than the full wire's — frame errors amplify
+        # ~5x through the host side-chain placement); dequantize, then
+        # O + side chains placed by the native C codec
+        from ..native import place_sc_from_bb_native
+        _, off, ca = outs_np
+        segw = off.shape[1]
+        idx = m.lane_of * segw + m.rec_of
+        o = off.reshape(-1, 6)[idx].astype(F32) * np.float32(0.0001)
+        c = ca.reshape(-1, 3)[idx]
+        bb = np.empty((len(idx), 3, 3), np.float32)
+        bb[:, 0] = c + o[:, :3]
+        bb[:, 1] = c
+        bb[:, 2] = c + o[:, 3:]
+        out = place_sc_from_bb_native(bb, m.res_code, m.sc_codes,
+                                      m.first_residue)
+        if out is None:
+            raise RuntimeError("bb wire requires the native library")
+        return out
     off, ca = outs_np
     # one contiguous 84 B row per residue; [42] is (k, c)-major so the
     # reshape lands directly on [14, 3]
@@ -397,8 +423,9 @@ def _assemble_protein(a14, meta, use_alt_order: bool = False):
 
 
 def _format_batch(fczs, metas, outs_np, use_alt_order, pool=None):
-    """Yields (payload, PDB text) per protein from the host (off, ca)
-    rows, through the native formatter when the library is present."""
+    """Yields (payload, PDB text) per protein from the host decode output
+    (either wire's, see _gather_a14), through the native formatter when
+    the library is present."""
     try:
         from ..native import format_atom14_native, get_lib
         have_native = get_lib() is not None

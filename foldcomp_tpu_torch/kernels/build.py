@@ -2,12 +2,12 @@
 bound with ctypes.
 
 The library is compiled on first use from every csrc/*.cu source
-(fused_decode.cu: k1-k3, fused_encode.cu: k4) into kernels/build/, named by
-a hash of the sources and the flags, so an edited source or flag set builds
-a new library and never loads a stale one. One nvcc per source runs at
-once, then one link. The build writes to temporary names and renames the
-library into place, so processes that build at once do not see each
-other's half-written file.
+(fused_decode.cu: k1-k3 and the bb wire's epilogue, fused_encode.cu: k4)
+into kernels/build/, named by a hash of the sources and the flags, so an
+edited source or flag set builds a new library and never loads a stale
+one. One nvcc per source runs at once, then one link. The build writes to
+temporary names and renames the library into place, so processes that
+build at once do not see each other's half-written file.
 
 Flags: sm_90a (Hopper), -O3, and -fmad=false with no --use_fast_math, so
 the float operation order of the JAX reference holds (no contraction into
@@ -115,10 +115,13 @@ def _bind(lib):
     lib.fd_set_tables.argtypes = [vp, vp, vp, vp, ci, ci]
     lib.fd_tails.argtypes = [vp] * 8 + [ci, ci, vp]
     lib.fd_backbone.argtypes = [vp] * 16 + [ci, ci, vp]
+    lib.fd_backbone_bb.argtypes = [vp] * 16 + [ci, ci, ci, vp]
+    lib.fd_bb_out.argtypes = [vp] * 7 + [ci, ci, ci, vp]
     lib.fd_sidechain.argtypes = [vp] * 8 + [ci, ci, ci, vp]
     lib.fe_merged.argtypes = [vp] * 13 + [ctypes.c_float, ci, ci, vp]
     for fn in (lib.fd_set_tables, lib.fd_tails, lib.fd_backbone,
-               lib.fd_sidechain, lib.fe_merged):
+               lib.fd_backbone_bb, lib.fd_bb_out, lib.fd_sidechain,
+               lib.fe_merged):
         fn.restype = ci
     return lib
 

@@ -1,26 +1,30 @@
 // Fused ragged-lane decode for Hopper (sm_90a): k1 tails, k2 backbone,
-// k3 side chains.
+// k3 side chains, and the bb wire's epilogue.
 //
-// Replaces the three Pallas TPU kernels of
-// foldcomp_tpu/kernels/pallas_decode.py:
+// Replaces the three Pallas TPU decode kernels and their bb-wire call site
+// in foldcomp_tpu/kernels/pallas_decode.py:
 //   k1 fd_tails      <- _make_tails_kernel      (pallas_decode.py:186)
 //   k2 fd_backbone   <- _make_backbone_kernel   (pallas_decode.py:227),
 //                       with the seed roll of :596-610 and the N-CA
 //                       lengths of _class_prep (:405-437)
 //   k3 fd_sidechain  <- _make_sidechain_kernel  (pallas_decode.py:338)
+//   fd_backbone_bb   <- _run_backbone_only      (pallas_decode.py:529):
+//                       k2, then its XLA epilogue as k2_bb_out
 // Each computes what the Pallas kernel computes; the plain PyTorch
 // versions beside them (fused_decode.py tails_plain / backbone_rolled_plain
-// / sidechain_plain) are the oracle, bit for bit on the rows a lane owns.
+// / sidechain_plain / bb_epilogue_plain) are the oracle, bit for bit on the
+// rows a lane owns.
 //
 // Layouts are the pack's lane-minor ones (codec/batch.py
 // pack_decode_batch_lanes): row-major [rows, NL]. k1 and k2 take one
 // thread per lane in the order lane_order gives (by row count, longest
 // first), so that a warp's lanes have one length; k2 stages its rows at
-// the thread's column and copies them to the lane's (k2_copy_out); k3
-// walks groups of 32 neighbouring lanes. Each walks a lane's own rows
-// only (r < tat = 3*seg_m); the rest is pack padding and is left
-// unwritten. On an H100 at B=8192 (PERF.md §6) k2 takes ~0.42 ms, of
-// which the copy ~0.15; k1, the forward alone, runs near the issue rate.
+// the thread's column and copies them to the lane's (k2_copy_out), or on
+// the bb wire turns them into 24 B rows (k2_bb_out); k3 walks groups of
+// 32 neighbouring lanes. Each walks a lane's own rows only (r < tat =
+// 3*seg_m); the rest is pack padding and is left unwritten. On an H100 at
+// B=8192 (PERF.md §6) k2 takes ~0.42 ms, of which the copy ~0.14 and
+// k2_bb_out ~0.13; k1, the forward alone, runs near the issue rate.
 //
 // Float rules (nvcc -fmad=false, no --use_fast_math; build.py):
 //  - no FMA contraction, so every expression rounds in the JAX order;
@@ -444,6 +448,87 @@ k2_copy_out(const float* __restrict__ sx, const float* __restrict__ sy,
   }
 }
 
+// k2's bb-wire epilogue (the XLA epilogue of _run_backbone_only,
+// pallas_decode.py:561-570), reading k2_backbone's staged rows in place of
+// k2_copy_out: residue s < seg_m[l] of lane l < nl_out, rows 3s (N), 3s+1
+// (CA), 3s+2 (C) at the scratch column pos[l], becomes
+//   off[l, s, 0:3] = clip(rint((N - CA) * 10000)), off[l, s, 3:6] the same
+//   for C, as int16 (0.1 mA offsets from CA), and ca[l, s, :] = CA,
+// 24 B a residue in [NL_out, SEG, 6] / [NL_out, SEG, 3]. Pad rows and
+// lanes are left unwritten, as k3 leaves them.
+//
+// A block takes KB_TL = 32 neighbouring lanes and walks their residues
+// KB_TS at a time, one thread per (lane, residue): a warp reads one row of
+// its 32 lanes at their staging columns (neighbouring lanes of one length
+// have neighbouring columns, lane_order being stable), stages the finished
+// rows in shared memory in the output's order, and the block then stores
+// each lane's run of up to KB_TS rows (KB_TS * 12 B of each output) as
+// whole words. Bound: bytes, 36 B in and 24 B out a residue; on an H100
+// at B=8192 it moves 254.8 MB in ~0.127 ms, 60% of that bound (PERF.md
+// §6).
+#define KB_TL 32
+#define KB_TS 8
+#define KB_W (3 * KB_TS + 1)  // words a lane in the stage; odd: no conflicts
+
+__global__ void __launch_bounds__(KB_TL * KB_TS)
+k2_bb_out(const float* __restrict__ sx, const float* __restrict__ sy,
+          const float* __restrict__ sz, const int* __restrict__ pos,
+          const int* __restrict__ seg_m, int16_t* __restrict__ off,
+          float* __restrict__ ca, int seg, int nl, int nl_out) {
+  __shared__ uint32_t s_off[KB_TL * KB_W];
+  __shared__ float s_ca[KB_TL * KB_W];
+  __shared__ int s_rows[KB_TL];
+  const int tl = threadIdx.x % KB_TL, ts = threadIdx.x / KB_TL;
+  const int l0 = blockIdx.x * KB_TL, l = l0 + tl;
+  const int rows = l < nl_out ? min(seg_m[l], seg) : 0;
+  if (ts == 0) s_rows[tl] = rows;
+  int most = rows;  // the most rows of the block's lanes, in every warp
+#pragma unroll
+  for (int o = KB_TL / 2; o > 0; o >>= 1)
+    most = max(most, __shfl_xor_sync(0xffffffffu, most, o));
+  const int p = rows > 0 ? pos[l] : 0;
+  for (int s0 = 0; s0 < most; s0 += KB_TS) {
+    const int s = s0 + ts;
+    __syncthreads();  // s_rows is set; the previous run's stores are done
+    if (s < rows) {
+      const V3 n = get_row(sx, sy, sz, 3 * s, nl, p);
+      const V3 a = get_row(sx, sy, sz, 3 * s + 1, nl, p);
+      const V3 c = get_row(sx, sy, sz, 3 * s + 2, nl, p);
+      const float d[6] = {n.x - a.x, n.y - a.y, n.z - a.z,
+                          c.x - a.x, c.y - a.y, c.z - a.z};
+      uint32_t q[3];
+#pragma unroll
+      for (int w = 0; w < 3; ++w) {
+        const float v0 =
+            fminf(fmaxf(rintf(d[2 * w] * 10000.0f), -32767.0f), 32767.0f);
+        const float v1 = fminf(
+            fmaxf(rintf(d[2 * w + 1] * 10000.0f), -32767.0f), 32767.0f);
+        q[w] = (uint32_t)(uint16_t)(int16_t)v0 |
+               ((uint32_t)(uint16_t)(int16_t)v1 << 16);
+      }
+      uint32_t* so = s_off + tl * KB_W + 3 * ts;
+      float* sc = s_ca + tl * KB_W + 3 * ts;
+      so[0] = q[0];
+      so[1] = q[1];
+      so[2] = q[2];
+      sc[0] = a.x;
+      sc[1] = a.y;
+      sc[2] = a.z;
+    }
+    __syncthreads();
+    // lane lc's rows s0 .. s0 + n - 1: 3n words of each output, one run
+    for (int i = threadIdx.x; i < KB_TL * 3 * KB_TS; i += blockDim.x) {
+      const int lc = i / (3 * KB_TS), j = i - lc * (3 * KB_TS);
+      const int n = min(max(s_rows[lc] - s0, 0), KB_TS);
+      if (j < 3 * n) {
+        const size_t dst = ((size_t)(l0 + lc) * seg + s0) * 3 + j;
+        reinterpret_cast<uint32_t*>(off)[dst] = s_off[lc * KB_W + j];
+        ca[dst] = s_ca[lc * KB_W + j];
+      }
+    }
+  }
+}
+
 // k3's tables, derived on the card from the __constant__ ones by
 // k3_tables (launched by fd_set_tables, once per device) and copied into
 // shared memory once by each persistent k3 block. Each value is computed
@@ -794,6 +879,35 @@ cudaError_t fd_backbone(const uint8_t* recs, const float* tails9,
   k2_copy_out<<<dim3(blocks_for(nl, 256), seg), 256, 0, stream>>>(
       sx, sy, sz, pos, tat, ox, oy, oz, seg, nl);
   return cudaGetLastError();
+}
+
+// k2_bb_out alone, on rows k2_backbone staged in sx, sy, sz at the columns
+// pos: off [NL_out, SEG, 6] int16, ca [NL_out, SEG, 3] float.
+cudaError_t fd_bb_out(const float* sx, const float* sy, const float* sz,
+                      const int* pos, const int* seg_m, int16_t* off,
+                      float* ca, int seg, int nl, int nl_out,
+                      cudaStream_t stream) {
+  k2_bb_out<<<blocks_for(nl_out, KB_TL), KB_TL * KB_TS, 0, stream>>>(
+      sx, sy, sz, pos, seg_m, off, ca, seg, nl, nl_out);
+  return cudaGetLastError();
+}
+
+// The bb wire: k2_backbone as fd_backbone runs it, then k2_bb_out in place
+// of k2_copy_out, on the stream.
+cudaError_t fd_backbone_bb(const uint8_t* recs, const float* tails9,
+                           const float* fwd9, const uint8_t* is_first,
+                           const float* ranc, const int* tat,
+                           const float* mins6, const float* cont6,
+                           const int* order, const int* seg_m, int16_t* off,
+                           float* ca, float* sx, float* sy, float* sz,
+                           int* pos, int seg, int nl, int nl_out,
+                           cudaStream_t stream) {
+  k2_backbone<<<blocks_for(nl, 128), 128, 0, stream>>>(
+      recs, tails9, fwd9, is_first, ranc, tat, mins6, cont6, order, sx, sy,
+      sz, pos, seg, nl);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  return fd_bb_out(sx, sy, sz, pos, seg_m, off, ca, seg, nl, nl_out, stream);
 }
 
 // k3 on a persistent grid: as many blocks as fit on the device at once,

@@ -1,18 +1,19 @@
 """Fused ragged-lane decode: k1 tails, k2 backbone (the seed roll
-inside), k3 side chains.
+inside), k3 side chains, or on the bb wire k2's 24-byte epilogue.
 
 Counterpart of foldcomp_tpu/kernels/pallas_decode.py `decode_seg_fused`
-(full wire): the same inputs (the arrays of codec/batch.py
-pack_decode_batch_lanes) and the same output contract. Each kernel has
+(wire "full" and "bb"): the same inputs (the arrays of codec/batch.py
+pack_decode_batch_lanes) and the same output contracts. Each kernel has
 
 - a plain PyTorch version (`*_plain`), operation for operation the Pallas
-  kernel's math: the CPU path and the CUDA kernel's oracle;
-- a wrapper (`tails`, `backbone`, `sidechain`) that runs the plain
-  version for CPU tensors, and for CUDA tensors checks its inputs and
-  launches the hand-written kernel of csrc/fused_decode.cu, or raises.
-  There is no fallback from a CUDA tensor to the plain version;
-- a launch counter (K1_LAUNCHES, K2_LAUNCHES, K3_LAUNCHES), raised by one
-  where the wrapper launches its kernel and nowhere else.
+  kernel's math (the bb epilogue: the XLA epilogue's): the CPU path and
+  the CUDA kernel's oracle;
+- a wrapper (`tails`, `backbone`, `backbone_only`, `sidechain`) that runs
+  the plain version for CPU tensors, and for CUDA tensors checks its
+  inputs and launches the hand-written kernel of csrc/fused_decode.cu, or
+  raises. There is no fallback from a CUDA tensor to the plain version;
+- a launch counter (K1_LAUNCHES, K2_LAUNCHES, K2BB_LAUNCHES, K3_LAUNCHES),
+  raised by one where the wrapper launches its kernel and nowhere else.
 
 Layouts are lane-minor ([rows, NL]) as in the pack. Nothing here needs
 autograd or randomness.
@@ -28,6 +29,7 @@ F32 = torch.float32
 
 K1_LAUNCHES = 0
 K2_LAUNCHES = 0
+K2BB_LAUNCHES = 0
 K3_LAUNCHES = 0
 
 _C_TO_N = float(T.C_TO_N)
@@ -38,12 +40,13 @@ _SC_MIN = float(T.SC_MIN)
 
 
 def reset_launch_counts() -> None:
-    global K1_LAUNCHES, K2_LAUNCHES, K3_LAUNCHES
-    K1_LAUNCHES = K2_LAUNCHES = K3_LAUNCHES = 0
+    global K1_LAUNCHES, K2_LAUNCHES, K2BB_LAUNCHES, K3_LAUNCHES
+    K1_LAUNCHES = K2_LAUNCHES = K2BB_LAUNCHES = K3_LAUNCHES = 0
 
 
 def launch_counts() -> dict:
-    return {"k1": K1_LAUNCHES, "k2": K2_LAUNCHES, "k3": K3_LAUNCHES}
+    return {"k1": K1_LAUNCHES, "k2": K2_LAUNCHES, "k2_bb": K2BB_LAUNCHES,
+            "k3": K3_LAUNCHES}
 
 
 # ---------------------------------------------------------------------------
@@ -215,6 +218,25 @@ def backbone_rolled_plain(recs, tails9, fwd9, is_first, ranc, tat, mins6,
                           cont6)
 
 
+def bb_epilogue_plain(bx, by, bz, nl_out=None):
+    """The bb wire's epilogue (_run_backbone_only, pallas_decode.py:561-570)
+    on backbone rows [3*SEG, NL] x3: off i16 [NL_out, SEG, 6], N and C as
+    0.1 mA offsets from CA (round(d * 10000) clipped to +-32767), and ca
+    f32 [NL_out, SEG, 3]."""
+    t, nl = bx.shape
+    seg = t // 3
+    nlo = nl if nl_out is None else min(int(nl_out), nl)
+    bb = torch.stack([b[:, :nlo].reshape(seg, 3, nlo) for b in (bx, by, bz)],
+                     dim=2)                               # [SEG, atom, c, L]
+    bb_t = bb.permute(3, 0, 1, 2)                         # [L, SEG, atom, c]
+    ca = bb_t[:, :, 1]
+    off = torch.cat([bb_t[:, :, 0], bb_t[:, :, 2]], dim=2) \
+        - torch.cat([ca, ca], dim=2)
+    off = torch.clamp(torch.round(off * 10000.0), -32767.0, 32767.0) \
+        .to(torch.int16)
+    return off.contiguous(), ca.contiguous()
+
+
 def sidechain_plain(bx, by, bz, code, sct, nl_out=None):
     """k3: side chains + compact wire (_make_sidechain_kernel,
     pallas_decode.py:338-393) with the 32-code table lookup of
@@ -341,6 +363,40 @@ def tails(recs, seed, ranc, tat, mins6, cont6, order=None):
     return out
 
 
+def _k2_inputs(recs, tails9, fwd9, is_first, ranc, tat, mins6, cont6,
+               order):
+    """Check k2's lane inputs (tails9 None: refine_iters 1, k2 reads fwd9
+    alone) -> (library, order, SEG, NL); order None is lane_order(tat)."""
+    lib = _cuda_lib(recs)
+    if order is None:
+        order = lane_order(tat)
+    if tails9 is None:
+        seg, nl = _check_lane_inputs(recs, ranc, tat, mins6, cont6, order,
+                                     {"fwd9": fwd9})
+    else:
+        seg, nl = _check_lane_inputs(recs, ranc, tat, mins6, cont6, order,
+                                     {"tails9": tails9, "fwd9": fwd9},
+                                     is_first)
+    return lib, order, seg, nl
+
+
+def _launch_k2(fn, name, lane_args, order, outs, seg, nl, *sizes):
+    """Launch a k2 launcher (fd_backbone, fd_backbone_bb): k2_backbone
+    into staging planes at each thread's column, then its second kernel
+    from them into outs (the launcher's tensors between order and the
+    staging planes). The staging planes and each lane's staging column are
+    freed on return, when both kernels are queued: their memory is reused
+    only by work ordered after them on the stream."""
+    recs, tails9, fwd9, is_first, ranc, tat, mins6, cont6 = lane_args
+    dev = recs.device
+    scratch = tuple(torch.empty((3 * seg, nl), dtype=F32, device=dev)
+                    for _ in range(3))
+    pos = torch.empty((nl,), dtype=torch.int32, device=dev)
+    _launch(fn, name, dev,
+            *_ptrs(recs, tails9, fwd9, is_first, ranc, tat, mins6, cont6,
+                   order.perm, *outs, *scratch, pos), seg, nl, *sizes)
+
+
 def backbone(recs, tails9, fwd9, is_first, ranc, tat, mins6, cont6,
              order=None):
     """k2 -> blended backbone rows [3*SEG, NL] x3.
@@ -358,30 +414,45 @@ def backbone(recs, tails9, fwd9, is_first, ranc, tat, mins6, cont6,
     if recs.device.type == "cpu":
         return backbone_rolled_plain(recs, tails9, fwd9, is_first, ranc,
                                      tat, mins6, cont6)
-    lib = _cuda_lib(recs)
-    if order is None:
-        order = lane_order(tat)
-    if tails9 is None:      # refine_iters 1: k2 reads fwd9 alone
-        seg, nl = _check_lane_inputs(recs, ranc, tat, mins6, cont6, order,
-                                     {"fwd9": fwd9})
-    else:
-        seg, nl = _check_lane_inputs(recs, ranc, tat, mins6, cont6, order,
-                                     {"tails9": tails9, "fwd9": fwd9},
-                                     is_first)
-    dev = recs.device
-    outs = tuple(torch.empty((3 * seg, nl), dtype=F32, device=dev)
+    lane_args = (recs, tails9, fwd9, is_first, ranc, tat, mins6, cont6)
+    lib, order, seg, nl = _k2_inputs(*lane_args, order)
+    outs = tuple(torch.empty((3 * seg, nl), dtype=F32, device=recs.device)
                  for _ in range(3))
     if nl and seg:
-        # staging planes and each lane's staging column; freed on return,
-        # their memory is reused only by work ordered after k2 on the stream
-        scratch = tuple(torch.empty((3 * seg, nl), dtype=F32, device=dev)
-                        for _ in range(3))
-        pos = torch.empty((nl,), dtype=torch.int32, device=dev)
-        _launch(lib.fd_backbone, "k2 backbone", dev,
-                *_ptrs(recs, tails9, fwd9, is_first, ranc, tat, mins6, cont6,
-                       order.perm, *outs, *scratch, pos), seg, nl)
+        _launch_k2(lib.fd_backbone, "k2 backbone", lane_args, order, outs,
+                   seg, nl)
         K2_LAUNCHES += 1
     return outs
+
+
+def backbone_only(recs, tails9, fwd9, is_first, ranc, tat, mins6, cont6,
+                  seg_m, nl_out=None, order=None):
+    """k2 and the bb wire's epilogue -> (off i16 [NL_out, SEG, 6], ca f32
+    [NL_out, SEG, 3]): N and C as 0.1 mA offsets from CA, 24 B a residue
+    (_run_backbone_only, pallas_decode.py:529-571).
+
+    Inputs and seeds as for `backbone`; seg_m (i32 [NL]) the lanes'
+    residue counts. On a CUDA device k2_backbone stages the rows and
+    k2_bb_out writes rows s < seg_m[l] of lanes l < nl_out from them; the
+    other rows of a CUDA result are unspecified. Counted as a launch of k2
+    and of k2_bb. The plain version on the CPU computes every row."""
+    global K2_LAUNCHES, K2BB_LAUNCHES
+    if recs.device.type == "cpu":
+        return bb_epilogue_plain(*backbone_rolled_plain(
+            recs, tails9, fwd9, is_first, ranc, tat, mins6, cont6), nl_out)
+    lane_args = (recs, tails9, fwd9, is_first, ranc, tat, mins6, cont6)
+    lib, order, seg, nl = _k2_inputs(*lane_args, order)
+    dev = recs.device
+    _check("seg_m", seg_m, torch.int32, (nl,), dev)
+    nlo = nl if nl_out is None else min(int(nl_out), nl)
+    off = torch.empty((nlo, seg, 6), dtype=torch.int16, device=dev)
+    ca = torch.empty((nlo, seg, 3), dtype=F32, device=dev)
+    if nlo and seg:
+        _launch_k2(lib.fd_backbone_bb, "k2 backbone bb", lane_args, order,
+                   (seg_m, off, ca), seg, nl, nlo)
+        K2_LAUNCHES += 1
+        K2BB_LAUNCHES += 1
+    return off, ca
 
 
 def sidechain(bx, by, bz, code, sct, nl_out=None, seg_m=None):
@@ -423,23 +494,30 @@ def sidechain(bx, by, bz, code, sct, nl_out=None, seg_m=None):
 
 def decode_seg_fused(seg_records, mins_lane, cont_lane, sc_codes_seg,
                      fwd9, rev9, is_first, seg_m, refine_iters: int = 2,
-                     nl_out: int | None = None):
+                     nl_out: int | None = None, wire: str = "full"):
     """Fused ragged-lane decode of pack_decode_batch_lanes tensors.
 
-    Returns per-lane compact rows (off i16 [NL, SEG, 42], ca f32
-    [NL, SEG, 3]), sliced to nl_out lanes: row [42] is the residue's
-    [14, 3] milli-angstrom offsets from its CA. Rows s >= seg_m[l] are pack
-    padding; on a CUDA device they are left unspecified. The tensors'
-    device picks the path: CUDA kernels on a CUDA device, the plain
-    versions on the CPU. k1 and k2 walk the lanes in lane_order; k2 takes
-    k1's tails, fwd9 and is_first and rolls the seeds itself."""
+    wire "full" returns per-lane compact rows (off i16 [NL, SEG, 42], ca
+    f32 [NL, SEG, 3]), sliced to nl_out lanes: row [42] is the residue's
+    [14, 3] milli-angstrom offsets from its CA. wire "bb" skips the side
+    chains and returns backbone_only's (off i16 [NL, SEG, 6], ca f32
+    [NL, SEG, 3]): N and C as 0.1 mA offsets from CA. Rows s >= seg_m[l]
+    are pack padding; on a CUDA device they are left unspecified. The
+    tensors' device picks the path: CUDA kernels on a CUDA device, the
+    plain versions on the CPU. k1 and k2 walk the lanes in lane_order; k2
+    takes k1's tails, fwd9 and is_first and rolls the seeds itself."""
+    if wire not in ("full", "bb"):
+        raise ValueError(f"wire {wire!r}: expected 'full' or 'bb'")
     pr = class_prep(seg_records, mins_lane, cont_lane, sc_codes_seg,
                     fwd9, rev9, seg_m)
     order = lane_order(pr["tat"])
     rest = (pr["rev9"], pr["tat"], pr["mins6"], pr["cont6"])
     tails9 = tails(pr["recs"], pr["fwd9"], *rest, order=order) \
         if refine_iters >= 2 else None
+    seg_m = seg_m.to(torch.int32).contiguous()
+    if wire == "bb":
+        return backbone_only(pr["recs"], tails9, pr["fwd9"], is_first, *rest,
+                             seg_m, nl_out, order=order)
     bx, by, bz = backbone(pr["recs"], tails9, pr["fwd9"], is_first, *rest,
                           order=order)
-    return sidechain(bx, by, bz, pr["code"], pr["sct"], nl_out,
-                     seg_m=seg_m.to(torch.int32).contiguous())
+    return sidechain(bx, by, bz, pr["code"], pr["sct"], nl_out, seg_m=seg_m)

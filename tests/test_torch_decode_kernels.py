@@ -250,7 +250,13 @@ def test_wrappers_run_plain_on_cpu_without_launching(corpus):
     for a, b in zip(FD.sidechain(*bb, prep["code"], prep["sct"], 512),
                     FD.sidechain_plain(*bb, prep["code"], prep["sct"], 512)):
         assert torch.equal(a, b)
-    assert FD.launch_counts() == {"k1": 0, "k2": 0, "k3": 0}
+    seg_m = (prep["tat"] // 3).to(torch.int32)
+    for a, b in zip(FD.backbone_only(prep["recs"], tails9, prep["fwd9"],
+                                     corpus["ta"]["is_first"], *lane, seg_m,
+                                     512),
+                    FD.bb_epilogue_plain(*bb, 512)):
+        assert torch.equal(a, b)
+    assert FD.launch_counts() == {"k1": 0, "k2": 0, "k2_bb": 0, "k3": 0}
 
 
 def test_wrappers_refuse_other_devices():

@@ -4,14 +4,15 @@ host layers give the same results as the originals.
 Independence, shown mechanically: an AST scan of every module of the port
 and of chip_smoke.py for an import of foldcomp_tpu or JAX at any depth, and
 a subprocess whose import system refuses foldcomp_tpu and JAX while the
-port's CLI runs its seven modes on the CPU.
+port's CLI runs its seven modes on the CPU, and `decompress --fast` on the
+backbone-only wire as well.
 
 Copy fidelity: on a seeded synthetic corpus at tests/test_wclass.py scale
 (lengths 26-240), each copied stage against its foldcomp_tpu original, down
 to the byte: the FCZ serializer and parser, the exact encoder and decoder,
-the PDB writer, the ragged-lane pack, the device-encode parse and host
-finish, the database writer, verify's synthetic structures, and the CLI's
-exact routes.
+the PDB writer, the ragged-lane pack, the bb wire's host stitch, the
+device-encode parse and host finish, the database writer, verify's
+synthetic structures, and the CLI's exact routes.
 """
 import ast
 import os
@@ -86,8 +87,11 @@ _BLOCKED_RUN = textwrap.dedent("""
         ["extract", "--plddt", "fcz_dir", "plddt.txt"],
         ["check", "fcz_dir"],
         ["rmsd", "pdbs/p0.pdb", "pdb_dir/p0.pdb"],
+        ["decompress", "--fast", "db_fast", "pdb_fast_bb", "--db"],
     ]
-    for argv in runs:
+    for i, argv in enumerate(runs):
+        if i == 7:      # the last run takes the backbone-only wire
+            os.environ["FOLDCOMP_TPU_WIRE"] = "bb"
         out = io.StringIO()
         with contextlib.redirect_stdout(out):
             rc = cli.main(argv)
@@ -123,8 +127,9 @@ def test_port_imports_nothing_of_foldcomp_tpu(case, tmp_path):
     r = subprocess.run([sys.executable, "-c", _BLOCKED_RUN, str(tmp_path)],
                        env=env, capture_output=True, text=True, timeout=600)
     assert r.returncode == 0, r.stdout + r.stderr
-    assert r.stdout.count(" ok ") == 7, r.stdout
+    assert r.stdout.count(" ok ") == 8, r.stdout
     assert len(list((tmp_path / "pdb_dir").iterdir())) == 3
+    assert (tmp_path / "pdb_fast_bb").exists()
 
 
 @pytest.fixture(scope="module")
@@ -203,9 +208,20 @@ def _fidelity_case(case, corpus, tmp_path):
             want = tpu_batch.pack_decode_batch_lanes(fczs, native=native)
             _assert_same(got[0], want[0], f"arrays native={native}")
             for gm, wm in zip(got[1], want[1]):
-                _assert_same({k: v for k, v in vars(gm).items()},
-                             {k: v for k, v in vars(wm).items()
-                              if k != "sc_codes"}, "meta")
+                _assert_same(vars(gm), vars(wm), "meta")
+    elif case == "gather_a14_bb":
+        # the bb wire's host stitch: the same host ("bb", off, ca) rows and
+        # metas through both copies
+        from foldcomp_tpu_torch.codec import batch as port_dev
+        arrays, metas = port_dev.pack_decode_wire(fczs, bb_wire=True)
+        outs = port_dev._outs_to_host(port_dev._seg_decode_arrays(
+            port_dev.arrays_to_torch(arrays, "cpu")))
+        assert outs[0] == "bb" and outs[1].shape[2] == 6
+        for m, f in zip(metas, fczs):
+            assert m.sc_codes.tobytes() == \
+                np.asarray(f.sc_codes, np.uint8).tobytes()
+            _assert_same(port_batch._gather_a14(outs, m),
+                         tpu_batch._gather_a14(outs, m))
     elif case == "encode_pdb_device":
         for a in structs:
             text = tpu_pdb.format_pdb(a, "x").encode()
@@ -270,7 +286,8 @@ def _fidelity_case(case, corpus, tmp_path):
 
 @pytest.mark.parametrize("case", [
     "fcz_serialize_parse", "exact_encode", "exact_decode", "format_pdb",
-    "pack_decode_batch_lanes", "encode_pdb_device", "finish_encode_device",
+    "pack_decode_batch_lanes", "gather_a14_bb", "encode_pdb_device",
+    "finish_encode_device",
     "database", "synthesize", "cli_compress", "cli_db_to_db", "cli_extract"])
 def test_copy_matches_foldcomp_tpu(case, corpus, tmp_path):
     _fidelity_case(case, corpus, tmp_path)
