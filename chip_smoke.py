@@ -9,7 +9,7 @@ non-zero:
 
 1. setup: the card, the toolchain, and the build of the CUDA kernels
    (kernels/csrc/fused_decode.cu and fused_encode.cu, one nvcc each, then
-   one link) from this checkout;
+   one link) from this checkout, with each kernel's ptxas report;
 2. kernels: k1, k2 and k3 against their plain PyTorch versions on the
    card, on the same inputs: a mixed batch of 512 entries (refine_iters 1
    and 2), a corpus with segments wider than 96 residues, and one packed
@@ -37,18 +37,23 @@ non-zero:
 6. main path: the same CLI entry point in this process with the kernel
    launch counters reset just before and read just after; each kernel
    must have launched;
-7. encode_kernels: k4 against its plain version on the same inputs: a
-   mixed 256-entry batch of the 8 lengths by the compact wire and by the
-   f32 loader, a batch longer than 1536 residues, degenerate frames.
-   Cosines and bits bit-equal, relt/relb within 4 ulp (rsqrtf), the
-   epilogue's outputs identical;
+7. encode_kernels: the fused encode kernel (k4 with the epilogue) against
+   its plain version, parity_tail(merged_plain(...)), on the same inputs:
+   a mixed 256-entry batch of the 8 lengths by the compact wire, by the
+   f32 loader and with the staging forced into the global scratch, a batch
+   longer than 1536 residues, degenerate frames, and proteins of 6,200
+   residues, whose staging takes the global scratch. Its five outputs
+   bit-equal on every slot. Then the kernel's acos against torch.arccos on
+   every float32 in [-1, 1]: 0 mismatches;
 8. encode_parity: the port's batched encode against the exact encoder,
    FCZ bytes identical for every entry of a fuzz corpus (8 lengths x 3
    seeds, n_res < 4, degenerate and off-grid frames), with the share of
    values flagged for host rescue;
 9. encode_device: one CLI batch, B=2048 entries of the 8 lengths packed
-   by the native wire: pack and H2D seconds, k4 against its plain
-   version, the epilogue and the whole device encode by CUDA events;
+   by the native wire: pack and H2D seconds; the fused kernel, with the
+   staging in shared memory and in the global scratch, against its plain
+   version, and the whole device encode, by CUDA events; the device
+   encode's kernels by torch.profiler; the CLI's host stages;
 10. e2e_compress: `python -m foldcomp_tpu_torch compress --fast <dir>
    <db> --db` on 4096 PDB files in a subprocess, timed; every entry
    byte-identical by name to the port's exact route's (`python -m
@@ -81,6 +86,7 @@ device or outside a checkout of the repository.
     python3 chip_smoke.py --quick       phases 1, 2, 4 and phase 11's
                                         kernel checks and device timings,
                                         no last line
+    python3 chip_smoke.py --encode      phases 1, 7 and 9, no last line
     python3 chip_smoke.py --ptxas F.cu  also the ptxas report of another
                                         source (an older k3, say) in phase 1
 """
@@ -108,13 +114,11 @@ REPLACES = {"k1": "foldcomp_tpu/kernels/pallas_decode.py:186",
             "k2": "foldcomp_tpu/kernels/pallas_decode.py:227",
             "k2_bb": "foldcomp_tpu/kernels/pallas_decode.py:529",
             "k3": "foldcomp_tpu/kernels/pallas_decode.py:338",
-            "k4": "foldcomp_tpu/kernels/pallas_encode.py:147"}
+            "k4": "foldcomp_tpu/kernels/pallas_encode.py:147 + :370-432"}
 NAMES = {"k1": "k1_tails", "k2": "k2_backbone", "k2_bb": "k2_bb_out",
-         "k3": "k3_sidechain", "k4": "k4_merged_encode"}
+         "k3": "k3_sidechain", "k4": "k4_fused_encode"}
 # the bb wire's offsets: 0.1 mA units
 BB_UNIT_A = 1e-4
-# relt/relb use rsqrtf, as the JAX kernel uses lax.rsqrt
-TOL_REL_ULP = 4
 # one H100 SXM's published peaks (NVIDIA's data sheet, at a 700 W limit):
 # HBM bytes/s and float32 operations/s outside the tensor cores
 PEAK_BYTES_S = 3.35e12
@@ -153,10 +157,22 @@ DECODE_WORK = {
     "k3": {"residue": (36 + 4 + 11 + 84 + 12, 11 * 66 + 42 * 5),
            "step": (0, 0), "lane": (0, 0)},
 }
-# k4 (fused_encode.cu): 6 double-f32 cosines (a division, a square root
-# and ~20 operations each), 11 side-chain cosines (~25 each), the rescue
-# bounds and the division of the millimetre grid, per residue
-K4_FLOPS_PER_RES = 6 * 40 + 11 * 25 + 120
+# The fused encode kernel (fused_encode.cu k4_fused_encode), float
+# operations a real residue, counted from its code (an acosf, rsqrtf,
+# sqrtf, floorf, rintf or division counts as one): the correctly rounded
+# /1000 of 42 coordinates (21 each; the compact loader only), 3 torsion
+# cosines with their bits (131 each: 64 for the cross products and sums,
+# 54 for the double-f32 quotient), 3 bond cosines (83), 15 backbone
+# differences and 9 negations, the angle and error budget of 3 torsion
+# and 3 bond streams (28, 24), 11 side-chain dihedral cosines with their
+# quantization (61 + 25), and per stream the two reduction sweeps (8 + 6)
+# and the quantization sweep (29). Bytes: each input read once for the
+# real residues (the wire, the code, n_res), each output written once for
+# every slot of [B, L] (24 B: the padding slots are outputs too).
+K4_FLOPS_PER_RES = {"wire": 42 * 21, "cosines": 3 * 131 + 3 * 83 + 24,
+                    "tails": 3 * 28 + 3 * 24, "side_chains": 11 * (61 + 25),
+                    "sweeps": 6 * (8 + 6 + 29)}
+K4_OUT_BYTES_PER_SLOT = 8 + 1 + 2 + 11 + 2
 ENC_BATCH = 2048        # one CLI batch (cli.FAST_BATCH)
 E2E_FILES = 4096
 
@@ -180,8 +196,10 @@ def ptxas_report(log):
             cur = next((k for k in ("k1_tails", "k2_backbone",
                                     "k2_copy_out", "k2_bb_out",
                                     "k3_sidechain", "k3_tables",
-                                    "k4_merged")
+                                    "k4_fused_encode", "k4_acos")
                         if k in m.group(1)), m.group(1))
+            if cur == "k4_fused_encode":     # the template's two loaders
+                cur += "_f32" if "ILb1E" in m.group(1) else "_wire"
             out.setdefault(cur, {})
             continue
         if cur is None:
@@ -276,10 +294,11 @@ def per_device_check():
     """decode_seg_fused through the kernels against the plain versions on
     each visible CUDA device, the last device first, after device 0 has
     loaded the library: __constant__ tables are per device, and a device
-    that decodes before its tables are set gets zeros. Then k4 against
-    merged_plain on a small compact batch, by both loaders, with the gates
-    of phase 7 (k4's predecessor table is a per-device tensor). -> one dict
-    per device with the maxima; raises past the tolerances."""
+    that decodes before its tables are set gets zeros. Then the fused
+    encode against fused_plain on a small compact batch, by both loaders,
+    with the gate of phase 7 (its predecessor table is a per-device
+    tensor). -> one dict per device with the maxima; raises past the
+    tolerances."""
     import torch
 
     from foldcomp_tpu_torch import verify
@@ -313,17 +332,17 @@ def per_device_check():
         if not (d_off <= TOL_I16 and d_ca <= TOL_A):
             raise AssertionError(f"cuda:{idx} kernels vs plain: off {d_off} "
                                  f"units, ca {d_ca} A")
-        # k4 and its per-card predecessor table, both loaders
+        # the fused encode and its per-card predecessor table, both loaders
         bt = pack_batch(enc, dev)
         out[-1]["k4_max_abs"] = 0.0
         for loader in ("wire", "atom14"):
             arg = {loader: bt[loader]}
-            _, _, bad, worst = hold_k4(f"cuda:{idx} {loader}",
-                                       FE.merged(bt["code"], **arg),
-                                       FE.merged_plain(bt["code"], **arg),
-                                       bt["code"], bt["n_res"])
+            _, bad, worst = hold_fused(
+                f"cuda:{idx} {loader}",
+                FE.fused(bt["code"], bt["n_res"], **arg),
+                FE.fused_plain(bt["code"], bt["n_res"], **arg))
             if bad:
-                raise AssertionError(f"k4 vs plain: {bad}")
+                raise AssertionError(f"fused encode vs plain: {bad}")
             out[-1]["k4_max_abs"] = max(out[-1]["k4_max_abs"], worst)
     return out
 
@@ -382,60 +401,80 @@ def pack_batch(tensors, dev):
                 h2d_seconds=h2d_s)
 
 
-PART_NAMES = ("tcos", "bcos", "tbits", "scc", "scb", "relt", "relb")
+ENC_KEYS = ("records", "bb_flags", "cand_bits", "sc_q", "sc_flag_bits")
+K4_TOL = "bit-equal on every slot: " + ", ".join(ENC_KEYS)
 
 
-def parts_diff(torch, kp, pp):
-    """k4 against merged_plain on identical inputs: per plane the count of
-    differing elements (NaN equal to NaN), and for the float planes the
-    largest |difference| and distance in ulps over finite elements."""
-    out = {}
-    for name, a, b in zip(PART_NAMES, kp, pp):
-        if a.dtype == torch.int32:
-            out[name] = {"mismatches": int((a != b).sum())}
-            continue
-        same = (a == b) | (torch.isnan(a) & torch.isnan(b))
-        fin = torch.isfinite(a) & torch.isfinite(b)
-        d = {"mismatches": int((~same).sum()), "max_abs": 0.0, "ulps": 0}
-        if bool(fin.any()):
-            d["max_abs"] = (a - b).abs()[fin].max().item()
-            d["ulps"] = (a.view(torch.int32).long()
-                         - b.view(torch.int32).long()).abs()[fin].max().item()
-        out[name] = d
-    return out
+def hold_fused(label, got, want):
+    """The fused kernel's outputs against fused_plain's on identical
+    inputs: every slot of the five outputs bit-equal. -> ({output:
+    differing elements}, failed names, max |difference| as integers)."""
+    mism = {k: int((got[k] != want[k]).sum()) for k in ENC_KEYS}
+    worst = max(float((got[k].int() - want[k].int()).abs().max())
+                for k in ENC_KEYS)
+    return mism, [f"{label}: {k}" for k, v in mism.items() if v], worst
 
 
-def hold_k4(label, kp, pp, code, n_res):
-    """k4's parts against merged_plain's on identical inputs, and the
-    epilogue run on each: exact on tcos, bcos, tbits, scc, scb and on every
-    parity_tail output, relt/relb within TOL_REL_ULP. -> (parts diff, tail
-    mismatches, failed names, max |difference| over the float planes)."""
+def fused_global(bt, loader):
+    """The fused kernel on pack_batch's batch with its staging forced into
+    a global scratch. -> (outputs, a function that launches it again)."""
+    import torch
+
+    from foldcomp_tpu_torch.kernels import fused_decode as FD
+    from foldcomp_tpu_torch.kernels import fused_encode as FE
+
+    code, n_res = bt["code"], bt["n_res"]
+    wire, atom14 = ((bt["wire"], None) if loader == "wire"
+                    else (None, bt["atom14"]))
+    _, _, ins = FE._check_inputs(code, n_res, wire, atom14)
+    outs = FE._empty_outputs(bt["b"], bt["l"], code.device)
+    scratch = torch.empty((bt["b"], FE._STAGE, bt["l"]),
+                          dtype=torch.float32, device=code.device)
+    lib = FD._cuda_lib(code)
+
+    def run():
+        FE._launch_fused(lib, code, n_res, ins, outs, scratch)
+
+    run()
+    return outs, run
+
+
+def acos_check(dev):
+    """The fused kernel's acos (fused_encode.acos, k4_acos) against
+    torch.arccos on the card on every float32 in [-1, 1]: the bit patterns
+    0..0x3F800000 of each sign, in chunks of 2**27. -> (values, mismatches,
+    first mismatching value or None)."""
     import torch
 
     from foldcomp_tpu_torch.kernels import fused_encode as FE
 
-    diff = parts_diff(torch, kp, pp)
-    kt = FE.parity_tail(kp, code, n_res)
-    pt = FE.parity_tail(pp, code, n_res)
-    tail = {k: int((kt[k] != pt[k]).sum()) for k in kt}
-    bad = [n for n in PART_NAMES[:5] if diff[n]["mismatches"]]
-    bad += [n for n in ("relt", "relb") if diff[n]["ulps"] > TOL_REL_ULP]
-    bad += [k for k, v in tail.items() if v]
-    worst = max(diff[n]["max_abs"] for n in
-                ("tcos", "bcos", "scc", "relt", "relb"))
-    return diff, tail, [f"{label}: {b}" for b in bad], worst
-
-
-K4_TOL = {"exact": list(PART_NAMES[:5]) + ["parity_tail"],
-          "ulps": {"relt": TOL_REL_ULP, "relb": TOL_REL_ULP}}
+    top, chunk = 0x3F800000 + 1, 1 << 27
+    n = bad = 0
+    first = None
+    for sign in (0, -(1 << 31)):
+        for lo in range(0, top, chunk):
+            hi = min(lo + chunk, top)
+            x = torch.arange(sign + lo, sign + hi, dtype=torch.int32,
+                             device=dev).view(torch.float32)
+            d = FE.acos(x).view(torch.int32) \
+                != torch.arccos(x).view(torch.int32)
+            c = int(d.sum())
+            if c and first is None:
+                first = float(x[d][0])
+            n += hi - lo
+            bad += c
+            del x, d
+    return n, bad, first
 
 
 def encode_kernels(dev):
-    """Phase 7: k4 against merged_plain on the card. -> max |difference|
-    over the float planes; raises past the gates."""
+    """Phase 7: the fused encode kernel against fused_plain on the card,
+    then its acos on every float32 in [-1, 1]. -> max |difference| (0 when
+    bit-equal); raises past the gates."""
     import torch
 
     from foldcomp_tpu_torch.codec.batch_host import fragment_to_tensors
+    from foldcomp_tpu_torch.kernels import fused_decode as FD
     from foldcomp_tpu_torch.kernels import fused_encode as FE
     from foldcomp_tpu_torch.verify import on_milli_grid
 
@@ -447,24 +486,47 @@ def encode_kernels(dev):
     rng = random.Random(3)
     mixed = [uniq[rng.choice(BENCH_LENGTHS)] for _ in range(256)]
     long_ = tens([on_milli_grid(synthesize(n, n)) for n in (1600, 2000)])
+    huge = tens([on_milli_grid(synthesize(6200, 62))])
     cases = (("mixed256", mixed, "wire"), ("mixed256_f32", mixed, "atom14"),
              ("long", long_ * 4, "wire"),
-             ("degenerate", tens(degenerate_frames()), "wire"))
+             ("degenerate", tens(degenerate_frames()), "wire"),
+             ("huge", huge * 3 + mixed[:5], "wire"),
+             ("huge_f32", huge * 3 + mixed[:5], "atom14"))
+    lib = FD._cuda_lib(torch.empty(0, device=dev))
     worst = 0.0
     for label, tensors, loader in cases:
         bt = pack_batch(tensors, dev)
         if bt["wire"] is None:
             raise AssertionError(f"{label}: batch is off the compact form")
         arg = {loader: bt[loader]}
-        diff, tail, bad, got = hold_k4(
-            label, FE.merged(bt["code"], **arg),
-            FE.merged_plain(bt["code"], **arg), bt["code"], bt["n_res"])
-        torch.cuda.synchronize()
-        emit("encode_kernels", case=label, loader=loader, b=bt["b"],
-             l=bt["l"], parts=diff, tail_mismatches=tail, tol=K4_TOL)
-        if bad:
-            raise AssertionError(f"k4 vs plain: {bad}")
-        worst = max(worst, got)
+        want = FE.fused_plain(bt["code"], bt["n_res"], **arg)
+        runs = [("auto", FE.fused(bt["code"], bt["n_res"], **arg))]
+        if label == "mixed256":
+            runs.append(("global", fused_global(bt, loader)[0]))
+        shared = FE.stage_in_shared(lib, dev, bt["l"])
+        if label.startswith("huge") and shared:
+            raise AssertionError(f"{label}: L {bt['l']} stages in shared "
+                                 "memory, not in the global scratch")
+        for stage, got in runs:
+            mism, bad, w = hold_fused(f"{label} {stage}", got, want)
+            torch.cuda.synchronize()
+            emit("encode_kernels", case=label, loader=loader, b=bt["b"],
+                 l=bt["l"], residues=bt["residues"],
+                 staging=("shared" if shared else "global")
+                 if stage == "auto" else stage,
+                 mismatches=mism, max_abs=w, tol=K4_TOL)
+            if bad:
+                raise AssertionError(f"fused encode vs plain: {bad}")
+            worst = max(worst, w)
+        del want, runs
+    t0 = time.perf_counter()
+    n, bad, first = acos_check(dev)
+    emit("encode_acos", values=n, mismatches=bad, first_mismatch=first,
+         seconds=time.perf_counter() - t0,
+         against="torch.arccos on the card, bit for bit")
+    if bad:
+        raise AssertionError(f"acos: {bad} of {n} floats differ from "
+                             f"torch.arccos (first {first})")
     return worst
 
 
@@ -525,11 +587,30 @@ def encode_parity(dev):
                                  f"{v['mismatches']} differ")
 
 
+def device_kernels(torch, fn):
+    """The names of the device kernels one call of fn runs, by
+    torch.profiler (CUPTI), or None where the profiler saw no device
+    activity at all."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA]
+    return names or None
+
+
 def encode_device(dev, card):
-    """Phase 9: one CLI batch through the kernels and the plain version,
-    timed with CUDA events and held against each other, then the same
-    batch through the CLI's host stages, timed on the host clock.
-    -> {"ms", "plain_ms", "max_abs_err"} of k4."""
+    """Phase 9: one CLI batch through the fused kernel and its plain
+    version, timed with CUDA events in turns and held against each other;
+    the kernel with its staging in the global scratch; the device encode
+    (encode_parity_fused_planar) and its kernels; then the same batch
+    through the CLI's host stages, timed on the host clock. -> {"ms",
+    "plain_ms", "max_abs_err", "bound_ms", "bound_by"} of the fused
+    kernel."""
     import torch
 
     from foldcomp_tpu_torch.codec.batch import encode_finish, encode_submit
@@ -548,34 +629,69 @@ def encode_device(dev, card):
     code, n_res, wire = bt["code"], bt["n_res"], bt["wire"]
 
     def kern():
-        return FE.merged(code, wire=wire)
+        return FE.fused(code, n_res, wire=wire)
 
     def plain():
-        return FE.merged_plain(code, wire=wire)
+        return FE.fused_plain(code, n_res, wire=wire)
 
+    def device_encode():
+        return FE.encode_parity_fused_planar(*wire, code, n_res)
+
+    out_g, kern_global = fused_global(bt, "wire")
     p1 = cuda_ms(torch, plain, 2)
-    k1 = cuda_ms(torch, kern, 10)
-    k2 = cuda_ms(torch, kern, 10)
+    k1 = cuda_ms(torch, kern, 20)
+    g1 = cuda_ms(torch, kern_global, 20)
+    e1 = cuda_ms(torch, device_encode, 20)
+    e2 = cuda_ms(torch, device_encode, 20)
+    g2 = cuda_ms(torch, kern_global, 20)
+    k2 = cuda_ms(torch, kern, 20)
     p2 = cuda_ms(torch, plain, 2)
     # the timed batch is the main path's shape: hold it as phase 7 does
-    diff, tail, bad, worst = hold_k4("cli_batch", kern(), plain(), code,
-                                     n_res)
+    want = plain()
+    mism, bad, worst = hold_fused("cli_batch", kern(), want)
+    mism_g, bad_g, _ = hold_fused("cli_batch global", out_g, want)
+    del want
     torch.cuda.synchronize()
-    emit("encode_device_kernels", entries=bt["b"], l=bt["l"], parts=diff,
-         tail_mismatches=tail, tol=K4_TOL)
-    if bad:
-        raise AssertionError(f"k4 vs plain: {bad}")
-    parts = kern()
-    tail_ms = min(cuda_ms(torch, lambda: FE.parity_tail(parts, code, n_res),
-                          5) for _ in range(2))
-    enc_ms = min(cuda_ms(torch, lambda: FE.encode_parity_fused_planar(
-        *wire, code, n_res), 5) for _ in range(2))
-    out = FE.encode_parity_fused_planar(*wire, code, n_res)
+    names = device_kernels(torch, device_encode)
+    emit("encode_device_kernels", entries=bt["b"], l=bt["l"],
+         mismatches=mism, global_staging_mismatches=mism_g, tol=K4_TOL,
+         device_encode_kernels=names)
+    if bad or bad_g:
+        raise AssertionError(f"fused encode vs plain: {bad + bad_g}")
+    if names is not None and len(names) != 1:
+        raise AssertionError(f"the device encode ran {len(names)} device "
+                             f"kernels: {names}")
+    out = device_encode()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     host = {k: v.cpu().numpy() for k, v in out.items()}
     d2h_s = time.perf_counter() - t0
 
+    slots = bt["b"] * bt["l"]
+    # each input read once for the real residues, each output written once
+    # for every slot
+    in_per_slot = (sum(a.nbytes for a in wire) + code.nbytes) / slots
+    n_bytes = (in_per_slot * bt["residues"] + n_res.nbytes
+               + K4_OUT_BYTES_PER_SLOT * slots)
+    n_ops = sum(K4_FLOPS_PER_RES.values()) * bt["residues"]
+    b_ms, b_by = bound(n_bytes, n_ops)
+    kern_ms, enc_ms = min(k1, k2), min(e1, e2)
+    result = dict(
+        gpu=card, entries=bt["b"], l=bt["l"], residues=bt["residues"],
+        slots=slots, padded_slots_per_residue=slots / bt["residues"],
+        k4_bytes=n_bytes, k4_operations=n_ops, k4_bound_ms=b_ms,
+        k4_bound_by=b_by, k4_bound_share=b_ms / kern_ms,
+        k4_bytes_real_residues_only=(in_per_slot + K4_OUT_BYTES_PER_SLOT)
+        * bt["residues"] + n_res.nbytes,
+        pack_seconds=bt["pack_seconds"], h2d_seconds=bt["h2d_seconds"],
+        d2h_seconds=d2h_s, d2h_bytes=sum(v.nbytes for v in host.values()),
+        k4_ms=kern_ms, k4_plain_ms=min(p1, p2),
+        k4_global_staging_ms=min(g1, g2),
+        k4_runs_ms={"plain": [p1, p2], "kernel": [k1, k2],
+                    "global_staging": [g1, g2]},
+        device_encode_ms=enc_ms, device_encode_runs_ms=[e1, e2],
+        device_encode_kernel_count=None if names is None else len(names),
+        device_encode_residues_per_s=bt["residues"] / (enc_ms * 1e-3))
     # the CLI's stages for this batch: native PDB parse, submit (pack,
     # H2D, launches), finish (D2H, sparse host rescue, FczData), serialize
     texts = {n: format_pdb(a, f"L{n}").encode() for n, a in frames.items()}
@@ -597,26 +713,8 @@ def encode_device(dev, card):
     stages["serialize"] = time.perf_counter() - t0
     if len(blobs) != ENC_BATCH or h["wire"] != "native":
         raise AssertionError(f"{len(blobs)} entries by {h['wire']}")
-    slots = bt["b"] * bt["l"]
-    # k4's bytes per slot of the padded [B, L] batch, in (wire, codes) and
-    # out (the parts), counted for the real residues only
-    per_slot = (sum(a.nbytes for a in wire) + code.nbytes
-                + sum(a.nbytes for a in parts)) / slots
-    n_bytes = per_slot * bt["residues"]
-    b_ms, b_by = bound(n_bytes, K4_FLOPS_PER_RES * bt["residues"])
-    emit("encode_device", gpu=card, entries=bt["b"], l=bt["l"],
-         residues=bt["residues"], slots=slots, k4_bytes=n_bytes,
-         k4_bound_ms=b_ms, k4_bound_share=b_ms / min(k1, k2),
-         padded_slots_per_residue=slots / bt["residues"],
-         pack_seconds=bt["pack_seconds"], h2d_seconds=bt["h2d_seconds"],
-         d2h_seconds=d2h_s,
-         d2h_bytes=sum(v.nbytes for v in host.values()),
-         k4_ms=min(k1, k2), k4_plain_ms=min(p1, p2),
-         k4_runs_ms=[p1, k1, k2, p2], epilogue_ms=tail_ms,
-         device_encode_ms=enc_ms,
-         device_encode_residues_per_s=bt["residues"] / (enc_ms * 1e-3),
-         host_stage_seconds=stages)
-    return {"ms": min(k1, k2), "plain_ms": min(p1, p2), "max_abs_err": worst,
+    emit("encode_device", **result, host_stage_seconds=stages)
+    return {"ms": kern_ms, "plain_ms": min(p1, p2), "max_abs_err": worst,
             "bound_ms": b_ms, "bound_by": b_by}
 
 
@@ -1140,6 +1238,9 @@ def main(argv=None) -> int:
     ap.add_argument("--quick", action="store_true",
                     help="phases 1, 2 and 4 only; no kernel line, no last "
                          "line")
+    ap.add_argument("--encode", action="store_true",
+                    help="phases 1, 7 and 9 only; no kernel line, no last "
+                         "line")
     ap.add_argument("--ptxas", metavar="SRC",
                     help="also report ptxas resource use of this CUDA "
                          "source, compiled with the build's flags")
@@ -1181,6 +1282,11 @@ def main(argv=None) -> int:
          if build.BUILD_LOG is not None else "library built before")
     if args.ptxas:
         emit("ptxas_of", source=args.ptxas, ptxas=ptxas_of(args.ptxas))
+
+    if args.encode:
+        encode_kernels(dev)
+        encode_device(dev, card)
+        return 0
 
     t0 = time.perf_counter()
     uniq = verify.synthetic_corpus(BENCH_LENGTHS)

@@ -336,9 +336,10 @@ def encode_submit(frag_tensors, frag_meta, anchor_threshold: int = 25,
     Pads the live fragments into one batch and builds the compact wire:
     natively and plane-major, or (native_wire=False, or no native library)
     with the numpy pass and a plane-major permute on the device. A batch
-    off the millimetre grid ships f32 atom14 instead. Launches k4 and the epilogue without waiting for them
-    and returns a handle for encode_finish, so the caller can pack the
-    next batch while this one runs. handle["wire"] names the route:
+    off the millimetre grid ships f32 atom14 instead. Launches the fused
+    encode kernel (k4 with its epilogue) without waiting for it and
+    returns a handle for encode_finish, so the caller can pack the next
+    batch while this one runs. handle["wire"] names the route:
     "native", "numpy" or "f32"."""
     dev = resolve_device(device)
     live = [(i, t) for i, t in enumerate(frag_tensors) if t is not None]

@@ -2,12 +2,13 @@
 bound with ctypes.
 
 The library is compiled on first use from every csrc/*.cu source
-(fused_decode.cu: k1-k3 and the bb wire's epilogue, fused_encode.cu: k4)
-into kernels/build/, named by a hash of the sources and the flags, so an
-edited source or flag set builds a new library and never loads a stale
-one. One nvcc per source runs at once, then one link. The build writes to
-temporary names and renames the library into place, so processes that
-build at once do not see each other's half-written file.
+(fused_decode.cu: k1-k3 and the bb wire's epilogue, fused_encode.cu: k4
+with the encode epilogue) into kernels/build/, named by a hash of the
+sources and the flags, so an edited source or flag set builds a new
+library and never loads a stale one. One nvcc per source runs at once,
+then one link. The build writes to temporary names and renames the
+library into place, so processes that build at once do not see each
+other's half-written file.
 
 Flags: sm_90a (Hopper), -O3, and -fmad=false with no --use_fast_math, so
 the float operation order of the JAX reference holds (no contraction into
@@ -118,10 +119,14 @@ def _bind(lib):
     lib.fd_backbone_bb.argtypes = [vp] * 16 + [ci, ci, ci, vp]
     lib.fd_bb_out.argtypes = [vp] * 7 + [ci, ci, ci, vp]
     lib.fd_sidechain.argtypes = [vp] * 8 + [ci, ci, ci, vp]
-    lib.fe_merged.argtypes = [vp] * 13 + [ctypes.c_float, ci, ci, vp]
+    lib.fe_encode.argtypes = [vp] * 8 + [ci] + [vp] * 6 + [ci, ci, vp]
+    lib.fe_acos.argtypes = [vp, vp, ci, vp]
+    lib.fe_encode_shared_fits.argtypes = [ci]
+    lib.fe_encode_smem.argtypes = [ci, ci]
+    lib.fe_encode_smem.restype = ctypes.c_size_t
     for fn in (lib.fd_set_tables, lib.fd_tails, lib.fd_backbone,
                lib.fd_backbone_bb, lib.fd_bb_out, lib.fd_sidechain,
-               lib.fe_merged):
+               lib.fe_encode, lib.fe_acos, lib.fe_encode_shared_fits):
         fn.restype = ci
     return lib
 

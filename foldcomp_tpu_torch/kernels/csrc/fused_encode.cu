@@ -1,61 +1,118 @@
-// Merged encode kernel for Hopper (sm_90a): k4.
+// Fused encode kernel for Hopper (sm_90a): k4 with the encode epilogue.
 //
 // Replaces the Pallas TPU kernel _make_merged_kernel
-// (foldcomp_tpu/kernels/pallas_encode.py:147). It computes what that kernel
-// computes; the plain PyTorch version beside it
-// (foldcomp_tpu_torch/kernels/fused_encode.py merged_plain) is the oracle.
+// (foldcomp_tpu/kernels/pallas_encode.py:147) together with the XLA
+// epilogue of _fused_parity_jit (pallas_encode.py:370-432). The JAX package
+// stops its kernel at the cosines only because Mosaic has no acos; CUDA has
+// acosf and a block can hold a whole protein, so one kernel computes the
+// whole function. Its plain PyTorch version,
+// parity_tail(merged_plain(...)) in foldcomp_tpu_torch/kernels/
+// fused_encode.py, is the oracle.
 //
-// For every (protein b, residue r): unpack the residue's 14 atom slots,
-// then the three backbone dihedral-cosine planes and three bond-cosine
-// planes of the windows that start at backbone atoms 3r, 3r+1, 3r+2 (they
-// reach into residue r+1; residue L-1 wraps onto residue 0, a row the
-// epilogue masks), and the eleven side-chain dihedral cosines over the
-// predecessor table. Outputs are plane-major [planes, B, L]:
-//   tcos, bcos, relt, relb f32 [3, B, L]; tbits i32 [3, B, L] (1 tie,
-//   2 guard, 4 det < 0, 8 bond tie, 16 bond guard, 32 det within noise);
-//   scc f32 [11, B, L]; scb i32 [B, L] (bit j bad, bit 11+j det < 0).
-//
-// Two loaders behind one template parameter, everything after the load
-// shared:
+// Inputs: one of two loaders behind a template parameter, everything after
+// the load shared:
 //  - compact: baseT i32 [3, B, L], deltaT i16 [42, B, L], present u16
 //    [B, L] (native fcz_pack_encode_wire's plane-major wire), slot k's
 //    coordinate = present bit k ? base + delta : 0, then the correctly
-//    rounded /1000 from exact mul/add (kernels/encode.py _div1000_cr);
-//  - f32: atom14 f32 [B, L, 14, 3] as is (the input of the JAX package's
-//    XLA core encode_parity_core).
+//    rounded /1000 from exact mul/add (kernels/encode.py div1000_cr);
+//  - f32: atom14 f32 [B, L, 14, 3] as is;
+// and res_code i32 [B, L], n_res i32 [B] (n_res <= L, as every pack makes
+// it). Outputs, written in place: records u8 [B, L, 8], bb_flags u8
+// [B, L], cand_bits u16 [B, L], sc_q u8 [B, L, 11], sc_flag_bits u16
+// [B, L].
 //
-// Design. One thread per (protein, residue), 128 residues of one protein
-// per block: for a fixed plane, neighbouring threads read and write
-// neighbouring addresses. The side-chain predecessors index a thread's 42
-// coordinates at run time, so they live in shared memory as [42][128]
-// floats (a thread's column is its own bank: no conflicts for any index)
-// instead of a register array that would spill. Residue r+1's slots 0..2
-// come from the neighbouring column, or from global memory for the last
-// residue of a tile. The predecessor table is a device-pointer argument
-// copied into shared memory at block start: per-lane indices into
-// __constant__ memory serialise (k3's lesson, PERF.md). The TPU kernel's
-// where-chains (_sel_pred), protein block, length bound (MAX_L_FUSED) and
-// prologue transposes have no counterpart.
+// Design. One block per protein; it reads residues r < n only.
+//  A. Tiles of 256 residues: the tile's 42 coordinates a residue, and
+//     those of the residue after it, go to shared memory as [42][257]
+//     columns (a thread's column is its own bank, the side-chain
+//     predecessors index it at run time). Thread r computes its residue's
+//     three torsion and three bond cosines with their tie/guard bits (the
+//     double-f32 emulation), their angles and error budgets (tors_tail,
+//     bond_tail), and stages (angle, error) of the six streams: 12 floats
+//     a residue, plane-major. Stream 3 (N-CA-C of residue i+1) is residue
+//     r's bond plane 0, staged at slot r-1. The eleven side-chain cosines
+//     are quantized at once (sc_quant_tail): codes through a shared tile
+//     as whole contiguous bytes, flags straight out.
+//  B. Block reductions per stream, in stream_q_flags_lanes' order: the
+//     candidate bounds and the angle range, then the error budgets of the
+//     candidates; a max over NaN-propagating pairs (a min as the max of
+//     negations), as torch.amin/amax propagate NaN.
+//  C. A sweep over every slot: quantization, rescue flags, candidate bits
+//     and the 8-byte record; slots r >= n get the function's values at
+//     all-zero coordinates without arithmetic (records 0, flags 0,
+//     side-chain codes 127, side-chain flags 0x7FF).
+// The staging lives in dynamic shared memory where it fits the card's
+// opt-in limit (48 B a slot: L <= 3781 on an H100), else in a global
+// scratch [B, 12, L] that the wrapper allocates; the same code runs on
+// both. The predecessor table is copied to shared memory per block
+// (per-lane indices into __constant__ memory serialise).
 //
-// Bound: about 98 B in and 108 B out per residue slot, and ~2.5k float
-// operations (17 dihedrals or bond angles with Dekker double-f32 division
-// for the six backbone ones); at B=2048, L=1088 that is ~460 MB, so the
-// memory floor is ~0.15 ms on an H100.
+// Bound: 102 B in a real residue (42 deltas, 3 bases, present, code), 24 B
+// out a slot of [B, L], and ~2.9k float operations a real residue
+// (chip_smoke.py K4_FLOPS_PER_RES); at B=2048 of the 8 synthetic lengths
+// (1.02M residues in 2.23M slots) ~158 MB, 0.047 ms at 3.35 TB/s, against
+// 0.044 ms of operations at 67 TFLOP/s.
 //
 // Float rules (nvcc -fmad=false, no --use_fast_math; build.py): no FMA
-// contraction, so _two_prod and _div1000_cr stay exact; IEEE sqrtf and
-// '/', on which _cos_f64_emul and scc depend; rsqrtf only where JAX has
-// lax.rsqrt (relt, relb); NaN-propagating max as jnp.maximum.
+// contraction, so two_prod and div1000_cr stay exact and every tail
+// expression rounds as the eager torch ops of the plain version do; IEEE
+// sqrtf and '/'; rsqrtf for torch.rsqrt; acosf for torch.arccos (one
+// function, held against torch on every float in [-1, 1] by chip_smoke);
+// rintf for torch.round. Two torch rules on CUDA set the order: x / c for
+// a Python float c is x * (1/c), and c / x is (1/x) * c.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+#include <string.h>
 
 namespace {
 
 constexpr int kAtoms = 14;
 constexpr int kSlots = 3 * kAtoms;
-constexpr int kTile = 128;   // residues per block
-constexpr int kCodes = 24;   // PRED_IDX rows; codes are clipped to 0..23
+constexpr int kSc = kAtoms - 3;        // side-chain torsions a residue
+constexpr int kThreads = 256;          // threads a block, residues a tile
+constexpr int kWarps = kThreads / 32;
+constexpr int kCol = kThreads + 1;     // the tile's residues and the next
+constexpr int kCodes = 24;             // PRED_IDX rows; codes clip to 0..23
+constexpr int kPred = kCodes * kAtoms * 3;
+constexpr int kStreams = 6;            // phi, psi, omega, n_ca_c, ca_c_n, c_n_ca
+constexpr int kStage = 2 * kStreams;   // staged (angle, error) a residue
+constexpr int kRound1 = 4 * kStreams;
+constexpr int kRound2 = 2 * kStreams;
+
+// The epilogue's float constants, in the order of fused_encode.py
+// _TAIL_CONSTS (float32 values as torch rounds the Python scalars).
+struct TailK {
+  float eps;        // PARTS_EPS
+  float deg;        // 180 / pi
+  float bigerr;     // the error of a flagged angle
+  float bigf;       // the masked lanes' +-bound
+  float err_k;      // 5e-7: |angle| factor of the acos slack and the tol
+  float err_c;      // 2e-5: the acos slack
+  float amp_floor;  // 1e-12
+  float tol_c;      // 1e-4
+  float sc_deg;
+  float sc_disc;
+  float sc_tol;
+  float sc_tol_c;   // 2e-4
+  float nbin[kStreams];
+  float inv_nbin[kStreams];  // 1 / nbin in float32
+};
+constexpr int kNConsts = sizeof(TailK) / sizeof(float);
+
+// dynamic shared memory, byte offsets
+constexpr size_t kOffPred = 0;
+constexpr size_t kOffXyz = kOffPred + kPred * sizeof(int);
+constexpr size_t kOffScq = kOffXyz + (size_t)kSlots * kCol * sizeof(float);
+constexpr size_t kOffRed = kOffScq + (kThreads * kSc + 15) / 16 * 16;
+constexpr size_t kOffRes = kOffRed + (size_t)kWarps * kRound1 * sizeof(float);
+constexpr size_t kOffStage =
+    kOffRes + (kRound1 + kRound2 + 3) / 4 * 4 * sizeof(float);
+
+size_t smem_bytes(int n_l, bool shared_stage) {
+  return kOffStage +
+         (shared_stage ? (size_t)kStage * n_l * sizeof(float) : 0);
+}
 
 struct V {
   float x, y, z;
@@ -77,12 +134,31 @@ __device__ __forceinline__ V neg(V a) {
   return v;
 }
 
-// jnp.maximum(a, b): NaN in a propagates (fmaxf would drop it)
+// torch.clamp_min(a, b) for a constant b: NaN in a propagates (fmaxf would
+// drop it)
 __device__ __forceinline__ float max_nan(float a, float b) {
   return a != a ? a : fmaxf(a, b);
 }
 
-// _div1000_cr (foldcomp_tpu/kernels/encode.py:53)
+// torch.minimum, and the pairwise step of torch.amax: NaN in either wins
+__device__ __forceinline__ float min_nan2(float a, float b) {
+  return a != a ? a : (b != b ? b : fminf(a, b));
+}
+
+__device__ __forceinline__ float max_nan2(float a, float b) {
+  return a != a ? a : (b != b ? b : fmaxf(a, b));
+}
+
+// torch.clamp(x, -1, 1)
+__device__ __forceinline__ float clamp1(float x) {
+  return x != x ? x : fminf(fmaxf(x, -1.0f), 1.0f);
+}
+
+// torch.arccos on the card. The one libm function the kernel adds;
+// chip_smoke.py holds it against torch.arccos on every float in [-1, 1].
+__device__ __forceinline__ float acos_dev(float x) { return acosf(x); }
+
+// div1000_cr (foldcomp_tpu/kernels/encode.py:53)
 __device__ __forceinline__ float div1000_cr(int xi) {
   const float xf = (float)xi;
   const float c = 0.001f;
@@ -158,7 +234,8 @@ __device__ __forceinline__ Dihedral dihedral_parts(V d1, V d2, V d3) {
   return h;
 }
 
-// _dihedral_cos (pallas_encode.py:82)
+// _dihedral_cos (pallas_encode.py:82): bits 1 tie, 2 guard, 4 det < 0,
+// 32 det within noise
 __device__ __forceinline__ void dihedral_cos(V d1, V d2, V d3, float eps,
                                              float* cos_t, int* bits,
                                              float* rel) {
@@ -173,7 +250,7 @@ __device__ __forceinline__ void dihedral_cos(V d1, V d2, V d3, float eps,
   *rel = h.abs_inner * rsqrtf(max_nan(h.denom2, 1e-30f));
 }
 
-// _bond_cos (pallas_encode.py:127): no NaN guard
+// _bond_cos (pallas_encode.py:127): no NaN guard; bits 8 tie, 16 guard
 __device__ __forceinline__ void bond_cos(V e1, V e2, float* cos_b, int* bits,
                                          float* rel) {
   const float inner = e1.x * e2.x + e1.y * e2.y + e1.z * e2.z;
@@ -186,6 +263,64 @@ __device__ __forceinline__ void bond_cos(V e1, V e2, float* cos_b, int* bits,
   const float abs_b =
       fabsf(e1.x * e2.x) + fabsf(e1.y * e2.y) + fabsf(e1.z * e2.z);
   *rel = abs_b * rsqrtf(max_nan(denom2, 1e-30f));
+}
+
+// ang_err_deg (kernels/encode.py): min(first order, Hoelder-1/2) plus the
+// acos slack
+__device__ __forceinline__ float ang_err_deg(float delta, float amp,
+                                             float ang, const TailK& k) {
+  const float base = fabsf(ang) * k.err_k + k.err_c;
+  return k.deg * min_nan2(delta * amp, sqrtf(2.0f * delta)) + base;
+}
+
+// _cos_tail (kernels/encode.py): angle, acos amplification, cos noise
+__device__ __forceinline__ void cos_tail(float c, float rel, const TailK& k,
+                                         float* ang, float* amp,
+                                         float* delta) {
+  const float cc = clamp1(c);
+  *ang = acos_dev(cc) * k.deg;
+  *amp = rsqrtf(max_nan(1.0f - cc * cc, k.amp_floor));
+  *delta = k.eps * (rel + fabsf(cc));
+}
+
+// tors_tail: torsion cosine -> (angle, error)
+__device__ __forceinline__ void tors_tail(float tc, int tb, float rel,
+                                          const TailK& k, float* ang_out,
+                                          float* err_out) {
+  float ang, amp, delta;
+  cos_tail(tc, rel, k, &ang, &amp, &delta);
+  if (fabsf(tc) > 1.0f) ang = tc < 0.0f ? 180.0f : 0.0f;
+  if (tb & 4) ang = -ang;
+  const bool big = (tb & (1 | 2 | 32)) || fabsf(tc) >= 1.0f - delta;
+  *ang_out = ang;
+  *err_out = big ? k.bigerr : ang_err_deg(delta, amp, ang, k);
+}
+
+// bond_tail: bond cosine -> (angle, error); no NaN guard
+__device__ __forceinline__ void bond_tail(float bc, int tb, float rel,
+                                          const TailK& k, float* ang_out,
+                                          float* err_out) {
+  float ang, amp, delta;
+  cos_tail(bc, rel, k, &ang, &amp, &delta);
+  const bool big = (tb & (8 | 16)) || fabsf(bc) >= 1.0f - delta;
+  *ang_out = ang;
+  *err_out = big ? k.bigerr : ang_err_deg(delta, amp, ang, k);
+}
+
+// sc_quant_tail: side-chain cosine -> 255-bin truncating code, rescue flag
+__device__ __forceinline__ int sc_quant(float cos_t, bool det_neg, bool bad,
+                                        const TailK& k, int* flag) {
+  float ang = acos_dev(clamp1(cos_t)) * k.sc_deg;
+  const bool nan_like = bad || fabsf(cos_t) > 1.0f;
+  if (nan_like) ang = cos_t < 0.0f ? 180.0f : 0.0f;
+  if (det_neg) ang = -ang;
+  float t = (ang + 180.0f) * k.sc_disc;
+  if (t != t || t < 0.0f) t = 0.0f;
+  const int q = min(max((int)t, 0), 255);
+  const float amp = rsqrtf(max_nan(1.0f - cos_t * cos_t, k.amp_floor));
+  const float tol = k.sc_tol * (1.0f + amp) + k.sc_tol_c;
+  *flag = (fabsf(t - rintf(t)) < tol) || nan_like;
+  return q;
 }
 
 // coordinate j (slot j/3, component j%3) of the residue at flat offset o
@@ -202,124 +337,299 @@ __device__ __forceinline__ float load_coord(const int32_t* __restrict__ baseT,
   return div1000_cr(((pres >> k) & 1) ? xi : 0);
 }
 
-template <bool kF32>
-__global__ void __launch_bounds__(kTile)
-    k4_merged(const int32_t* __restrict__ baseT,
-              const int16_t* __restrict__ deltaT,
-              const uint16_t* __restrict__ present,
-              const float* __restrict__ atom14,
-              const int32_t* __restrict__ res_code,
-              const int32_t* __restrict__ pred, float eps,
-              float* __restrict__ tcos, float* __restrict__ bcos,
-              int32_t* __restrict__ tbits, float* __restrict__ scc,
-              int32_t* __restrict__ scb, float* __restrict__ relt,
-              float* __restrict__ relb, int n_b, int n_l) {
-  __shared__ int s_pred[kCodes * kAtoms * 3];
-  __shared__ float s_xyz[kSlots * kTile];
-  const int t = threadIdx.x;
-  const int b = blockIdx.x;
-  const int r = blockIdx.y * kTile + t;
-  const int n_r = min(kTile, n_l - (int)blockIdx.y * kTile);
-  const size_t plane = (size_t)n_b * n_l;
-  const size_t o = (size_t)b * n_l + r;
-
-  for (int i = t; i < kCodes * kAtoms * 3; i += kTile) s_pred[i] = pred[i];
-  if (t < n_r) {
-    const int pres = kF32 ? 0 : (int)present[o];
-#pragma unroll 6
-    for (int j = 0; j < kSlots; ++j)
-      s_xyz[j * kTile + t] =
-          load_coord<kF32>(baseT, deltaT, pres, atom14, plane, o, j);
+// v[k] <- the max over the block's threads (NaN wins), for every thread;
+// s_red holds kWarps * N floats, s_out N
+template <int N>
+__device__ __forceinline__ void block_max(float (&v)[N], float* s_red,
+                                          float* s_out) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1)
+      v[i] = max_nan2(v[i], __shfl_xor_sync(0xffffffffu, v[i], off));
+  }
+  if (lane == 0) {
+#pragma unroll
+    for (int i = 0; i < N; ++i) s_red[warp * N + i] = v[i];
   }
   __syncthreads();
-  if (t >= n_r) return;
-
-  auto at = [&](int k) {
-    V v;
-    v.x = s_xyz[(3 * k) * kTile + t];
-    v.y = s_xyz[(3 * k + 1) * kTile + t];
-    v.z = s_xyz[(3 * k + 2) * kTile + t];
-    return v;
-  };
-  // residue r+1's N, CA, C (r = L-1 wraps onto residue 0)
-  V nx[3];
-  if (t + 1 < n_r) {
+  if (threadIdx.x < N) {
+    float a = s_red[threadIdx.x];
+    for (int w = 1; w < kWarps; ++w) a = max_nan2(a, s_red[w * N + threadIdx.x]);
+    s_out[threadIdx.x] = a;
+  }
+  __syncthreads();
 #pragma unroll
-    for (int k = 0; k < 3; ++k) {
-      nx[k].x = s_xyz[(3 * k) * kTile + t + 1];
-      nx[k].y = s_xyz[(3 * k + 1) * kTile + t + 1];
-      nx[k].z = s_xyz[(3 * k + 2) * kTile + t + 1];
+  for (int i = 0; i < N; ++i) v[i] = s_out[i];
+}
+
+template <bool kF32>
+__global__ void __launch_bounds__(kThreads, 2)
+    k4_fused_encode(const int32_t* __restrict__ baseT,
+                    const int16_t* __restrict__ deltaT,
+                    const uint16_t* __restrict__ present,
+                    const float* __restrict__ atom14,
+                    const int32_t* __restrict__ res_code,
+                    const int32_t* __restrict__ n_res,
+                    const int32_t* __restrict__ pred, const TailK k,
+                    float* __restrict__ scratch,
+                    uint8_t* __restrict__ records,
+                    uint8_t* __restrict__ bb_flags,
+                    uint16_t* __restrict__ cand_bits,
+                    uint8_t* __restrict__ sc_q,
+                    uint16_t* __restrict__ sc_flag_bits, int n_b, int n_l) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  int* s_pred = reinterpret_cast<int*>(smem + kOffPred);
+  float* s_xyz = reinterpret_cast<float*>(smem + kOffXyz);
+  uint8_t* s_scq = smem + kOffScq;
+  float* s_red = reinterpret_cast<float*>(smem + kOffRed);
+  float* s_res = reinterpret_cast<float*>(smem + kOffRes);
+  const int t = threadIdx.x;
+  const int b = blockIdx.x;
+  const int n = min(max(n_res[b], 0), n_l);
+  const size_t plane = (size_t)n_b * n_l;
+  const size_t row = (size_t)b * n_l;
+  // stage c of slot i at st[c * n_l + i]: c = 2 * stream + (0 angle,
+  // 1 error)
+  float* st = scratch != nullptr
+                  ? scratch + (size_t)b * kStage * n_l
+                  : reinterpret_cast<float*>(smem + kOffStage);
+
+  for (int i = t; i < kPred; i += kThreads) s_pred[i] = pred[i];
+
+  // ---- A: cosines, tails, staging; side chains finished ----
+  for (int r0 = 0; r0 < n; r0 += kThreads) {
+    const int ncol = min(kCol, n - r0);
+    for (int c = t; c < ncol; c += kThreads) {
+      const size_t o = row + r0 + c;
+      const int pres = kF32 ? 0 : (int)present[o];
+#pragma unroll 6
+      for (int j = 0; j < kSlots; ++j)
+        s_xyz[j * kCol + c] =
+            load_coord<kF32>(baseT, deltaT, pres, atom14, plane, o, j);
     }
-  } else {
-    const size_t on = (size_t)b * n_l + (r + 1 == n_l ? 0 : r + 1);
-    const int pres = kF32 ? 0 : (int)present[on];
+    __syncthreads();
+    const int r = r0 + t;
+    if (r < n) {
+      auto at = [&](int slot, int col) {
+        V v;
+        v.x = s_xyz[(3 * slot) * kCol + col];
+        v.y = s_xyz[(3 * slot + 1) * kCol + col];
+        v.z = s_xyz[(3 * slot + 2) * kCol + col];
+        return v;
+      };
+      auto stage = [&](int s, int slot, float ang, float err) {
+        st[(2 * s) * n_l + slot] = ang;
+        st[(2 * s + 1) * n_l + slot] = err;
+      };
+      // backbone: d[a] = x[a+1] - x[a] over N, CA, C, N', CA', C'
+      const V a0 = at(0, t), a1 = at(1, t), a2 = at(2, t);
+      const V dN = sub(a1, a0), dCA = sub(a2, a1);
+      float c, rel, ang, err;
+      int bits;
+      if (r >= 1) {  // bond plane 0 -> n_ca_c of slot r-1
+        bond_cos(neg(dN), dCA, &c, &bits, &rel);
+        bond_tail(c, bits, rel, k, &ang, &err);
+        stage(3, r - 1, ang, err);
+      }
+      if (r + 1 < n) {
+        const V nx0 = at(0, t + 1), nx1 = at(1, t + 1), nx2 = at(2, t + 1);
+        const V dC = sub(nx0, a2), rdN = sub(nx1, nx0), rdCA = sub(nx2, nx1);
+        // torsion planes 0, 1, 2 -> psi, omega, phi
+        dihedral_cos(dN, dCA, dC, k.eps, &c, &bits, &rel);
+        tors_tail(c, bits, rel, k, &ang, &err);
+        stage(1, r, ang, err);
+        dihedral_cos(dCA, dC, rdN, k.eps, &c, &bits, &rel);
+        tors_tail(c, bits, rel, k, &ang, &err);
+        stage(2, r, ang, err);
+        dihedral_cos(dC, rdN, rdCA, k.eps, &c, &bits, &rel);
+        tors_tail(c, bits, rel, k, &ang, &err);
+        stage(0, r, ang, err);
+        // bond planes 1, 2 -> ca_c_n, c_n_ca
+        bond_cos(neg(dCA), dC, &c, &bits, &rel);
+        bond_tail(c, bits, rel, k, &ang, &err);
+        stage(4, r, ang, err);
+        bond_cos(neg(dC), rdN, &c, &bits, &rel);
+        bond_tail(c, bits, rel, k, &ang, &err);
+        stage(5, r, ang, err);
+      }
+      // side chains: slots 3..13 from their three predecessors
+      const int code = min(max(res_code[row + r], 0), kCodes - 1);
+      const int* pr = s_pred + code * kAtoms * 3;
+      int flags = 0;
+      for (int a = 3; a < kAtoms; ++a) {
+        const V p0 = at(pr[3 * a], t), p1 = at(pr[3 * a + 1], t),
+                p2 = at(pr[3 * a + 2], t);
+        const Dihedral h =
+            dihedral_parts(sub(p1, p0), sub(p2, p1), sub(at(a, t), p2));
+        const bool bad = h.denom2 <= 0.0f;
+        int fl;
+        s_scq[t * kSc + a - 3] = (uint8_t)sc_quant(
+            h.inner / sqrtf(bad ? 1.0f : h.denom2), h.det < 0.0f, bad, k,
+            &fl);
+        flags |= fl << (a - 3);
+      }
+      sc_flag_bits[row + r] = (uint16_t)flags;
+    }
+    __syncthreads();
+    // the tile's side-chain codes: contiguous bytes, neighbouring threads
+    // on neighbouring bytes
+    uint8_t* dst = sc_q + (row + r0) * kSc;
+    const int m = min(kThreads, n - r0) * kSc;
+    for (int i = t; i < m; i += kThreads) dst[i] = s_scq[i];
+  }
+  __syncthreads();
+
+  // ---- B: per-protein reductions over the slots i < n-1 ----
+  // round one, as maxima: -c_min, c_max, -vmin, vmax per stream
+  float r1[kRound1];
 #pragma unroll
-    for (int k = 0; k < 3; ++k) {
-      nx[k].x = load_coord<kF32>(baseT, deltaT, pres, atom14, plane, on,
-                                 3 * k);
-      nx[k].y = load_coord<kF32>(baseT, deltaT, pres, atom14, plane, on,
-                                 3 * k + 1);
-      nx[k].z = load_coord<kF32>(baseT, deltaT, pres, atom14, plane, on,
-                                 3 * k + 2);
+  for (int i = 0; i < kRound1; ++i) r1[i] = -k.bigf;
+  for (int i = t; i < n - 1; i += kThreads) {
+#pragma unroll
+    for (int s = 0; s < kStreams; ++s) {
+      const float ang = st[(2 * s) * n_l + i];
+      const float err = st[(2 * s + 1) * n_l + i];
+      r1[s] = max_nan2(r1[s], -(ang + err));
+      r1[kStreams + s] = max_nan2(r1[kStreams + s], ang - err);
+      r1[2 * kStreams + s] = max_nan2(r1[2 * kStreams + s], -ang);
+      r1[3 * kStreams + s] = max_nan2(r1[3 * kStreams + s], ang);
     }
   }
-
-  // backbone: d[a] = x[a+1] - x[a] over the chain N, CA, C, N', CA', C'
-  const V a0 = at(0), a1 = at(1), a2 = at(2);
-  const V dN = sub(a1, a0), dCA = sub(a2, a1), dC = sub(nx[0], a2);
-  const V rdN = sub(nx[1], nx[0]), rdCA = sub(nx[2], nx[1]);
-  const V tw[3][3] = {{dN, dCA, dC}, {dCA, dC, rdN}, {dC, rdN, rdCA}};
-  const V bw[3][2] = {{dN, dCA}, {dCA, dC}, {dC, rdN}};
+  block_max(r1, s_red, s_res);
+  // round two: the largest error of the min and of the max candidates
+  float r2[kRound2];
 #pragma unroll
-  for (int p = 0; p < 3; ++p) {
-    float ct, cb, rt, rb;
-    int bt, bb;
-    dihedral_cos(tw[p][0], tw[p][1], tw[p][2], eps, &ct, &bt, &rt);
-    bond_cos(neg(bw[p][0]), bw[p][1], &cb, &bb, &rb);
-    const size_t q = (size_t)p * plane + o;
-    tcos[q] = ct;
-    bcos[q] = cb;
-    tbits[q] = bt | bb;
-    relt[q] = rt;
-    relb[q] = rb;
+  for (int i = 0; i < kRound2; ++i) r2[i] = 0.0f;
+  for (int i = t; i < n - 1; i += kThreads) {
+#pragma unroll
+    for (int s = 0; s < kStreams; ++s) {
+      const float ang = st[(2 * s) * n_l + i];
+      const float err = st[(2 * s + 1) * n_l + i];
+      if (ang - err <= -r1[s]) r2[s] = max_nan2(r2[s], err);
+      if (ang + err >= r1[kStreams + s])
+        r2[kStreams + s] = max_nan2(r2[kStreams + s], err);
+    }
   }
+  block_max(r2, s_red, s_res + kRound1);
 
-  // side chains: slots 3..13 from their three predecessors
-  const int code = min(max(res_code[o], 0), kCodes - 1);
-  const int* pr = s_pred + code * kAtoms * 3;
-  int bits = 0;
-  for (int k = 3; k < kAtoms; ++k) {
-    const V p0 = at(pr[3 * k]), p1 = at(pr[3 * k + 1]), p2 = at(pr[3 * k + 2]);
-    const Dihedral h = dihedral_parts(sub(p1, p0), sub(p2, p1), sub(at(k), p2));
-    const bool bad = h.denom2 <= 0.0f;
-    const int j = k - 3;
-    scc[(size_t)j * plane + o] = h.inner / sqrtf(bad ? 1.0f : h.denom2);
-    bits |= ((int)bad << j) | ((int)(h.det < 0.0f) << (11 + j));
+  // ---- C: quantization, flags, candidates, records; padding slots ----
+  float disc[kStreams], dd[kStreams];
+#pragma unroll
+  for (int s = 0; s < kStreams; ++s) {
+    disc[s] = (1.0f / (r1[3 * kStreams + s] - -r1[2 * kStreams + s])) *
+              k.nbin[s];
+    dd[s] = disc[s] * (r2[s] + r2[kStreams + s]);
   }
-  scb[o] = bits;
+  for (int i = t; i < n_l; i += kThreads) {
+    const size_t o = row + i;
+    uint32_t w0 = 0, w1 = 0;
+    int flags = 0, cand = 0;
+    if (i < n - 1) {
+      int q[kStreams];
+#pragma unroll
+      for (int s = 0; s < kStreams; ++s) {
+        const float ang = st[(2 * s) * n_l + i];
+        const float err = st[(2 * s + 1) * n_l + i];
+        cand |= ((int)(ang - err <= -r1[s]) << s) |
+                ((int)(ang + err >= r1[kStreams + s]) << (s + 8));
+        const float tq = (ang - -r1[2 * kStreams + s]) * disc[s];
+        const float half = tq + 0.5f;
+        const float qf = (tq != tq || tq < 0.0f) ? 0.0f : floorf(half);
+        // XLA's saturating float -> int32
+        q[s] = qf >= 2147483648.0f ? 2147483647
+                                   : (int)fminf(qf, 2147483520.0f);
+        const float abs_t = fabsf(tq);
+        const float tol =
+            ((disc[s] * (err + r2[s]) + (abs_t * k.inv_nbin[s]) * dd[s]) +
+             abs_t * k.err_k) +
+            k.tol_c;
+        const bool flag = fabsf(half - rintf(half)) <= tol ||
+                          !isfinite(tq) || !isfinite(tol);
+        flags |= (int)flag << s;
+      }
+      // bitpack.pack_records: phi, psi, omega, n_ca_c, ca_c_n, c_n_ca
+      const uint32_t res = (uint32_t)res_code[o] & 0x1F;
+      const uint32_t phi = (uint32_t)q[0] & 0xFFF, psi = (uint32_t)q[1] & 0xFFF,
+                     omg = (uint32_t)q[2] & 0x7FF;
+      w0 = ((res << 3) | (omg >> 8)) | ((omg & 0xFF) << 8) |
+           ((psi >> 4) << 16) | ((((psi & 0xF) << 4) | (phi >> 8)) << 24);
+      w1 = (phi & 0xFF) | (((uint32_t)q[4] & 0xFF) << 8) |
+           (((uint32_t)q[5] & 0xFF) << 16) | (((uint32_t)q[3] & 0xFF) << 24);
+    } else if (i == n - 1) {
+      w0 = ((uint32_t)res_code[o] & 0x1F) << 3;
+    } else {
+      sc_flag_bits[o] = 0x7FF;
+    }
+    reinterpret_cast<uint2*>(records)[o] = make_uint2(w0, w1);
+    bb_flags[o] = (uint8_t)flags;
+    cand_bits[o] = (uint16_t)cand;
+  }
+  uint8_t* pad = sc_q + (row + n) * kSc;
+  const int m = (n_l - n) * kSc;
+  for (int i = t; i < m; i += kThreads) pad[i] = 127;
+}
+
+// one acos_dev a thread: chip_smoke's exhaustive check against torch
+__global__ void k4_acos(const float* __restrict__ x, float* __restrict__ y,
+                        int n) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < n) y[i] = acos_dev(x[i]);
 }
 
 }  // namespace
 
 extern "C" {
 
-// k4 over B proteins of L residue slots. atom14 == NULL selects the compact
-// loader (baseT, deltaT, present); otherwise those three are unused.
-cudaError_t fe_merged(const int32_t* baseT, const int16_t* deltaT,
+// Dynamic shared memory of a launch over L = n_l residue slots, with the
+// staging in shared memory (shared_stage != 0) or in a global scratch.
+size_t fe_encode_smem(int n_l, int shared_stage) {
+  return smem_bytes(n_l, shared_stage != 0);
+}
+
+// 1 if the staging of n_l slots fits the current device's shared memory,
+// 0 if it needs the global scratch, -1 on a CUDA error.
+int fe_encode_shared_fits(int n_l) {
+  int dev, limit;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&limit, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                             dev) != cudaSuccess)
+    return -1;
+  return smem_bytes(n_l, true) <= (size_t)limit ? 1 : 0;
+}
+
+// The fused encode over B proteins of L residue slots. atom14 == NULL
+// selects the compact loader (baseT, deltaT, present); otherwise those
+// three are unused. consts: n_consts host floats in TailK's order.
+// scratch: NULL stages in shared memory, else f32 [B, 12, L].
+cudaError_t fe_encode(const int32_t* baseT, const int16_t* deltaT,
                       const uint16_t* present, const float* atom14,
-                      const int32_t* res_code, const int32_t* pred,
-                      float* tcos, float* bcos, int32_t* tbits, float* scc,
-                      int32_t* scb, float* relt, float* relb, float eps,
-                      int n_b, int n_l, cudaStream_t stream) {
-  const dim3 grid(n_b, (n_l + kTile - 1) / kTile);
-  if (atom14 != nullptr)
-    k4_merged<true><<<grid, kTile, 0, stream>>>(
-        baseT, deltaT, present, atom14, res_code, pred, eps, tcos, bcos,
-        tbits, scc, scb, relt, relb, n_b, n_l);
-  else
-    k4_merged<false><<<grid, kTile, 0, stream>>>(
-        baseT, deltaT, present, atom14, res_code, pred, eps, tcos, bcos,
-        tbits, scc, scb, relt, relb, n_b, n_l);
+                      const int32_t* res_code, const int32_t* n_res,
+                      const int32_t* pred, const float* consts, int n_consts,
+                      float* scratch, uint8_t* records, uint8_t* bb_flags,
+                      uint16_t* cand_bits, uint8_t* sc_q,
+                      uint16_t* sc_flag_bits, int n_b, int n_l,
+                      cudaStream_t stream) {
+  if (n_consts != kNConsts) return cudaErrorInvalidValue;
+  TailK k;
+  memcpy(&k, consts, sizeof k);
+  const size_t smem = smem_bytes(n_l, scratch == nullptr);
+  auto kern = atom14 != nullptr ? k4_fused_encode<true>
+                                : k4_fused_encode<false>;
+  const cudaError_t e = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return e;
+  kern<<<n_b, kThreads, smem, stream>>>(baseT, deltaT, present, atom14,
+                                        res_code, n_res, pred, k, scratch,
+                                        records, bb_flags, cand_bits, sc_q,
+                                        sc_flag_bits, n_b, n_l);
+  return cudaGetLastError();
+}
+
+// acos_dev over n floats
+cudaError_t fe_acos(const float* x, float* y, int n, cudaStream_t stream) {
+  k4_acos<<<(n + 255) / 256, 256, 0, stream>>>(x, y, n);
   return cudaGetLastError();
 }
 

@@ -5,8 +5,8 @@ Counterparts of foldcomp_tpu/kernels/encode.py (`_div1000_cr`, `_two_prod`,
 tails of foldcomp_tpu/kernels/pallas_encode.py (`_stream_q_flags_lanes`,
 `_tors_tail`, `_bond_tail`), on float32 tensors. The plain k4
 (fused_encode.merged_plain) and the epilogue (fused_encode.parity_tail)
-share them; the CUDA k4 (csrc/fused_encode.cu) repeats the same operations
-in the same order.
+share them; the CUDA kernel (csrc/fused_encode.cu, k4 with the epilogue)
+repeats the same operations in the same order.
 
 Every expression keeps the JAX operand order. torch runs each elementwise
 op as its own kernel, so nothing is contracted into an FMA, and a Python

@@ -1,4 +1,5 @@
-"""Fused encode: k4 merged kernel and the lanes-layout epilogue.
+"""Fused encode: the k4 kernel with the encode epilogue, and its plain
+version.
 
 Counterpart of foldcomp_tpu/kernels/pallas_encode.py: the same inputs (the
 plane-major compact wire of native fcz_pack_encode_wire, or f32 atom14)
@@ -7,28 +8,34 @@ bb_flags u8 [B, L], cand_bits u16 [B, L], sc_q u8 [B, L, 11],
 sc_flag_bits u16 [B, L]. Residues lie on the last axis throughout.
 
 - `merged_plain` is k4 (`_make_merged_kernel`) in plain PyTorch, operation
-  for operation: the CPU path and the CUDA kernel's oracle;
-- `merged` is its wrapper: the plain version for CPU tensors, for CUDA
-  tensors a checked launch of csrc/fused_encode.cu or an error. There is
-  no fallback from a CUDA tensor to the plain version;
-- K4_LAUNCHES is raised by one where `merged` launches the kernel and
-  nowhere else;
-- `parity_tail` is the XLA epilogue of `_fused_parity_jit`
-  (pallas_encode.py:370-432) in torch ops.
+  for operation, and `parity_tail` the XLA epilogue of `_fused_parity_jit`
+  (pallas_encode.py:370-432) in torch ops; `fused_plain` chains them. They
+  are the CPU path and the CUDA kernel's oracle;
+- `fused` is the wrapper: the plain version for CPU tensors, for CUDA
+  tensors one checked launch of csrc/fused_encode.cu (k4_fused_encode,
+  the whole function: cosines, acos, per-protein min/max, quantization,
+  flags, record packing) or an error. There is no fallback from a CUDA
+  tensor to the plain version;
+- K4_LAUNCHES is raised by one where the kernel is launched and nowhere
+  else.
 
-k4 takes either loader: the compact wire (`encode_parity_fused_planar`) or
-f32 atom14 (`encode_parity_f32`, for batches off the millimetre grid, which
-the JAX package sends to its XLA core `encode_parity_core`). Everything
-after the load is shared. There is no length bound (the JAX path's
+The kernel takes either loader: the compact wire (`encode_parity_fused_
+planar`) or f32 atom14 (`encode_parity_f32`, for batches off the
+millimetre grid, which the JAX package sends to its XLA core
+`encode_parity_core`). It reads residues r < n_res only and gives a
+padding slot the function's values at all-zero coordinates, which is what
+every pack puts there. There is no length bound (the JAX path's
 MAX_L_FUSED is a VMEM budget) and no protein block.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from ..core import tables as T
 from ..core.tables import NBIN_BOND, NBIN_OMEGA, NBIN_PHI_PSI
 from .bitpack import pack_records
+from . import encode as E
 from .encode import (bond_tail, cos_f64_emul, div1000_cr, sc_quant_tail,
                      sqrt_rn, stream_q_flags_lanes, tors_tail)
 from .fused_decode import _check, _cuda_lib, _launch, _ptrs
@@ -194,58 +201,8 @@ def merged_plain(res_code, wire=None, atom14=None):
 
 
 # ---------------------------------------------------------------------------
-# k4 wrapper
+# epilogue, plain
 
-def _pred_table(dev):
-    """The [24, 14, 3] predecessor table on CUDA device `dev`, made once
-    per device: the kernel copies it into shared memory."""
-    tab = _PRED_ON.get(dev)
-    if tab is None:
-        tab = _PRED_ON.setdefault(
-            dev, torch.as_tensor(T.PRED24, device=dev).contiguous())
-    return tab
-
-
-def merged(res_code, wire=None, atom14=None):
-    """k4: the plain version for CPU tensors, the CUDA kernel for CUDA
-    tensors (ValueError for any other device). Same arguments and
-    results as merged_plain."""
-    global K4_LAUNCHES
-    if (wire is None) == (atom14 is None):
-        raise ValueError("pass exactly one of wire and atom14")
-    if res_code.device.type == "cpu":
-        return merged_plain(res_code, wire, atom14)
-    lib = _cuda_lib(res_code)
-    if res_code.dim() != 2:
-        raise ValueError(f"res_code: shape {tuple(res_code.shape)}, "
-                         "expected [B, L]")
-    b, l = res_code.shape
-    dev = res_code.device
-    _check("res_code", res_code, I32, (b, l), dev)
-    if wire is not None:
-        baseT, deltaT, present = wire
-        _check("baseT", baseT, I32, (3, b, l), dev)
-        _check("deltaT", deltaT, torch.int16, (42, b, l), dev)
-        _check("present", present, torch.uint16, (b, l), dev)
-        ins = (baseT.data_ptr(), deltaT.data_ptr(), present.data_ptr(), None)
-    else:
-        _check("atom14", atom14, F32, (b, l, MAX_ATOM, 3), dev)
-        ins = (None, None, None, atom14.data_ptr())
-
-    def planes(n, dtype=F32):
-        return torch.empty((n, b, l), dtype=dtype, device=dev)
-
-    outs = (planes(3), planes(3), planes(3, I32), planes(11),
-            torch.empty((b, l), dtype=I32, device=dev), planes(3), planes(3))
-    if b and l:
-        _launch(lib.fe_merged, "k4 merged encode", dev, *ins,
-                *_ptrs(res_code, _pred_table(dev), *outs), T.PARTS_EPS, b, l)
-        K4_LAUNCHES += 1
-    return outs
-
-
-# ---------------------------------------------------------------------------
-# epilogue and entry points
 
 def _to_bits(planes, shift=0):
     acc = torch.zeros_like(planes[0], dtype=I32)
@@ -257,8 +214,8 @@ def _to_bits(planes, shift=0):
 def parity_tail(parts, res_code, n_res):
     """The lanes-layout epilogue of _fused_parity_jit: acos, error
     budgets, per-protein min/max candidates, quantization, rescue flags
-    and record packing. parts: merged's 7 planes; res_code i32 [B, L];
-    n_res i32 [B]."""
+    and record packing. parts: merged_plain's 7 planes; res_code i32
+    [B, L]; n_res i32 [B]."""
     tcos, bcos, tbits, scc, scb, relt, relb = parts
     l = res_code.shape[1]
     t_ang, t_err = zip(*(tors_tail(tcos[p], tbits[p], relt[p])
@@ -302,15 +259,143 @@ def parity_tail(parts, res_code, n_res):
                 sc_flag_bits=_to_bits(sc_flags).to(torch.uint16))
 
 
+def fused_plain(res_code, n_res, wire=None, atom14=None):
+    """The fused kernel's function in plain PyTorch:
+    parity_tail(merged_plain(...)). Same arguments and results as fused."""
+    return parity_tail(merged_plain(res_code, wire, atom14), res_code,
+                       n_res)
+
+
+# ---------------------------------------------------------------------------
+# the kernel's wrapper
+
+# The epilogue's float constants in the kernel's order (TailK in
+# csrc/fused_encode.cu), as torch rounds the Python scalars of the plain
+# version to float32; 1/nbin in float32, as torch divides a CUDA tensor by
+# a Python float.
+_NBINS = (NBIN_PHI_PSI, NBIN_PHI_PSI, NBIN_OMEGA, NBIN_BOND, NBIN_BOND,
+          NBIN_BOND)
+_TAIL_CONSTS = np.array(
+    [E._EPS, E._DEG, E._BIGERR, E._BIGF, 5e-7, 2e-5, 1e-12, 1e-4,
+     E._SC_DEG, E._SC_DISC_F, E._SC_TOL_F, 2e-4, *_NBINS]
+    + [np.float32(1.0) / np.float32(n) for n in _NBINS], np.float32)
+# the staging of one slot: (angle, error) of six streams
+_STAGE = 12
+
+
+def _pred_table(dev):
+    """The [24, 14, 3] predecessor table on CUDA device `dev`, made once
+    per device: the kernel copies it into shared memory."""
+    tab = _PRED_ON.get(dev)
+    if tab is None:
+        tab = _PRED_ON.setdefault(
+            dev, torch.as_tensor(T.PRED24, device=dev).contiguous())
+    return tab
+
+
+def _check_inputs(res_code, n_res, wire, atom14):
+    """Check the kernel's inputs on one CUDA device -> (B, L, the four
+    loader pointers)."""
+    if res_code.dim() != 2:
+        raise ValueError(f"res_code: shape {tuple(res_code.shape)}, "
+                         "expected [B, L]")
+    b, l = res_code.shape
+    dev = res_code.device
+    _check("res_code", res_code, I32, (b, l), dev)
+    _check("n_res", n_res, I32, (b,), dev)
+    if wire is not None:
+        baseT, deltaT, present = wire
+        _check("baseT", baseT, I32, (3, b, l), dev)
+        _check("deltaT", deltaT, torch.int16, (42, b, l), dev)
+        _check("present", present, torch.uint16, (b, l), dev)
+        return b, l, (baseT.data_ptr(), deltaT.data_ptr(),
+                      present.data_ptr(), None)
+    _check("atom14", atom14, F32, (b, l, MAX_ATOM, 3), dev)
+    return b, l, (None, None, None, atom14.data_ptr())
+
+
+def _empty_outputs(b, l, dev):
+    """The kernel's five output tensors, uninitialised: it writes every
+    element."""
+    u8, u16 = torch.uint8, torch.uint16
+    return dict(records=torch.empty((b, l, 8), dtype=u8, device=dev),
+                bb_flags=torch.empty((b, l), dtype=u8, device=dev),
+                cand_bits=torch.empty((b, l), dtype=u16, device=dev),
+                sc_q=torch.empty((b, l, 11), dtype=u8, device=dev),
+                sc_flag_bits=torch.empty((b, l), dtype=u16, device=dev))
+
+
+def _launch_fused(lib, res_code, n_res, ins, outs, scratch):
+    """One launch of k4_fused_encode on checked inputs: scratch None stages
+    in shared memory, else in scratch (f32 [B, 12, L])."""
+    global K4_LAUNCHES
+    b, l = res_code.shape
+    dev = res_code.device
+    _launch(lib.fe_encode, "k4 fused encode", dev, *ins,
+            *_ptrs(res_code, n_res, _pred_table(dev)),
+            _TAIL_CONSTS.ctypes.data, len(_TAIL_CONSTS),
+            *_ptrs(scratch, *outs.values()), b, l)
+    K4_LAUNCHES += 1
+
+
+def stage_in_shared(lib, dev, l) -> bool:
+    """Whether the kernel stages L slots in shared memory on CUDA device
+    `dev` (else in a global scratch)."""
+    with torch.cuda.device(dev):
+        fits = lib.fe_encode_shared_fits(l)
+    if fits < 0:
+        raise RuntimeError(f"shared-memory limit of {dev}: CUDA error")
+    return bool(fits)
+
+
+def fused(res_code, n_res, wire=None, atom14=None):
+    """The fused encode. res_code i32 [B, L]; n_res i32 [B] (each <= L);
+    exactly one of wire = (baseT i32 [3, B, L], deltaT i16 [42, B, L],
+    present u16 [B, L]) or atom14 f32 [B, L, 14, 3].
+
+    The plain version for CPU tensors, one launch of the CUDA kernel for
+    CUDA tensors (ValueError for any other device). Returns dict(records,
+    bb_flags, cand_bits, sc_q, sc_flag_bits) as parity_tail does."""
+    if (wire is None) == (atom14 is None):
+        raise ValueError("pass exactly one of wire and atom14")
+    if res_code.device.type == "cpu":
+        return fused_plain(res_code, n_res, wire, atom14)
+    lib = _cuda_lib(res_code)
+    b, l, ins = _check_inputs(res_code, n_res, wire, atom14)
+    dev = res_code.device
+    outs = _empty_outputs(b, l, dev)
+    if b and l:
+        scratch = None if stage_in_shared(lib, dev, l) else torch.empty(
+            (b, _STAGE, l), dtype=F32, device=dev)
+        _launch_fused(lib, res_code, n_res, ins, outs, scratch)
+    return outs
+
+
+def acos(x):
+    """The fused kernel's acos (one __device__ function) over a float32
+    tensor: torch.arccos for a CPU tensor, the kernel k4_acos for a CUDA
+    one. chip_smoke.py holds it against torch.arccos on the card."""
+    if x.device.type == "cpu":
+        return torch.arccos(x)
+    lib = _cuda_lib(x)
+    _check("x", x, F32, tuple(x.shape), x.device)
+    y = torch.empty_like(x)
+    if x.numel():
+        _launch(lib.fe_acos, "k4 acos", x.device, *_ptrs(x, y), x.numel())
+    return y
+
+
+# ---------------------------------------------------------------------------
+# entry points
+
 def encode_parity_fused_planar(baseT, deltaT, present, res_code, n_res,
                                n_out: int | None = None):
     """Parity encode from the plane-major compact wire (baseT i32
     [3, B, L], deltaT i16 [42, B, L], present u16 [B, L]; res_code i32
-    [B, L], n_res i32 [B]) through k4 and the epilogue. The tensors'
-    device picks the path. Outputs are sliced to the first n_out
-    proteins when given."""
-    out = parity_tail(merged(res_code, wire=(baseT, deltaT, present)),
-                      res_code, n_res)
+    [B, L], n_res i32 [B]) through the fused kernel. The tensors' device
+    picks the path. Outputs are sliced to the first n_out proteins when
+    given."""
+    out = fused(res_code, n_res, wire=(baseT, deltaT, present))
     if n_out is None or n_out == res_code.shape[0]:
         return out
     return {k: v[:n_out] for k, v in out.items()}
@@ -318,5 +403,5 @@ def encode_parity_fused_planar(baseT, deltaT, present, res_code, n_res,
 
 def encode_parity_f32(atom14, res_code, n_res):
     """Parity encode from f32 atom14 [B, L, 14, 3] (batches off the
-    millimetre grid) through k4's f32 loader and the epilogue."""
-    return parity_tail(merged(res_code, atom14=atom14), res_code, n_res)
+    millimetre grid) through the fused kernel's f32 loader."""
+    return fused(res_code, n_res, atom14=atom14)

@@ -20,9 +20,13 @@ numerics in kernels/encode.py) against the JAX fused encode
   every flagged value, so bytes are still identical (the slice test).
 
 Two JAX batch shapes, each built once per module: interpret mode compiles
-each new shape for ~15 s. The CUDA kernel runs only on the card:
-chip_smoke.py holds it against merged_plain there.
+each new shape for ~15 s. The CUDA kernel (k4 with the epilogue) runs
+only on the card: chip_smoke.py holds its outputs bit-equal to
+parity_tail(merged_plain(...)) there. Here the wrapper's CPU path, the
+values the kernel writes at padding slots, its float constants and its
+ctypes bindings are checked.
 """
+import re
 import sys
 
 import numpy as np
@@ -238,22 +242,113 @@ def test_loaders_agree(grid):
 
 
 def test_wrapper_runs_plain_on_cpu_without_launching(grid):
+    """On CPU tensors the fused kernel's wrapper is its plain version,
+    parity_tail(merged_plain(...)), by either loader, and launches
+    nothing."""
     code = torch.from_numpy(grid["res_code"])
+    n_res = torch.from_numpy(grid["n_res"])
     wire = tuple(torch.from_numpy(a) for a in grid["wire"])
+    want = FE.parity_tail(grid["parts"], code, n_res)
     FE.reset_launch_counts()
-    for a, b in zip(FE.merged(code, wire=wire), grid["parts"]):
-        assert torch.equal(a, b)
+    for got in (FE.fused(code, n_res, wire=wire),
+                FE.fused(code, n_res,
+                         atom14=torch.from_numpy(grid["atom14"]))):
+        assert got.keys() == want.keys()
+        for k, v in want.items():
+            assert got[k].dtype == v.dtype and torch.equal(got[k], v), k
     assert FE.launch_counts() == {"k4": 0}
     with pytest.raises(ValueError):
-        FE.merged(code)
+        FE.fused(code, n_res)
     with pytest.raises(ValueError):
-        FE.merged(code, wire=wire, atom14=torch.zeros(1))
+        FE.fused(code, n_res, wire=wire, atom14=torch.zeros(1))
+    x = torch.linspace(-1.0, 1.0, 257)
+    assert torch.equal(FE.acos(x), torch.arccos(x))
 
 
 def test_wrapper_refuses_other_devices():
     meta = torch.empty((2, 32), dtype=torch.int32, device="meta")
+    n_res = torch.empty((2,), dtype=torch.int32, device="meta")
     with pytest.raises(ValueError):
-        FE.merged(meta, atom14=torch.empty((2, 32, 14, 3), device="meta"))
+        FE.fused(meta, n_res,
+                 atom14=torch.empty((2, 32, 14, 3), device="meta"))
+    with pytest.raises(ValueError):
+        FE.acos(torch.empty((8,), device="meta"))
+
+
+def test_padding_slots_hold_the_constants(grid):
+    """What the CUDA kernel writes without arithmetic: at slots r >= n_res
+    (all-zero coordinates, as every pack leaves them) records, bb_flags
+    and cand_bits 0, every side-chain code 127 and all 11 flags set; at
+    r = n_res - 1 the record holds the residue code alone."""
+    code = torch.from_numpy(grid["res_code"])
+    n_res = torch.from_numpy(grid["n_res"])
+    l = code.shape[1]
+    pad = np.arange(l)[None, :] >= grid["n_res"][:, None]
+    last = np.arange(l)[None, :] == grid["n_res"][:, None] - 1
+    assert pad.sum() > l
+    for parts in (grid["parts"], FE.merged_plain(
+            code, atom14=torch.from_numpy(grid["atom14"]))):
+        out = {k: v.numpy() for k, v in
+               FE.parity_tail(parts, code, n_res).items()}
+        assert (out["records"][pad] == 0).all()
+        assert (out["bb_flags"][pad | last] == 0).all()
+        assert (out["cand_bits"][pad | last] == 0).all()
+        assert (out["sc_q"][pad] == 127).all()
+        assert (out["sc_flag_bits"][pad] == 0x7FF).all()
+        rec = out["records"][last]
+        assert np.array_equal(rec[:, 0], (grid["res_code"][last] & 31) << 3)
+        assert (rec[:, 1:] == 0).all()
+
+
+def test_tail_consts_are_the_plain_versions_scalars():
+    """The kernel's float constants (TailK) are the float32 values torch
+    gives the plain epilogue's Python scalars, in TailK's order."""
+    c = FE._TAIL_CONSTS
+    assert c.dtype == np.float32 and c.shape == (24,)
+    want = [E._EPS, E._DEG, E._BIGERR, E._BIGF, 5e-7, 2e-5, 1e-12, 1e-4,
+            E._SC_DEG, E._SC_DISC_F, E._SC_TOL_F, 2e-4]
+    assert np.array_equal(c[:12], np.asarray(want, np.float32))
+    nbins = np.asarray([T.NBIN_PHI_PSI] * 2 + [T.NBIN_OMEGA]
+                       + [T.NBIN_BOND] * 3, np.float32)
+    assert np.array_equal(c[12:18], nbins)
+    assert np.array_equal(c[18:], np.float32(1.0) / nbins)
+    src = open(FE.__file__.replace("fused_encode.py",
+                                   "csrc/fused_encode.cu")).read()
+    body = src[src.index("struct TailK {"):src.index("};", src.index(
+        "struct TailK {"))]
+    fields = re.findall(r"float (\w+)(\[kStreams\])?;", body)
+    assert sum(6 if arr else 1 for _, arr in fields) == c.shape[0]
+
+
+def test_bind_sets_the_encode_argtypes():
+    """build._bind gives each launcher of fused_encode.cu one ctypes type
+    a C parameter: c_void_p for a pointer or the stream, c_int for an
+    int."""
+    import ctypes
+    import types
+    from foldcomp_tpu_torch.kernels import build
+
+    class Lib:
+        def __getattr__(self, name):
+            fn = types.SimpleNamespace()
+            setattr(self, name, fn)
+            return fn
+
+    lib = build._bind(Lib())
+    src = open(build.SOURCES[1]).read()
+    kinds = {"int": ctypes.c_int, "cudaStream_t": ctypes.c_void_p}
+    sigs = re.findall(r"\n(?:cudaError_t|int|size_t) (fe_\w+)\(([^)]*)\)",
+                      src)
+    assert {n for n, _ in sigs} == {"fe_encode", "fe_acos",
+                                    "fe_encode_shared_fits",
+                                    "fe_encode_smem"}
+    for name, params in sigs:
+        want = [ctypes.c_void_p if "*" in p else kinds[p.split()[0]]
+                for p in params.split(",")]
+        assert getattr(lib, name).argtypes == want, name
+    assert lib.fe_encode.argtypes[0] is ctypes.c_void_p
+    assert lib.fe_encode.restype is ctypes.c_int
+    assert lib.fe_encode_smem.restype is ctypes.c_size_t
 
 
 def test_build_steps_report_the_failing_command():
