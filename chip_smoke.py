@@ -39,20 +39,18 @@ non-zero:
    must have launched;
 7. encode_kernels: the fused encode kernel (k4 with the epilogue) against
    its plain version, parity_tail(merged_plain(...)), on the same inputs:
-   a mixed 256-entry batch of the 8 lengths by the compact wire, by the
-   f32 loader and with the staging forced into the global scratch, a batch
-   longer than 1536 residues, degenerate frames, and proteins of 6,200
-   residues, whose staging takes the global scratch. Its five outputs
-   bit-equal on every slot. Then the kernel's acos against torch.arccos on
-   every float32 in [-1, 1]: 0 mismatches;
+   a mixed 256-entry batch of the 8 lengths by the compact wire and by the
+   f32 loader, a batch longer than 1536 residues, degenerate frames, and
+   proteins of 6,200 residues by each loader. Its five outputs bit-equal
+   on every slot. Then the kernel's acos against torch.arccos on every
+   float32 in [-1, 1]: 0 mismatches;
 8. encode_parity: the port's batched encode against the exact encoder,
    FCZ bytes identical for every entry of a fuzz corpus (8 lengths x 3
    seeds, n_res < 4, degenerate and off-grid frames), with the share of
    values flagged for host rescue;
 9. encode_device: one CLI batch, B=2048 entries of the 8 lengths packed
-   by the native wire: pack and H2D seconds; the fused kernel, with the
-   staging in shared memory and in the global scratch, against its plain
-   version, and the whole device encode, by CUDA events; the device
+   by the native wire: pack and H2D seconds; the fused kernel against its
+   plain version and the whole device encode, by CUDA events; the device
    encode's kernels by torch.profiler; the CLI's host stages;
 10. e2e_compress: `python -m foldcomp_tpu_torch compress --fast <dir>
    <db> --db` on 4096 PDB files in a subprocess, timed; every entry
@@ -368,21 +366,22 @@ def degenerate_frames():
 
 
 def pack_batch(tensors, dev):
-    """What encode_submit hands k4 for these fragment tensors, on `dev`:
-    the native plane-major wire (None when the batch is off the compact
-    form) and the filled atom14, with the seconds of the pack and of the
-    H2D copies of the wire."""
+    """What encode_submit hands the fused encode kernel for these fragment
+    tensors, on `dev`, in its order (longest first): the native
+    plane-major wire (None when the batch is off the compact form) and the
+    filled atom14, with the seconds of the pack and of the H2D copies of
+    the wire."""
     import numpy as np
     import torch
 
-    from foldcomp_tpu_torch.codec.batch import _pack_encode_wire
+    from foldcomp_tpu_torch.codec.batch import _pack_encode_wire, longest_first
 
-    live = [(i, t[:3]) for i, t in enumerate(tensors)]
+    live = longest_first([(i, t[:3]) for i, t in enumerate(tensors)])
     b = len(live)
-    n_res = np.asarray([t[0].shape[0] for t in tensors], np.int32)
+    n_res = np.asarray([t[0].shape[0] for _, t in live], np.int32)
     l = -(-int(n_res.max()) // 32) * 32
     res_code = np.zeros((b, l), np.int32)
-    for k, t in enumerate(tensors):
+    for k, (_, t) in enumerate(live):
         res_code[k, :n_res[k]] = t[1]
     atom14 = np.empty((b, l, 14, 3), np.float32)
     t0 = time.perf_counter()
@@ -413,30 +412,6 @@ def hold_fused(label, got, want):
     worst = max(float((got[k].int() - want[k].int()).abs().max())
                 for k in ENC_KEYS)
     return mism, [f"{label}: {k}" for k, v in mism.items() if v], worst
-
-
-def fused_global(bt, loader):
-    """The fused kernel on pack_batch's batch with its staging forced into
-    a global scratch. -> (outputs, a function that launches it again)."""
-    import torch
-
-    from foldcomp_tpu_torch.kernels import fused_decode as FD
-    from foldcomp_tpu_torch.kernels import fused_encode as FE
-
-    code, n_res = bt["code"], bt["n_res"]
-    wire, atom14 = ((bt["wire"], None) if loader == "wire"
-                    else (None, bt["atom14"]))
-    _, _, ins = FE._check_inputs(code, n_res, wire, atom14)
-    outs = FE._empty_outputs(bt["b"], bt["l"], code.device)
-    scratch = torch.empty((bt["b"], FE._STAGE, bt["l"]),
-                          dtype=torch.float32, device=code.device)
-    lib = FD._cuda_lib(code)
-
-    def run():
-        FE._launch_fused(lib, code, n_res, ins, outs, scratch)
-
-    run()
-    return outs, run
 
 
 def acos_check(dev):
@@ -474,7 +449,6 @@ def encode_kernels(dev):
     import torch
 
     from foldcomp_tpu_torch.codec.batch_host import fragment_to_tensors
-    from foldcomp_tpu_torch.kernels import fused_decode as FD
     from foldcomp_tpu_torch.kernels import fused_encode as FE
     from foldcomp_tpu_torch.verify import on_milli_grid
 
@@ -492,33 +466,22 @@ def encode_kernels(dev):
              ("degenerate", tens(degenerate_frames()), "wire"),
              ("huge", huge * 3 + mixed[:5], "wire"),
              ("huge_f32", huge * 3 + mixed[:5], "atom14"))
-    lib = FD._cuda_lib(torch.empty(0, device=dev))
     worst = 0.0
     for label, tensors, loader in cases:
         bt = pack_batch(tensors, dev)
         if bt["wire"] is None:
             raise AssertionError(f"{label}: batch is off the compact form")
         arg = {loader: bt[loader]}
-        want = FE.fused_plain(bt["code"], bt["n_res"], **arg)
-        runs = [("auto", FE.fused(bt["code"], bt["n_res"], **arg))]
-        if label == "mixed256":
-            runs.append(("global", fused_global(bt, loader)[0]))
-        shared = FE.stage_in_shared(lib, dev, bt["l"])
-        if label.startswith("huge") and shared:
-            raise AssertionError(f"{label}: L {bt['l']} stages in shared "
-                                 "memory, not in the global scratch")
-        for stage, got in runs:
-            mism, bad, w = hold_fused(f"{label} {stage}", got, want)
-            torch.cuda.synchronize()
-            emit("encode_kernels", case=label, loader=loader, b=bt["b"],
-                 l=bt["l"], residues=bt["residues"],
-                 staging=("shared" if shared else "global")
-                 if stage == "auto" else stage,
-                 mismatches=mism, max_abs=w, tol=K4_TOL)
-            if bad:
-                raise AssertionError(f"fused encode vs plain: {bad}")
-            worst = max(worst, w)
-        del want, runs
+        mism, bad, w = hold_fused(
+            label, FE.fused(bt["code"], bt["n_res"], **arg),
+            FE.fused_plain(bt["code"], bt["n_res"], **arg))
+        torch.cuda.synchronize()
+        emit("encode_kernels", case=label, loader=loader, b=bt["b"],
+             l=bt["l"], residues=bt["residues"], mismatches=mism,
+             max_abs=w, tol=K4_TOL)
+        if bad:
+            raise AssertionError(f"fused encode vs plain: {bad}")
+        worst = max(worst, w)
     t0 = time.perf_counter()
     n, bad, first = acos_check(dev)
     emit("encode_acos", values=n, mismatches=bad, first_mismatch=first,
@@ -606,11 +569,10 @@ def device_kernels(torch, fn):
 def encode_device(dev, card):
     """Phase 9: one CLI batch through the fused kernel and its plain
     version, timed with CUDA events in turns and held against each other;
-    the kernel with its staging in the global scratch; the device encode
-    (encode_parity_fused_planar) and its kernels; then the same batch
-    through the CLI's host stages, timed on the host clock. -> {"ms",
-    "plain_ms", "max_abs_err", "bound_ms", "bound_by"} of the fused
-    kernel."""
+    the device encode (encode_parity_fused_planar) and its kernels; then
+    the same batch through the CLI's host stages, timed on the host clock.
+    -> {"ms", "plain_ms", "max_abs_err", "bound_ms", "bound_by"} of the
+    fused kernel."""
     import torch
 
     from foldcomp_tpu_torch.codec.batch import encode_finish, encode_submit
@@ -637,27 +599,20 @@ def encode_device(dev, card):
     def device_encode():
         return FE.encode_parity_fused_planar(*wire, code, n_res)
 
-    out_g, kern_global = fused_global(bt, "wire")
     p1 = cuda_ms(torch, plain, 2)
     k1 = cuda_ms(torch, kern, 20)
-    g1 = cuda_ms(torch, kern_global, 20)
     e1 = cuda_ms(torch, device_encode, 20)
     e2 = cuda_ms(torch, device_encode, 20)
-    g2 = cuda_ms(torch, kern_global, 20)
     k2 = cuda_ms(torch, kern, 20)
     p2 = cuda_ms(torch, plain, 2)
     # the timed batch is the main path's shape: hold it as phase 7 does
-    want = plain()
-    mism, bad, worst = hold_fused("cli_batch", kern(), want)
-    mism_g, bad_g, _ = hold_fused("cli_batch global", out_g, want)
-    del want
+    mism, bad, worst = hold_fused("cli_batch", kern(), plain())
     torch.cuda.synchronize()
     names = device_kernels(torch, device_encode)
     emit("encode_device_kernels", entries=bt["b"], l=bt["l"],
-         mismatches=mism, global_staging_mismatches=mism_g, tol=K4_TOL,
-         device_encode_kernels=names)
-    if bad or bad_g:
-        raise AssertionError(f"fused encode vs plain: {bad + bad_g}")
+         mismatches=mism, tol=K4_TOL, device_encode_kernels=names)
+    if bad:
+        raise AssertionError(f"fused encode vs plain: {bad}")
     if names is not None and len(names) != 1:
         raise AssertionError(f"the device encode ran {len(names)} device "
                              f"kernels: {names}")
@@ -686,9 +641,7 @@ def encode_device(dev, card):
         pack_seconds=bt["pack_seconds"], h2d_seconds=bt["h2d_seconds"],
         d2h_seconds=d2h_s, d2h_bytes=sum(v.nbytes for v in host.values()),
         k4_ms=kern_ms, k4_plain_ms=min(p1, p2),
-        k4_global_staging_ms=min(g1, g2),
-        k4_runs_ms={"plain": [p1, p2], "kernel": [k1, k2],
-                    "global_staging": [g1, g2]},
+        k4_runs_ms={"plain": [p1, p2], "kernel": [k1, k2]},
         device_encode_ms=enc_ms, device_encode_runs_ms=[e1, e2],
         device_encode_kernel_count=None if names is None else len(names),
         device_encode_residues_per_s=bt["residues"] / (enc_ms * 1e-3))

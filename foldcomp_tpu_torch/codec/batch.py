@@ -328,21 +328,30 @@ def _h2d(a, dev):
     return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
 
 
+def longest_first(live):
+    """(index, fragment tensors) pairs ordered longest first, stably. The
+    fused encode kernel runs one block per batch row in launch order, so
+    the long proteins start first and the short ones fill the tail."""
+    return sorted(live, key=lambda it: -it[1][0].shape[0])
+
+
 def encode_submit(frag_tensors, frag_meta, anchor_threshold: int = 25,
                   l_bucket: int = 32, device=None,
                   native_wire: bool = True):
     """Stage 1 of the batched device encode: pad, pack, ship, launch.
 
-    Pads the live fragments into one batch and builds the compact wire:
-    natively and plane-major, or (native_wire=False, or no native library)
-    with the numpy pass and a plane-major permute on the device. A batch
+    Pads the live fragments into one batch, longest first, and builds the
+    compact wire: natively and plane-major, or (native_wire=False, or no
+    native library) with the numpy pass and a plane-major permute on the
+    device. A batch
     off the millimetre grid ships f32 atom14 instead. Launches the fused
     encode kernel (k4 with its epilogue) without waiting for it and
     returns a handle for encode_finish, so the caller can pack the next
     batch while this one runs. handle["wire"] names the route:
     "native", "numpy" or "f32"."""
     dev = resolve_device(device)
-    live = [(i, t) for i, t in enumerate(frag_tensors) if t is not None]
+    live = longest_first([(i, t) for i, t in enumerate(frag_tensors)
+                          if t is not None])
     if not live:
         return dict(n=len(frag_tensors), live=[])
     b = len(live)

@@ -121,12 +121,9 @@ def _bind(lib):
     lib.fd_sidechain.argtypes = [vp] * 8 + [ci, ci, ci, vp]
     lib.fe_encode.argtypes = [vp] * 8 + [ci] + [vp] * 6 + [ci, ci, vp]
     lib.fe_acos.argtypes = [vp, vp, ci, vp]
-    lib.fe_encode_shared_fits.argtypes = [ci]
-    lib.fe_encode_smem.argtypes = [ci, ci]
-    lib.fe_encode_smem.restype = ctypes.c_size_t
     for fn in (lib.fd_set_tables, lib.fd_tails, lib.fd_backbone,
                lib.fd_backbone_bb, lib.fd_bb_out, lib.fd_sidechain,
-               lib.fe_encode, lib.fe_acos, lib.fe_encode_shared_fits):
+               lib.fe_encode, lib.fe_acos):
         fn.restype = ci
     return lib
 

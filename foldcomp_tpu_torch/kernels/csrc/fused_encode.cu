@@ -28,11 +28,13 @@
 //     predecessors index it at run time). Thread r computes its residue's
 //     three torsion and three bond cosines with their tie/guard bits (the
 //     double-f32 emulation), their angles and error budgets (tors_tail,
-//     bond_tail), and stages (angle, error) of the six streams: 12 floats
-//     a residue, plane-major. Stream 3 (N-CA-C of residue i+1) is residue
-//     r's bond plane 0, staged at slot r-1. The eleven side-chain cosines
-//     are quantized at once (sc_quant_tail): codes through a shared tile
-//     as whole contiguous bytes, flags straight out.
+//     bond_tail), and stages (angle, error) of the six streams, 12 floats
+//     a residue, in a scratch [B, 12, L] in global memory that the
+//     wrapper allocates (it stays in L2 while the block sweeps it). Stream
+//     3 (N-CA-C of residue i+1) is residue r's bond plane 0, staged at
+//     slot r-1. The eleven side-chain cosines are quantized at once
+//     (sc_quant_tail): codes through a shared tile as whole contiguous
+//     bytes, flags straight out.
 //  B. Block reductions per stream, in stream_q_flags_lanes' order: the
 //     candidate bounds and the angle range, then the error budgets of the
 //     candidates; a max over NaN-propagating pairs (a min as the max of
@@ -41,11 +43,15 @@
 //     and the 8-byte record; slots r >= n get the function's values at
 //     all-zero coordinates without arithmetic (records 0, flags 0,
 //     side-chain codes 127, side-chain flags 0x7FF).
-// The staging lives in dynamic shared memory where it fits the card's
-// opt-in limit (48 B a slot: L <= 3781 on an H100), else in a global
-// scratch [B, 12, L] that the wrapper allocates; the same code runs on
-// both. The predecessor table is copied to shared memory per block
-// (per-lane indices into __constant__ memory serialise).
+// So any length takes the same path, and a block holds 47.9 KB of shared
+// memory whatever L: three blocks of 256 threads an SM (79 registers a
+// thread), where staging in shared memory (48 B a slot, 52 KB more at
+// L 1088) allowed two and ran slower (PERF.md). A tile's 42 coordinate
+// loads are unrolled, so they are in flight together. The predecessor
+// table is copied to shared memory per block as bytes (per-lane indices
+// into __constant__ memory serialise). Blocks start in launch order, so
+// the batch's order sets the tail: encode_submit puts the longest
+// proteins first.
 //
 // Bound: 102 B in a real residue (42 deltas, 3 bases, present, code), 24 B
 // out a slot of [B, L], and ~2.9k float operations a real residue
@@ -75,7 +81,8 @@ constexpr int kWarps = kThreads / 32;
 constexpr int kCol = kThreads + 1;     // the tile's residues and the next
 constexpr int kCodes = 24;             // PRED_IDX rows; codes clip to 0..23
 constexpr int kPred = kCodes * kAtoms * 3;
-constexpr int kStreams = 6;            // phi, psi, omega, n_ca_c, ca_c_n, c_n_ca
+// streams: phi, psi, omega, n_ca_c, ca_c_n, c_n_ca
+constexpr int kStreams = 6;
 constexpr int kStage = 2 * kStreams;   // staged (angle, error) a residue
 constexpr int kRound1 = 4 * kStreams;
 constexpr int kRound2 = 2 * kStreams;
@@ -99,20 +106,6 @@ struct TailK {
   float inv_nbin[kStreams];  // 1 / nbin in float32
 };
 constexpr int kNConsts = sizeof(TailK) / sizeof(float);
-
-// dynamic shared memory, byte offsets
-constexpr size_t kOffPred = 0;
-constexpr size_t kOffXyz = kOffPred + kPred * sizeof(int);
-constexpr size_t kOffScq = kOffXyz + (size_t)kSlots * kCol * sizeof(float);
-constexpr size_t kOffRed = kOffScq + (kThreads * kSc + 15) / 16 * 16;
-constexpr size_t kOffRes = kOffRed + (size_t)kWarps * kRound1 * sizeof(float);
-constexpr size_t kOffStage =
-    kOffRes + (kRound1 + kRound2 + 3) / 4 * 4 * sizeof(float);
-
-size_t smem_bytes(int n_l, bool shared_stage) {
-  return kOffStage +
-         (shared_stage ? (size_t)kStage * n_l * sizeof(float) : 0);
-}
 
 struct V {
   float x, y, z;
@@ -356,7 +349,8 @@ __device__ __forceinline__ void block_max(float (&v)[N], float* s_red,
   __syncthreads();
   if (threadIdx.x < N) {
     float a = s_red[threadIdx.x];
-    for (int w = 1; w < kWarps; ++w) a = max_nan2(a, s_red[w * N + threadIdx.x]);
+    for (int w = 1; w < kWarps; ++w)
+      a = max_nan2(a, s_red[w * N + threadIdx.x]);
     s_out[threadIdx.x] = a;
   }
   __syncthreads();
@@ -372,19 +366,18 @@ __global__ void __launch_bounds__(kThreads, 2)
                     const float* __restrict__ atom14,
                     const int32_t* __restrict__ res_code,
                     const int32_t* __restrict__ n_res,
-                    const int32_t* __restrict__ pred, const TailK k,
+                    const uint8_t* __restrict__ pred, const TailK k,
                     float* __restrict__ scratch,
                     uint8_t* __restrict__ records,
                     uint8_t* __restrict__ bb_flags,
                     uint16_t* __restrict__ cand_bits,
                     uint8_t* __restrict__ sc_q,
                     uint16_t* __restrict__ sc_flag_bits, int n_b, int n_l) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  int* s_pred = reinterpret_cast<int*>(smem + kOffPred);
-  float* s_xyz = reinterpret_cast<float*>(smem + kOffXyz);
-  uint8_t* s_scq = smem + kOffScq;
-  float* s_red = reinterpret_cast<float*>(smem + kOffRed);
-  float* s_res = reinterpret_cast<float*>(smem + kOffRes);
+  __shared__ uint8_t s_pred[kPred];
+  __shared__ float s_xyz[kSlots * kCol];
+  __shared__ uint8_t s_scq[kThreads * kSc];
+  __shared__ float s_red[kWarps * kRound1];
+  __shared__ float s_res[kRound1 + kRound2];
   const int t = threadIdx.x;
   const int b = blockIdx.x;
   const int n = min(max(n_res[b], 0), n_l);
@@ -392,9 +385,7 @@ __global__ void __launch_bounds__(kThreads, 2)
   const size_t row = (size_t)b * n_l;
   // stage c of slot i at st[c * n_l + i]: c = 2 * stream + (0 angle,
   // 1 error)
-  float* st = scratch != nullptr
-                  ? scratch + (size_t)b * kStage * n_l
-                  : reinterpret_cast<float*>(smem + kOffStage);
+  float* st = scratch + (size_t)b * kStage * n_l;
 
   for (int i = t; i < kPred; i += kThreads) s_pred[i] = pred[i];
 
@@ -404,7 +395,7 @@ __global__ void __launch_bounds__(kThreads, 2)
     for (int c = t; c < ncol; c += kThreads) {
       const size_t o = row + r0 + c;
       const int pres = kF32 ? 0 : (int)present[o];
-#pragma unroll 6
+#pragma unroll
       for (int j = 0; j < kSlots; ++j)
         s_xyz[j * kCol + c] =
             load_coord<kF32>(baseT, deltaT, pres, atom14, plane, o, j);
@@ -456,7 +447,7 @@ __global__ void __launch_bounds__(kThreads, 2)
       }
       // side chains: slots 3..13 from their three predecessors
       const int code = min(max(res_code[row + r], 0), kCodes - 1);
-      const int* pr = s_pred + code * kAtoms * 3;
+      const uint8_t* pr = s_pred + code * kAtoms * 3;
       int flags = 0;
       for (int a = 3; a < kAtoms; ++a) {
         const V p0 = at(pr[3 * a], t), p1 = at(pr[3 * a + 1], t),
@@ -551,8 +542,9 @@ __global__ void __launch_bounds__(kThreads, 2)
       }
       // bitpack.pack_records: phi, psi, omega, n_ca_c, ca_c_n, c_n_ca
       const uint32_t res = (uint32_t)res_code[o] & 0x1F;
-      const uint32_t phi = (uint32_t)q[0] & 0xFFF, psi = (uint32_t)q[1] & 0xFFF,
-                     omg = (uint32_t)q[2] & 0x7FF;
+      const uint32_t phi = (uint32_t)q[0] & 0xFFF;
+      const uint32_t psi = (uint32_t)q[1] & 0xFFF;
+      const uint32_t omg = (uint32_t)q[2] & 0x7FF;
       w0 = ((res << 3) | (omg >> 8)) | ((omg & 0xFF) << 8) |
            ((psi >> 4) << 16) | ((((psi & 0xF) << 4) | (phi >> 8)) << 24);
       w1 = (phi & 0xFF) | (((uint32_t)q[4] & 0xFF) << 8) |
@@ -582,48 +574,31 @@ __global__ void k4_acos(const float* __restrict__ x, float* __restrict__ y,
 
 extern "C" {
 
-// Dynamic shared memory of a launch over L = n_l residue slots, with the
-// staging in shared memory (shared_stage != 0) or in a global scratch.
-size_t fe_encode_smem(int n_l, int shared_stage) {
-  return smem_bytes(n_l, shared_stage != 0);
-}
-
-// 1 if the staging of n_l slots fits the current device's shared memory,
-// 0 if it needs the global scratch, -1 on a CUDA error.
-int fe_encode_shared_fits(int n_l) {
-  int dev, limit;
-  if (cudaGetDevice(&dev) != cudaSuccess ||
-      cudaDeviceGetAttribute(&limit, cudaDevAttrMaxSharedMemoryPerBlockOptin,
-                             dev) != cudaSuccess)
-    return -1;
-  return smem_bytes(n_l, true) <= (size_t)limit ? 1 : 0;
-}
-
 // The fused encode over B proteins of L residue slots. atom14 == NULL
 // selects the compact loader (baseT, deltaT, present); otherwise those
-// three are unused. consts: n_consts host floats in TailK's order.
-// scratch: NULL stages in shared memory, else f32 [B, 12, L].
+// three are unused. pred: the u8 [24, 14, 3] predecessor table on the
+// device. consts: n_consts host floats in TailK's order. scratch: f32
+// [B, 12, L].
 cudaError_t fe_encode(const int32_t* baseT, const int16_t* deltaT,
                       const uint16_t* present, const float* atom14,
                       const int32_t* res_code, const int32_t* n_res,
-                      const int32_t* pred, const float* consts, int n_consts,
+                      const uint8_t* pred, const float* consts, int n_consts,
                       float* scratch, uint8_t* records, uint8_t* bb_flags,
                       uint16_t* cand_bits, uint8_t* sc_q,
                       uint16_t* sc_flag_bits, int n_b, int n_l,
                       cudaStream_t stream) {
-  if (n_consts != kNConsts) return cudaErrorInvalidValue;
+  if (n_consts != kNConsts || scratch == nullptr)
+    return cudaErrorInvalidValue;
   TailK k;
   memcpy(&k, consts, sizeof k);
-  const size_t smem = smem_bytes(n_l, scratch == nullptr);
-  auto kern = atom14 != nullptr ? k4_fused_encode<true>
-                                : k4_fused_encode<false>;
-  const cudaError_t e = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (e != cudaSuccess) return e;
-  kern<<<n_b, kThreads, smem, stream>>>(baseT, deltaT, present, atom14,
-                                        res_code, n_res, pred, k, scratch,
-                                        records, bb_flags, cand_bits, sc_q,
-                                        sc_flag_bits, n_b, n_l);
+  if (atom14 != nullptr)
+    k4_fused_encode<true><<<n_b, kThreads, 0, stream>>>(
+        baseT, deltaT, present, atom14, res_code, n_res, pred, k, scratch,
+        records, bb_flags, cand_bits, sc_q, sc_flag_bits, n_b, n_l);
+  else
+    k4_fused_encode<false><<<n_b, kThreads, 0, stream>>>(
+        baseT, deltaT, present, atom14, res_code, n_res, pred, k, scratch,
+        records, bb_flags, cand_bits, sc_q, sc_flag_bits, n_b, n_l);
   return cudaGetLastError();
 }
 

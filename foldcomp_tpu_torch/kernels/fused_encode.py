@@ -17,7 +17,9 @@ sc_flag_bits u16 [B, L]. Residues lie on the last axis throughout.
   flags, record packing) or an error. There is no fallback from a CUDA
   tensor to the plain version;
 - K4_LAUNCHES is raised by one where the kernel is launched and nowhere
-  else.
+  else;
+- `acos` runs the kernel's one libm function alone (k4_acos), which
+  chip_smoke.py holds against torch.arccos on every float in [-1, 1].
 
 The kernel takes either loader: the compact wire (`encode_parity_fused_
 planar`) or f32 atom14 (`encode_parity_f32`, for batches off the
@@ -34,8 +36,8 @@ import torch
 
 from ..core import tables as T
 from ..core.tables import NBIN_BOND, NBIN_OMEGA, NBIN_PHI_PSI
-from .bitpack import pack_records
 from . import encode as E
+from .bitpack import pack_records
 from .encode import (bond_tail, cos_f64_emul, div1000_cr, sc_quant_tail,
                      sqrt_rn, stream_q_flags_lanes, tors_tail)
 from .fused_decode import _check, _cuda_lib, _launch, _ptrs
@@ -46,7 +48,7 @@ MAX_ATOM = 14
 
 K4_LAUNCHES = 0
 
-_PRED_ON: dict = {}      # CUDA device -> the [24, 14, 3] table on it
+_PRED_ON: dict = {}      # CUDA device -> the u8 [24, 14, 3] table on it
 
 
 def reset_launch_counts() -> None:
@@ -284,18 +286,29 @@ _STAGE = 12
 
 
 def _pred_table(dev):
-    """The [24, 14, 3] predecessor table on CUDA device `dev`, made once
-    per device: the kernel copies it into shared memory."""
+    """The u8 [24, 14, 3] predecessor table on CUDA device `dev`, made
+    once per device: the kernel copies it into shared memory."""
     tab = _PRED_ON.get(dev)
     if tab is None:
-        tab = _PRED_ON.setdefault(
-            dev, torch.as_tensor(T.PRED24, device=dev).contiguous())
+        tab = _PRED_ON.setdefault(dev, torch.as_tensor(
+            T.PRED24, dtype=torch.uint8, device=dev).contiguous())
     return tab
 
 
-def _check_inputs(res_code, n_res, wire, atom14):
-    """Check the kernel's inputs on one CUDA device -> (B, L, the four
-    loader pointers)."""
+def fused(res_code, n_res, wire=None, atom14=None):
+    """The fused encode. res_code i32 [B, L]; n_res i32 [B] (each <= L);
+    exactly one of wire = (baseT i32 [3, B, L], deltaT i16 [42, B, L],
+    present u16 [B, L]) or atom14 f32 [B, L, 14, 3].
+
+    The plain version for CPU tensors, one launch of the CUDA kernel for
+    CUDA tensors (ValueError for any other device). Returns dict(records,
+    bb_flags, cand_bits, sc_q, sc_flag_bits) as parity_tail does."""
+    global K4_LAUNCHES
+    if (wire is None) == (atom14 is None):
+        raise ValueError("pass exactly one of wire and atom14")
+    if res_code.device.type == "cpu":
+        return fused_plain(res_code, n_res, wire, atom14)
+    lib = _cuda_lib(res_code)
     if res_code.dim() != 2:
         raise ValueError(f"res_code: shape {tuple(res_code.shape)}, "
                          "expected [B, L]")
@@ -308,66 +321,26 @@ def _check_inputs(res_code, n_res, wire, atom14):
         _check("baseT", baseT, I32, (3, b, l), dev)
         _check("deltaT", deltaT, torch.int16, (42, b, l), dev)
         _check("present", present, torch.uint16, (b, l), dev)
-        return b, l, (baseT.data_ptr(), deltaT.data_ptr(),
-                      present.data_ptr(), None)
-    _check("atom14", atom14, F32, (b, l, MAX_ATOM, 3), dev)
-    return b, l, (None, None, None, atom14.data_ptr())
-
-
-def _empty_outputs(b, l, dev):
-    """The kernel's five output tensors, uninitialised: it writes every
-    element."""
+        ins = _ptrs(baseT, deltaT, present, None)
+    else:
+        _check("atom14", atom14, F32, (b, l, MAX_ATOM, 3), dev)
+        ins = _ptrs(None, None, None, atom14)
     u8, u16 = torch.uint8, torch.uint16
-    return dict(records=torch.empty((b, l, 8), dtype=u8, device=dev),
+    outs = dict(records=torch.empty((b, l, 8), dtype=u8, device=dev),
                 bb_flags=torch.empty((b, l), dtype=u8, device=dev),
                 cand_bits=torch.empty((b, l), dtype=u16, device=dev),
                 sc_q=torch.empty((b, l, 11), dtype=u8, device=dev),
                 sc_flag_bits=torch.empty((b, l), dtype=u16, device=dev))
-
-
-def _launch_fused(lib, res_code, n_res, ins, outs, scratch):
-    """One launch of k4_fused_encode on checked inputs: scratch None stages
-    in shared memory, else in scratch (f32 [B, 12, L])."""
-    global K4_LAUNCHES
-    b, l = res_code.shape
-    dev = res_code.device
-    _launch(lib.fe_encode, "k4 fused encode", dev, *ins,
-            *_ptrs(res_code, n_res, _pred_table(dev)),
-            _TAIL_CONSTS.ctypes.data, len(_TAIL_CONSTS),
-            *_ptrs(scratch, *outs.values()), b, l)
-    K4_LAUNCHES += 1
-
-
-def stage_in_shared(lib, dev, l) -> bool:
-    """Whether the kernel stages L slots in shared memory on CUDA device
-    `dev` (else in a global scratch)."""
-    with torch.cuda.device(dev):
-        fits = lib.fe_encode_shared_fits(l)
-    if fits < 0:
-        raise RuntimeError(f"shared-memory limit of {dev}: CUDA error")
-    return bool(fits)
-
-
-def fused(res_code, n_res, wire=None, atom14=None):
-    """The fused encode. res_code i32 [B, L]; n_res i32 [B] (each <= L);
-    exactly one of wire = (baseT i32 [3, B, L], deltaT i16 [42, B, L],
-    present u16 [B, L]) or atom14 f32 [B, L, 14, 3].
-
-    The plain version for CPU tensors, one launch of the CUDA kernel for
-    CUDA tensors (ValueError for any other device). Returns dict(records,
-    bb_flags, cand_bits, sc_q, sc_flag_bits) as parity_tail does."""
-    if (wire is None) == (atom14 is None):
-        raise ValueError("pass exactly one of wire and atom14")
-    if res_code.device.type == "cpu":
-        return fused_plain(res_code, n_res, wire, atom14)
-    lib = _cuda_lib(res_code)
-    b, l, ins = _check_inputs(res_code, n_res, wire, atom14)
-    dev = res_code.device
-    outs = _empty_outputs(b, l, dev)
     if b and l:
-        scratch = None if stage_in_shared(lib, dev, l) else torch.empty(
-            (b, _STAGE, l), dtype=F32, device=dev)
-        _launch_fused(lib, res_code, n_res, ins, outs, scratch)
+        # each slot's angle and error of six streams; freed on return,
+        # when the launch is queued: its memory is reused only by work
+        # ordered after it on the stream
+        scratch = torch.empty((b, _STAGE, l), dtype=F32, device=dev)
+        _launch(lib.fe_encode, "k4 fused encode", dev, *ins,
+                *_ptrs(res_code, n_res, _pred_table(dev)),
+                _TAIL_CONSTS.ctypes.data, len(_TAIL_CONSTS),
+                *_ptrs(scratch, *outs.values()), b, l)
+        K4_LAUNCHES += 1
     return outs
 
 
