@@ -71,7 +71,22 @@ non-zero:
    chooses; then `decompress --fast` on phase 5's database with
    FOLDCOMP_TPU_WIRE=bb in a subprocess, 64 sampled outputs held to phase
    5's bound, and the same entry point in this process with the launch
-   counters around it: k2_bb must have launched and k3 not.
+   counters around it: k2_bb must have launched and k3 not;
+12. db_jobs, the database jobs through the hybrid CPU + GPU scheduler
+   (after phase 11's CLI parts, on phase 5's database, with -t T,
+   T = min(8, CPU count)): `warmup` in a subprocess with HOME in a scratch
+   directory (its estimate only in .cache/foldcomp_tpu_torch/); then
+   `decompress <db> <out> --db` with no flag in a subprocess twice, the
+   guard as shipped (reading the warmup's estimate) and with
+   FOLDCOMP_TPU_WARMUP_EST=0 (eager claims), beside `--exact -t T`: every
+   entry under its key and name, byte-identical to the exact route or
+   within phase 5's bound; then `compress` the same two ways on the exact
+   route's PDB database, every entry byte-identical by name to `--exact
+   -t T`; each run's device share from the scheduler's closing [Info]
+   line; then each mode through `cli.main` in this process with
+   FOLDCOMP_TPU_WARMUP_EST=0, -t 1 and 512-entry batches, and the launch
+   counters around it: decompress must launch k1, k2 and k3 (or k2_bb),
+   compress k4.
 
 Then the kernel summary (each kernel's launches on the main path, its
 largest difference from its plain version, its time and its plain
@@ -85,10 +100,12 @@ device or outside a checkout of the repository.
                                         kernel checks and device timings,
                                         no last line
     python3 chip_smoke.py --encode      phases 1, 7 and 9, no last line
+    python3 chip_smoke.py --db-jobs     phases 1, 5 and 12, no last line
     python3 chip_smoke.py --ptxas F.cu  also the ptxas report of another
                                         source (an older k3, say) in phase 1
 """
 import contextlib
+import io
 import json
 import os
 import pathlib
@@ -1184,6 +1201,199 @@ def bb_cli(work, db, names, card, hold):
     return counts
 
 
+def read_entries(path):
+    """{key: (name, payload bytes)} of a database."""
+    from foldcomp_tpu_torch.io.db import DatabaseReader
+    reader = DatabaseReader(str(path))
+    try:
+        return {key: (name, bytes(data))
+                for key, name, data in reader.entries()}
+    finally:
+        reader.close()
+
+
+def pdb_xyz(data):
+    """[n, 3] coordinates of the ATOM lines of a PDB payload."""
+    import numpy as np
+    cols = b"".join(ln[30:54] for ln in data.split(b"\n")
+                    if ln.startswith(b"ATOM"))
+    return np.frombuffer(cols, dtype="S8").astype(np.float64).reshape(-1, 3)
+
+
+def db_jobs(work, db, picks, uniq, card, fast_wall):
+    """Phase 12: warmup, then db -> db decompress and compress through the
+    hybrid CPU + GPU scheduler (no flag) against the exact route, then
+    each mode in this process with the launch counters around it.
+    -> {"decompress": launch counts, "compress": launch counts}."""
+    import numpy as np
+    import torch
+
+    from foldcomp_tpu_torch import cli, verify
+    from foldcomp_tpu_torch.codec.decoder import decode as decode_exact
+    from foldcomp_tpu_torch.kernels import fused_decode as FD
+    from foldcomp_tpu_torch.kernels import fused_encode as FE
+
+    threads = min(8, os.cpu_count() or 1)
+    residues = sum(uniq[n].n_residue for n in picks)
+    home = work / "home"
+    home.mkdir()
+    env = dict(os.environ, PYTHONPATH=str(REPO), HOME=str(home))
+    for k in ("FOLDCOMP_TORCH_DEVICE", "FOLDCOMP_TPU_WARMUP_EST"):
+        env.pop(k, None)
+    link, mbs = cli._probe_info()
+    emit("db_jobs", part="setup", threads=threads, cpu_count=os.cpu_count(),
+         probe=link, probe_mbs=mbs, batch_size=cli.fast_batch_size(),
+         entries=len(picks), residues=residues, gpu=card)
+
+    def run(args, **extra):
+        t0 = time.perf_counter()
+        r = subprocess.run(
+            [sys.executable, "-m", "foldcomp_tpu_torch", *args],
+            cwd=str(REPO), env=dict(env, **extra), capture_output=True,
+            text=True, timeout=600)
+        wall = time.perf_counter() - t0
+        if r.returncode != 0:
+            raise AssertionError(f"{args} rc {r.returncode}: "
+                                 f"{r.stderr[-4000:]}")
+        return wall, r
+
+    def hybrid_lines(err):
+        """The route's [Info] line and the device stream's entry count."""
+        info = [ln for ln in err.splitlines()
+                if ln.startswith("[Info] hybrid")]
+        if len(info) != 2 or "device stream on cuda" not in info[0] or \
+                "the device stream finished" not in info[1]:
+            raise AssertionError(f"no device stream: {err[-2000:]}")
+        return info[0], int(info[1].split("finished ")[1].split()[0])
+
+    # -- warmup, its estimate in the port's own file only
+    wall, r = run(["warmup", str(db)])
+    wfile = home / ".cache" / "foldcomp_tpu_torch" / "device_warmup.json"
+    warmup_s = json.loads(wfile.read_text())["warmup_s"]
+    strays = sorted(str(q.relative_to(home)) for q in home.rglob("*")
+                    if q.is_file() and q != wfile)
+    if (home / ".cache" / "foldcomp_tpu_jax").exists() or strays:
+        raise AssertionError(f"warmup wrote {strays}")
+    emit("db_jobs", part="warmup", wall_seconds=wall, warmup_s=warmup_s,
+         file=str(wfile.relative_to(home)),
+         line=r.stdout.strip().splitlines()[-1], gpu=card)
+
+    # -- decompress: the exact route, then the hybrid as shipped and eager
+    want_keys = {i: f"e{i}_L{n}" for i, n in enumerate(picks)}
+    exact_wall, _ = run(["decompress", "--exact", "-t", str(threads),
+                         str(db), str(work / "pdb_exact"), "--db"])
+    exact = read_entries(work / "pdb_exact")
+    if {k: nm for k, (nm, _) in exact.items()} != want_keys:
+        raise AssertionError("exact decompress: keys or names differ")
+    ref = verify.load_ref_dev()
+    xyz = {n: np.asarray(decode_exact(f).coords) for n, f in uniq.items()}
+    excess = {}
+
+    def held(name, data):
+        """An entry's deviation from the exact decoder less the JAX
+        reference's; raises past phase 5's bound. Cached by payload."""
+        if data not in excess:
+            n = int(name.rsplit("_L", 1)[1])
+            got = pdb_xyz(data)
+            m = min(len(got), len(xyz[n]))
+            d = float(np.abs(got[:m] - xyz[n][:m]).max())
+            if abs(len(got) - len(xyz[n])) > 1 or \
+                    not d <= ref[n] + verify.REF_DEV_SLACK_A + PRINT_SLACK_A:
+                raise AssertionError(f"{name}: {len(got)} atoms, dev {d} A "
+                                     f"vs ref {ref[n]}")
+            excess[data] = d - ref[n]
+        return excess[data]
+
+    for label, extra in (("guarded", {}),
+                         ("eager", {"FOLDCOMP_TPU_WARMUP_EST": "0"})):
+        out = work / f"pdb_hybrid_{label}"
+        wall, r = run(["decompress", "-t", str(threads), str(db), str(out),
+                       "--db"], **extra)
+        line, n_dev = hybrid_lines(r.stderr)
+        got = read_entries(out)
+        if {k: nm for k, (nm, _) in got.items()} != want_keys:
+            raise AssertionError(f"hybrid decompress {label}: keys or "
+                                 "names differ")
+        differ = [k for k, (_, d) in got.items() if d != exact[k][1]]
+        worst = max([held(*got[k]) for k in differ], default=0.0)
+        emit("db_jobs", part="decompress", mode=label, info=line,
+             wall_seconds=wall, residues_per_s=residues / wall,
+             entries=len(got), device_entries=n_dev,
+             not_identical_to_exact=len(differ),
+             worst_dev_over_ref_A=worst, exact_route_wall_seconds=exact_wall,
+             fast_wall_seconds=fast_wall, threads=threads, gpu=card)
+        for q in work.glob(out.name + "*"):
+            q.unlink()
+
+    # -- compress the exact route's PDB database the same ways
+    pdb_db = work / "pdb_exact"
+    exact_wall, _ = run(["compress", "--exact", "-t", str(threads),
+                         str(pdb_db), str(work / "fcz_exact"), "--db"])
+    by_name = {nm: d for nm, d in read_entries(work / "fcz_exact").values()}
+    if sorted(by_name) != sorted(want_keys.values()):
+        raise AssertionError("exact compress: names differ")
+    for label, extra in (("guarded", {}),
+                         ("eager", {"FOLDCOMP_TPU_WARMUP_EST": "0"})):
+        out = work / f"fcz_hybrid_{label}"
+        wall, r = run(["compress", "-t", str(threads), str(pdb_db), str(out),
+                       "--db"], **extra)
+        line, n_dev = hybrid_lines(r.stderr)
+        got = {nm: d for nm, d in read_entries(out).values()}
+        differ = sorted(nm for nm in by_name if got.get(nm) != by_name[nm])
+        emit("db_jobs", part="compress", mode=label, info=line,
+             wall_seconds=wall, residues_per_s=residues / wall,
+             entries=len(got), device_entries=n_dev,
+             differing_entries=len(differ),
+             first_differing=differ[:5], exact_route_wall_seconds=exact_wall,
+             threads=threads, gpu=card)
+        if differ or len(got) != len(by_name):
+            raise AssertionError(f"hybrid compress {label}: {len(differ)} "
+                                 f"entries differ, {len(got)} entries")
+        for q in work.glob(out.name + "*"):
+            q.unlink()
+
+    # -- each mode in this process, the launch counters around it. One
+    # CPU worker and 512-entry batches: with T workers the native codec
+    # can drain the list before the device stream has parsed one 2048-entry
+    # batch of PDB text, and the ragged tail goes to the native mop-up.
+    counts = {}
+    saved = {k: os.environ.get(k)
+             for k in ("FOLDCOMP_TPU_WARMUP_EST", "FOLDCOMP_TPU_BATCH")}
+    os.environ.update(FOLDCOMP_TPU_WARMUP_EST="0", FOLDCOMP_TPU_BATCH="512")
+    try:
+        for mode, src in (("decompress", db), ("compress", pdb_db)):
+            out = work / f"{mode}_main"
+            FD.reset_launch_counts()
+            FE.reset_launch_counts()
+            t0 = time.perf_counter()
+            err = io.StringIO()
+            with contextlib.redirect_stdout(sys.stderr), \
+                    contextlib.redirect_stderr(err):
+                rc = cli.main([mode, "-t", "1", str(src), str(out), "--db"])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            c = counts[mode] = {**FD.launch_counts(), **FE.launch_counts()}
+            print(err.getvalue(), file=sys.stderr, end="")
+            n_out = len(read_entries(out))
+            emit("db_jobs", part="main_path", mode=mode, rc=rc, launches=c,
+                 device_entries=hybrid_lines(err.getvalue())[1],
+                 wall_seconds=wall, residues_per_s=residues / wall,
+                 entries=n_out, threads=1, batch_size=512, gpu=card)
+            ok = (c["k1"] > 0 and c["k2"] > 0
+                  and (c["k3"] > 0 or c["k2_bb"] > 0)) \
+                if mode == "decompress" else c["k4"] > 0
+            if rc != 0 or not ok or n_out != len(picks):
+                raise AssertionError(f"hybrid {mode} in process: rc {rc}, "
+                                     f"{n_out} entries, launches {c}")
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k)
+            else:
+                os.environ[k] = v
+    return counts
+
+
 def main(argv=None) -> int:
     import argparse
     ap = argparse.ArgumentParser(description="Smoke run of "
@@ -1193,6 +1403,9 @@ def main(argv=None) -> int:
                          "line")
     ap.add_argument("--encode", action="store_true",
                     help="phases 1, 7 and 9 only; no kernel line, no last "
+                         "line")
+    ap.add_argument("--db-jobs", action="store_true",
+                    help="phases 1, 5 and 12 only; no kernel line, no last "
                          "line")
     ap.add_argument("--ptxas", metavar="SRC",
                     help="also report ptxas resource use of this CUDA "
@@ -1246,29 +1459,30 @@ def main(argv=None) -> int:
     emit("corpus", lengths=list(BENCH_LENGTHS),
          encode_seconds=time.perf_counter() - t0)
 
-    # ---- 2. kernels against plain ----
     err = {"k1": 0.0, "k2": 0.0, "k2_bb": 0.0, "k3": 0.0}
-    decode_kernels(dev, uniq, err)
-    emit("kernels_per_device", devices=per_device_check(),
-         tol={"f32_A": TOL_A, "i16_units": TOL_I16, "k4": K4_TOL})
-    torch.cuda.set_device(dev)
+    if not args.db_jobs:
+        # ---- 2. kernels against plain ----
+        decode_kernels(dev, uniq, err)
+        emit("kernels_per_device", devices=per_device_check(),
+             tol={"f32_A": TOL_A, "i16_units": TOL_I16, "k4": K4_TOL})
+        torch.cuda.set_device(dev)
 
-    # ---- 3. absolute parity against the exact decoder ----
-    par = verify.device_parity_check(device=dev)
-    emit("parity", **par)
-    if not par["parity_ok"]:
-        raise AssertionError(f"parity failed: {par['failures']}")
+        # ---- 3. absolute parity against the exact decoder ----
+        par = verify.device_parity_check(device=dev)
+        emit("parity", **par)
+        if not par["parity_ok"]:
+            raise AssertionError(f"parity failed: {par['failures']}")
 
-    # ---- 4. device decode at the production batch ----
-    times = device_decode(dev, card, uniq, err)
-    torch.cuda.empty_cache()
+        # ---- 4. device decode at the production batch ----
+        times = device_decode(dev, card, uniq, err)
+        torch.cuda.empty_cache()
 
-    # ---- 11. the bb wire: kernels and device ----
-    bb_kernels(dev, uniq, err)
-    times["k2_bb"] = bb_device(dev, card, uniq, err)
-    torch.cuda.empty_cache()
-    if args.quick:
-        return 0
+        # ---- 11. the bb wire: kernels and device ----
+        bb_kernels(dev, uniq, err)
+        times["k2_bb"] = bb_device(dev, card, uniq, err)
+        torch.cuda.empty_cache()
+        if args.quick:
+            return 0
 
     # ---- 5. end to end through the CLI, in a subprocess ----
     work = pathlib.Path(tempfile.mkdtemp(prefix=".chip_smoke_", dir=REPO))
@@ -1331,8 +1545,12 @@ def main(argv=None) -> int:
              command="python -m foldcomp_tpu_torch decompress --fast "
                      "<db> <out> --db",
              sampled=64, worst_dev_over_ref_A=worst)
+        fast_wall = wall
         for p in work.glob(out.name + "*"):     # data file + index files
             p.unlink()
+        if args.db_jobs:
+            db_jobs(work, db, picks, uniq, card, fast_wall)
+            return 0
 
         # ---- 6. the main path, launch counters around it ----
         out2 = work / "pdb_db_main"
@@ -1354,6 +1572,9 @@ def main(argv=None) -> int:
 
         # ---- 11. the bb wire through the CLI ----
         counts["k2_bb"] = bb_cli(work, db, names, card, hold)["k2_bb"]
+
+        # ---- 12. the database jobs through the hybrid scheduler ----
+        db_jobs(work, db, picks, uniq, card, fast_wall)
         shutil.rmtree(work, ignore_errors=True)
         work.mkdir()
 

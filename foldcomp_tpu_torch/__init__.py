@@ -10,8 +10,21 @@ device kernels are hand-written CUDA for Hopper (kernels/csrc/), each
 beside a plain PyTorch version that is the CPU path and the kernel's
 oracle.
 
-Modules are imported lazily; `import foldcomp_tpu_torch` stays cheap and
-loads neither torch nor JAX.
+The foldcomp-compatible Python API (api.py: compress, decompress, open,
+get_data, setup, split_pdb_by_chain) is offered at the top level, as
+foldcomp_tpu offers it. Modules are imported lazily; `import
+foldcomp_tpu_torch` stays cheap and loads neither torch nor JAX.
 """
 
 __version__ = "0.1.0"
+
+
+def __getattr__(name):
+    # foldcomp-compatible API surface, loaded lazily
+    # (foldcomp_tpu/__init__.py:15-24)
+    if name in ("compress", "decompress", "open", "get_data", "setup",
+                "setup_async", "FoldcompDatabase", "split_pdb_by_chain"):
+        from . import api
+        return getattr(api, name)
+    raise AttributeError(
+        f"module 'foldcomp_tpu_torch' has no attribute {name!r}")

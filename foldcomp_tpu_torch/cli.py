@@ -8,26 +8,28 @@ so that every exact route writes the same bytes as `python -m foldcomp_tpu`
   `OutputSink`, `Options`/`parse_args`/`USAGE`, `compress_entry` and
   `_compress_write`;
 - `run_compress` (:609) and `_decompress_write` (:662);
+- the link probe `_probe_info` (:719-818), measured with torch, and its
+  consumers: `fast_batch_size` (:825-846), `_accelerator_present` and
+  `_device_link_ok` (:849-860), the auto-`--fast` of `run_decompress`
+  (:868-885) and the decode wire (codec/batch.py use_bb_wire);
 - `run_decompress`, `run_extract` and `run_check` (:861-1010);
+- `_hybrid_applicable` and `run_sharded_extract` (:1013-1107);
 - `run_rmsd` and `run_subdb` (:1211-1259);
-- `main`'s flow (:1262-1452);
-- the link probe `_probe_info` (:719-818), measured with torch, which
-  here only chooses the decode wire (codec/batch.py use_bb_wire).
+- `main`'s flow (:1262-1452), with its database routing (:1365-1432):
+  batch db -> db compress and decompress go to the hybrid CPU + CUDA
+  scheduler (parallel/hybrid.py) on a host with a card, and to native CPU
+  workers on one without; db extract to sharded workers.
 
-So compress, decompress, extract, check, rmsd and subdb run here over
-files, directories, tars and databases. `compress --fast` and
+So compress, decompress, extract, check, rmsd, subdb and warmup run here
+over files, directories, tars and databases. `compress --fast` and
 `decompress --fast` run through the port's device encode and decode
 (codec/batch.py encode_submit/encode_finish and decode_fcz_stream),
 mirroring _run_compress_fast / _run_decompress_fast (:467-606, :675-716).
-
-Not carried, because they bind the JAX package's device code: the db->db
-hybrid and sharded scheduler (:1377-1421), the sharded db extract
-(:1426-1432), the probe's other consumers (the auto-`--fast` of
-run_decompress, :871-885, and the batch size of fast_batch_size, :825)
-and `warmup` (:1279). Where foldcomp_tpu would take the scheduler or the
-sharded extract, this CLI takes the in-process route of the same mode,
-which writes the same bytes, and says so in one [Info] line on stderr;
-batch decompress stays exact unless `--fast` is given; `warmup` exits 1.
+`warmup` (:1110-1208) has another job here: the port has no compile
+cache, so it builds and loads the CUDA kernel library and runs one batch
+of each device path (run_warmup). The constants that the JAX package set
+on its TPU link (FAST_DEFAULT_MIN, _FAST_MIN_LINK_MBS, the probe's TTLs,
+fast_batch_size's steps) are carried unchanged.
 """
 from __future__ import annotations
 
@@ -68,7 +70,7 @@ Usage: foldcomp_tpu_torch compress <pdb|cif> [<fcz>]
        foldcomp_tpu_torch check [-t number] <dir|tar(.gz)|db>
        foldcomp_tpu_torch rmsd <pdb|cif> <pdb|cif>
        foldcomp_tpu_torch subdb <id_list> <db_in> <db_out>   (extension: mmseqs createsubdb equivalent)
-       foldcomp_tpu_torch warmup <fcz|pdb|dir|db>            (not ported yet: exits 1)
+       foldcomp_tpu_torch warmup <fcz|pdb|dir|db>            (extension: build the CUDA kernels and run one batch of each device path)
  -h, --help               print this help message
  -v, --version            print version
  -t, --threads            threads for (de)compression of folders/tar files [default=1]
@@ -91,7 +93,9 @@ Usage: foldcomp_tpu_torch compress <pdb|cif> [<fcz>]
  --time                   measure time for compression/decompression
  --use-cache              use cached index for database input [default=false]
  --fast                   use the batched CUDA codec instead of the exact path
- --exact                  force the exact native codec (the default here)
+ --exact                  force the exact native codec (disables the GPU
+                          batch default for batch decompression and the
+                          device stream of db -> db jobs)
 """
 
 
@@ -486,31 +490,23 @@ def _compress_write(sink, sink_kind, output, fname, blob, parts):
         sink.write(base_name(out_name), blob)
 
 
-# the routes of foldcomp_tpu's CLI that bind its JAX device code
-NOT_PORTED = ("the db scheduler, the sharded workers and warmup are not "
-              "ported to foldcomp_tpu_torch yet")
-
-# device batch size: the JAX package's healthy-link value
-# (foldcomp_tpu/cli.py:842-843); FOLDCOMP_TPU_BATCH overrides as there
+# Device batch sizes by the link probe's D2H rate, the JAX package's steps
+# (foldcomp_tpu/cli.py:825-846, set on its TPU link): FAST_BATCH from
+# 1000 MB/s, 512 from 300 MB/s, else _SLOW_LINK_BATCH (the JAX package's
+# FAST_BATCH). FOLDCOMP_TPU_BATCH overrides.
 FAST_BATCH = 2048
-
-
-def fast_batch_size() -> int:
-    env = os.environ.get("FOLDCOMP_TPU_BATCH")
-    if env:
-        try:
-            return max(int(env), 1)
-        except ValueError:
-            pass
-    return FAST_BATCH
+_SLOW_LINK_BATCH = 128
+# batch-decompress jobs larger than this default to the device path when
+# a card is present and its link is "ok" (foldcomp_tpu/cli.py:659)
+FAST_DEFAULT_MIN = 1024
 
 
 # The link probe (foldcomp_tpu/cli.py:719-818), measured with torch. A
 # decode ships ~96 compact bytes per residue device->host on the full wire;
-# the probe calls a link below _FAST_MIN_LINK_MBS "slow". Here it drives
-# only the decode wire (codec/batch.py use_bb_wire); the JAX CLI's other
-# consumers of it, fast_batch_size (:825-846), batch decompress's
-# auto-`--fast` (:871-885) and the hybrid scheduler, are not carried.
+# the probe calls a link below _FAST_MIN_LINK_MBS "slow". It chooses the
+# decode wire (codec/batch.py use_bb_wire), the device batch size
+# (fast_batch_size), whether a large batch decompress goes to the device
+# (run_decompress) and whether a db -> db job runs a device stream (main).
 _FAST_MIN_LINK_MBS = 100.0
 
 _PROBE_CODE = """\
@@ -596,6 +592,62 @@ def _probe_info() -> tuple:
     except Exception:  # noqa: BLE001
         pass
     return result, mbs
+
+
+def _probe_device() -> str:
+    return _probe_info()[0]
+
+
+def fast_batch_size() -> int:
+    """Device dispatch size from the measured link rate: big batches on a
+    healthy link, small ones on a starved link so that the hybrid
+    scheduler's claimed backlog stays drainable (parallel/hybrid.py
+    EndgameGuard). FOLDCOMP_TPU_BATCH overrides."""
+    env = os.environ.get("FOLDCOMP_TPU_BATCH")
+    if env:
+        try:
+            return max(int(env), 1)
+        except ValueError:
+            pass
+    result, mbs = _probe_info()
+    if result != "ok":
+        return _SLOW_LINK_BATCH
+    if mbs >= 1000.0:
+        return FAST_BATCH
+    if mbs >= 300.0:
+        return 512
+    return _SLOW_LINK_BATCH
+
+
+def _accelerator_present() -> bool:
+    """True when torch finds a CUDA card, probed in a subprocess (see
+    _probe_info), or FOLDCOMP_TPU_LINK says ok or slow."""
+    return _probe_device() != "none"
+
+
+def _device_link_ok() -> bool:
+    """True when the host<->device link can feed the batched path faster
+    than the native CPU path (see _probe_info)."""
+    return _probe_device() == "ok"
+
+
+def _resolve_or_report(what: str):
+    """The device the device paths run on (backend.resolve_device), or
+    None after an [Error] line when it is a CUDA card that is not there
+    (FOLDCOMP_TPU_LINK can claim a card that torch does not find)."""
+    from .backend import DeviceUnavailable, resolve_device
+    try:
+        return resolve_device(None)
+    except DeviceUnavailable as e:
+        print(f"[Error] {what}: {e}", file=sys.stderr)
+        return None
+
+
+def _device_name(dev) -> str:
+    if dev.type != "cuda":
+        return str(dev)
+    import torch
+    return f"{dev} ({torch.cuda.get_device_name(dev)})"
 
 
 def _run_compress_fast(opts, entries, sink, sink_kind, output: str,
@@ -769,6 +821,9 @@ def _run_decompress_fast(opts, entries, sink, sink_kind, output: str,
     t_last = time.perf_counter()
     n_done = 0
     bsz = fast_batch_size()
+    if bsz != FAST_BATCH:
+        print(f"[Info] device batch size {bsz} (link probe)",
+              file=sys.stderr)
     try:
         for f, text in decode_fcz_stream(payloads(), batch_size=bsz,
                                          use_alt_order=opts.alt,
@@ -852,9 +907,28 @@ def _decompress_write(sink, sink_kind, output, name, text):
 def run_decompress(opts: Options, entries, output: str, single: bool,
                    device=None):
     """The exact native decode, or with `--fast` the device decode on
-    `device`. The JAX package's auto-`--fast` link probe for large batch
-    jobs is not carried: batch decompress stays exact unless `--fast` is
-    given."""
+    `device`. A batch job of more than FAST_DEFAULT_MIN entries takes the
+    device decode by itself when the link probe finds a card with an "ok"
+    link (foldcomp_tpu/cli.py:868-885): its coordinates hold the same
+    gates as `--fast`'s; `--exact` keeps the native path at any size."""
+    if not opts.fast and not opts.exact and not single:
+        import itertools
+        head = list(itertools.islice(entries, FAST_DEFAULT_MIN + 1))
+        entries = itertools.chain(head, entries)
+        if len(head) > FAST_DEFAULT_MIN and _accelerator_present():
+            if _device_link_ok():
+                device = _resolve_or_report("batch decompress")
+                if device is None:
+                    return 1
+                print("[Info] GPU detected (link ok): using batched "
+                      f"decode on {_device_name(device)} (pass --exact for "
+                      "the byte-exact native path)", file=sys.stderr)
+                opts.fast = True
+            else:
+                print("[Info] GPU present but host<->device link is too "
+                      "slow for coordinate streaming; using the native "
+                      "path (pass --fast to force the device pipeline)",
+                      file=sys.stderr)
     sink_kind = ("db" if opts.db_output else
                  "tar" if opts.save_as_tar else
                  "file" if single else "dir")
@@ -987,6 +1061,221 @@ def run_check(opts: Options, entries):
     return 0
 
 
+def _hybrid_applicable(db_path: str) -> bool:
+    """Hybrid CPU+device scheduling pays off when the job is big enough
+    to amortize the torch import and the first launches and a CUDA card
+    is there. A big job on a host without one says so: it runs on the
+    native CPU workers only."""
+    try:
+        r = DatabaseReader(db_path)
+        n = len(r)
+        r.close()
+    except Exception:  # noqa: BLE001 — not a readable db: no hybrid
+        return False
+    if n <= FAST_DEFAULT_MIN:
+        return False
+    if _accelerator_present():
+        return True
+    print("[Info] no CUDA device: the db job runs on native CPU workers "
+          "only", file=sys.stderr)
+    return False
+
+
+def run_sharded_extract(inp: str, output: str, opts: Options,
+                        merged: bool) -> int:
+    """db extract across opts.threads workers (the reference fans extract
+    out with OpenMP, main.cpp:778-859; the in-process thread pool scales
+    NEGATIVELY here: GIL convoy on per-entry Python).
+
+    db output: shard databases merged by key. Merged text output: shard
+    files concatenated in shard order, which IS global entry order for
+    contiguous ranges, so byte-identical to the single-thread output.
+
+    Workers are threads when the GIL-free C extract loop
+    (fcz_db_extract_range) engages (one C call per shard chunk, no
+    spawn/import cost), else worker processes (the per-entry Python
+    fallback convoys on the GIL), which import this package's
+    parallel/dist.py and no torch."""
+    import subprocess
+
+    from .parallel.dist import (extract_db_shard, merge_shard_dbs,
+                                merge_shard_files)
+
+    n = opts.threads
+    use_threads = False
+    try:
+        from .native import get_lib
+        if get_lib() is not None:
+            probe = DatabaseReader(inp, use_lookup=True)
+            use_threads = getattr(probe, "_h", None) is not None
+            probe.close()
+    except Exception:  # noqa: BLE001 — the process route reads it again
+        use_threads = False
+
+    rc = 0
+    if use_threads:
+        import threading
+        errs = []
+
+        def shard_main(pid):
+            try:
+                extract_db_shard(inp, output, pid, n,
+                                 ext_mode=opts.ext_mode,
+                                 digits=opts.ext_plddt_digits,
+                                 use_title=opts.ext_use_title,
+                                 merged=merged)
+            except Exception as e:  # noqa: BLE001 — reported below
+                errs.append(e)
+
+        if n == 1:
+            shard_main(0)
+        else:
+            ts = [threading.Thread(target=shard_main, args=(pid,))
+                  for pid in range(n)]
+            for t in ts:
+                t.start()
+            for t in ts:
+                t.join()
+        rc = 1 if errs else 0
+    else:
+        repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+        procs = []
+        for pid in range(n):
+            code = (f"import sys; sys.path.insert(0, {repo!r})\n"
+                    f"from {__package__}.parallel.dist import "
+                    f"extract_db_shard\n"
+                    f"extract_db_shard({inp!r}, {output!r}, {pid}, {n}, "
+                    f"ext_mode={opts.ext_mode}, "
+                    f"digits={opts.ext_plddt_digits}, "
+                    f"use_title={opts.ext_use_title}, merged={merged})\n")
+            procs.append(subprocess.Popen([sys.executable, "-c", code]))
+        for p in procs:
+            rc |= p.wait()
+    if rc:
+        print("[Error] sharded worker failed", file=sys.stderr)
+        return 1
+    if merged:
+        merge_shard_files(output, n)
+    else:
+        merge_shard_dbs(output, n)
+    return 0
+
+
+def run_warmup(inp: str) -> int:
+    """Make the device paths ready before the first real job.
+
+    `foldcomp_tpu_torch warmup <fcz-db|fcz-dir|fcz|pdb|cif>`. The JAX
+    package's warmup (foldcomp_tpu/cli.py:1110-1208) fills its compile
+    cache; the port's counterpart of that cache is the kernel library,
+    built by nvcc under kernels/build/ and named by a hash of the sources
+    and flags (kernels/build.py). So this builds the library, loads its
+    tables on every visible card, then runs one decode batch of
+    fast_batch_size() entries through the stages decode_fcz_stream runs
+    (pack, device decode, the native formatter) and one encode batch of
+    the decoded texts through those of `compress --fast` (the native
+    parse, encode_submit, encode_finish), outputs discarded, on the device
+    the other entry points take (FOLDCOMP_TORCH_DEVICE=cpu runs the plain
+    versions and builds nothing). The time to the decoded batch seeds the
+    hybrid scheduler's cold horizon (parallel/hybrid.py EndgameGuard), in
+    the port's own file ~/.cache/foldcomp_tpu_torch/device_warmup.json.
+    That time counts from before torch is imported, as the scheduler's
+    device stream counts it."""
+    bsz = fast_batch_size()
+    t0 = time.perf_counter()
+    dev = _resolve_or_report("warmup")
+    if dev is None:
+        return 1
+    from .codec.batch import (decode_fcz_to_pdb_batch, encode_finish,
+                              encode_fragment_batch, encode_submit)
+    from .codec.batch_host import encode_pdb_device
+
+    built = ""
+    if dev.type == "cuda":
+        import torch
+
+        from .kernels import build
+        built = f"; kernel library {build.build()}"
+        for idx in range(torch.cuda.device_count()):
+            build.load(idx)
+
+    blobs = []
+    if is_database(inp):
+        r = DatabaseReader(inp, use_lookup=True)
+        for p in range(min(len(r), bsz)):
+            blobs.append(bytes(r.get_data(p)))
+        r.close()
+    elif os.path.isdir(inp):
+        for name in sorted(os.listdir(inp))[:bsz]:
+            path = os.path.join(inp, name)
+            if os.path.isfile(path):
+                with open(path, "rb") as fh:
+                    blobs.append(fh.read())
+    else:
+        with open(inp, "rb") as fh:
+            blobs.append(fh.read())
+
+    fczs = []
+    frags = []
+    for blob in blobs:
+        body = blob[:-1] if blob.endswith(b"\x00") else blob
+        try:
+            fczs.append(fcz.parse(body))
+            continue
+        except fcz.FczFormatError:
+            pass
+        try:
+            atoms = parse_structure_buffer(body, "warmup")
+            atoms = remove_alternative_positions(atoms)
+            for cs, ce in identify_chains(atoms):
+                for fs, fe in identify_discontinuous_fragments(atoms, cs,
+                                                               ce):
+                    frags.append(atoms.slice(fs, fe))
+        except Exception:  # noqa: BLE001 — unparseable sample entry
+            continue
+    if not fczs and frags:
+        fczs = [f for f in encode_fragment_batch(frags[:bsz], device=dev)
+                if f is not None]
+    if not fczs:
+        print("[Error] no usable warmup sample in input", file=sys.stderr)
+        return 1
+
+    # one full decode batch: the first window the stream would dispatch
+    batch = sorted((fczs * ((bsz - 1) // len(fczs) + 1))[:bsz],
+                   key=lambda f: f.n_residue)
+    texts = decode_fcz_to_pdb_batch(batch, device=dev)
+    t_dec = time.perf_counter()
+
+    # one full encode batch of those texts, parsed as compress --fast
+    # parses them; the fragment path where the native parser is missing
+    tensors, metas = [], []
+    for text in texts:
+        got = encode_pdb_device(text.encode(), 25)
+        if got is None:
+            break
+        for t, m in zip(*got):
+            if not m["error"]:
+                tensors.append(t)
+                metas.append(m)
+    if tensors:
+        encode_finish(encode_submit(tensors, metas, device=dev))
+    else:
+        encode_fragment_batch([parse_pdb(t.encode()) for t in texts],
+                              device=dev)
+    t_enc = time.perf_counter()
+    print(f"Warmed {_device_name(dev)} codec on {len(batch)}-entry "
+          f"batches: decode {t_dec - t0:.1f}s, encode {t_enc - t_dec:.1f}s"
+          f"{built}")
+    # Seed the hybrid scheduler's cold horizon: time-to-first-decode here
+    # bounds the device stream's time-to-first-completion, so a host whose
+    # jobs are all too small for the device to ever join (and self-measure)
+    # still gets an estimate from one explicit `warmup` call.
+    from .parallel.hybrid import EndgameGuard
+    guard = EndgameGuard.__new__(EndgameGuard)
+    guard._first_done_dt = t_dec - t0
+    guard.finalize()
+    return 0
+
+
 def run_rmsd(path1: str, path2: str):
     def load(p):
         with open(p, "rb") as fh:
@@ -1056,8 +1345,10 @@ def main(argv=None) -> int:
         return run_rmsd(pos[1], pos[2])
 
     if mode == "warmup":
-        print(f"[Error] warmup: {NOT_PORTED}", file=sys.stderr)
-        return 1
+        if not os.path.exists(pos[1]) and not is_database(pos[1]):
+            print(f"[Error] {pos[1]} does not exist.", file=sys.stderr)
+            return 1
+        return run_warmup(pos[1])
 
     if mode == "subdb":
         # extension: subset a database by id list (the reference points users
@@ -1146,23 +1437,78 @@ def main(argv=None) -> int:
             else:
                 print(f"Output directory: {output}")
 
-    # foldcomp_tpu sends batch db -> db compress/decompress to its hybrid
-    # and sharded scheduler (foldcomp_tpu/cli.py:1377-1421) and db extract
-    # to its sharded workers (:1426-1432); neither is ported yet. The
-    # in-process route below writes the same bytes.
+    # Batch db -> db paths (foldcomp_tpu/cli.py:1350-1432).
+    #
+    # Default on a host with a CUDA card: HYBRID work stealing, with
+    # opts.threads native CPU workers pulling entry chunks from the front
+    # of the list while the in-process device stream pulls from the back
+    # (parallel/hybrid.py), so the CPU/device split adapts to the hardware.
+    # --exact disables the device stream; --fast forces the device-only
+    # pipeline below.
+    #
+    # Without a card (or for small jobs, where the torch import and the
+    # first launches dominate): the same scheduler with native workers
+    # only, or at -t 1 one in-process shard through the GIL-free C chunk
+    # loops (parallel/dist.py).
     if (mode in ("compress", "decompress")
             and not single and not opts.fast and not single_files
             and len(inputs) == 1 and is_database(inputs[0])
             and opts.db_output and opts.id_file is None
             and not opts.alt and not opts.check_before
-            and not opts.measure_time) or \
-            (mode == "extract" and opts.threads >= 1 and not single
-             and not single_files and len(inputs) == 1
-             and is_database(inputs[0]) and opts.id_file is None
-             and not opts.measure_time and not opts.save_as_tar
-             and (opts.db_output or opts.ext_merge)):
-        print(f"[Info] {NOT_PORTED}: the db {mode} runs in this process",
-              file=sys.stderr)
+            and not opts.measure_time):
+        from .parallel.hybrid import run_hybrid_db
+        if not opts.exact and _hybrid_applicable(inputs[0]):
+            # On a slow host<->device link the device stream's host-side
+            # cost (parse/pack/format threads) displaces more native
+            # throughput than its transfer-bound share adds: the parent
+            # then joins as one more native worker instead. The stream
+            # imports torch and resolves its device (backend.py) itself,
+            # after the native workers have started, as the JAX package's
+            # stream imports JAX; a device it cannot use fails the stream,
+            # and run_hybrid_db then finishes the job natively and
+            # returns 1.
+            use_device = _device_link_ok()
+            stream = ("device stream on "
+                      + (os.environ.get("FOLDCOMP_TORCH_DEVICE") or "cuda")
+                      if use_device else
+                      "CPU-only parent: host<->device link too slow")
+            print(f"[Info] hybrid CPU+GPU scheduling ({opts.threads} "
+                  f"native workers + {stream})", file=sys.stderr)
+            return run_hybrid_db(mode, inputs[0], output, opts.threads,
+                                 anchor_threshold=opts.anchor_threshold,
+                                 batch_size=(fast_batch_size()
+                                             if use_device else FAST_BATCH),
+                                 use_device=use_device)
+        if opts.threads > 1:
+            # native workers only: dynamic chunk claims absorb per-entry
+            # skew that static contiguous ranges cannot, and the parent
+            # steals chunks too instead of idling
+            return run_hybrid_db(mode, inputs[0], output, opts.threads,
+                                 anchor_threshold=opts.anchor_threshold,
+                                 batch_size=FAST_BATCH, use_device=False)
+        # -t 1: one in-process shard, still the GIL-free C chunk loops
+        # (fcz_db_{decode,encode}_range) when the native handles engage
+        from .parallel.dist import (compress_db_shard, decompress_db_shard,
+                                    merge_shard_dbs)
+        if mode == "decompress":
+            decompress_db_shard(inputs[0], output, 0, 1, fast=False)
+        else:
+            compress_db_shard(inputs[0], output, 0, 1,
+                              anchor_threshold=opts.anchor_threshold,
+                              fast=False)
+        merge_shard_dbs(output, 1)
+        return 0
+
+    # Sharded db extract (extract is pure host work: no device stream to
+    # schedule). threads >= 1: even the single-thread db case routes
+    # through the GIL-free C chunk loop.
+    if (mode == "extract" and opts.threads >= 1 and not single
+            and not single_files and len(inputs) == 1
+            and is_database(inputs[0]) and opts.id_file is None
+            and not opts.measure_time and not opts.save_as_tar
+            and (opts.db_output or opts.ext_merge)):
+        return run_sharded_extract(inputs[0], output, opts,
+                                   merged=not opts.db_output)
 
     rc = 0
     entry_sources = []

@@ -53,8 +53,11 @@ _ARRAY_DTYPES = {
     "fwd9": torch.float32, "rev9": torch.float32, "is_first": torch.bool,
     "seg_m": torch.int32}
 
-_PREFETCH = 2        # packed batches queued ahead of the device
-_SORT_WINDOW = 4     # batches per seg_sort_key window
+# Set once a device decode or encode batch has completed in this process
+# (foldcomp_tpu/codec/batch.py:31): the hybrid scheduler's guard
+# (parallel/hybrid.py EndgameGuard) then expects the next completion one
+# batch away, not after a cold start.
+DEVICE_WARMED = False
 
 
 # below ~this D2H rate the full-atom wire (96 B/res) bounds the e2e wall
@@ -136,11 +139,16 @@ def _seg_decode_arrays(arrays, refine_iters=2):
 
 def _outs_to_host(outs):
     """Device decode output -> numpy arrays for the shared host stitch, in
-    the same form: (off, ca) or ("bb", off, ca)."""
+    the same form: (off, ca) or ("bb", off, ca). The copy waits for the
+    device, so the batch has completed when this returns."""
+    global DEVICE_WARMED
     if isinstance(outs[0], str):
-        return (outs[0],) + tuple(t.cpu().numpy() for t in outs[1:])
-    off, ca = outs
-    return off.cpu().numpy(), ca.cpu().numpy()
+        res = (outs[0],) + tuple(t.cpu().numpy() for t in outs[1:])
+    else:
+        off, ca = outs
+        res = off.cpu().numpy(), ca.cpu().numpy()
+    DEVICE_WARMED = True
+    return res
 
 
 def decode_fcz_host(fczs, refine_iters: int = 2, device=None):
@@ -170,7 +178,8 @@ def decode_fcz_to_pdb_batch(fczs, refine_iters: int = 2,
 
 def decode_fcz_stream(payload_iter, batch_size: int = 2048,
                       refine_iters: int = 2, use_alt_order: bool = False,
-                      device=None):
+                      device=None, prefetch: int = 2,
+                      bucket_window: int = 4):
     """Pipelined streaming decode: yields (payload, pdb_text) in input
     order.
 
@@ -178,19 +187,23 @@ def decode_fcz_stream(payload_iter, batch_size: int = 2048,
     same way: host pack on a worker pool, device decode (kernel launches
     return at once), and formatting of the previous batch on the main
     thread while a transfer thread copies the current batch's rows to the
-    host. Payloads are sorted by seg_sort_key inside windows of
-    _SORT_WINDOW batches, and results come out of a reorder buffer bounded
-    by one window. Everything runs on the default
-    CUDA stream. A short tail batch stays short: the kernels take any
-    lane count, so there is no per-shape compile to avoid by padding. The
-    wire (use_bb_wire) is chosen once, before the first batch."""
+    host. At most `prefetch` packed batches wait for the device. Payloads
+    are sorted by seg_sort_key inside windows of `bucket_window` batches
+    (0: arrival order, windows of one batch), and results come out of a
+    reorder buffer bounded by one window; a window is emitted only once it
+    is full or the payloads end, so a caller that paces its payloads by
+    completed entries (parallel/hybrid.py) passes prefetch=1,
+    bucket_window=1. Everything runs on the default CUDA stream. A short
+    tail batch stays short: the kernels take any lane count, so there is
+    no per-shape compile to avoid by padding. The wire (use_bb_wire) is
+    chosen once, before the first batch."""
     dev = resolve_device(device)
     bb_wire = use_bb_wire()
     n_workers = max(2, (os.cpu_count() or 4) - 1)
     pool = ThreadPoolExecutor(n_workers)
     xfer = ThreadPoolExecutor(1)
-    q_packed = queue.Queue(maxsize=_PREFETCH)
-    window_len = batch_size * _SORT_WINDOW
+    q_packed = queue.Queue(maxsize=prefetch)
+    window_len = batch_size * max(bucket_window, 1)
     stop = threading.Event()
 
     def put(item):
@@ -203,8 +216,8 @@ def decode_fcz_stream(payload_iter, batch_size: int = 2048,
         return False
 
     def emit_window(window, base):
-        order = sorted(range(len(window)),
-                       key=lambda i: seg_sort_key(window[i]))
+        order = range(len(window)) if bucket_window == 0 else \
+            sorted(range(len(window)), key=lambda i: seg_sort_key(window[i]))
         for i0 in range(0, len(window), batch_size):
             sel = order[i0:i0 + batch_size]
             batch = [window[j] for j in sel]
@@ -412,9 +425,11 @@ def encode_finish(handle):
     extremes, rescue of the flagged values, temperature factors and the
     FczData assembly. Returns List[FczData | None] in the order of the
     submitted tensors."""
+    global DEVICE_WARMED
     if handle["live"]:
         handle["parts"] = {k: v.cpu().numpy()
                            for k, v in handle["parts"].items()}
+        DEVICE_WARMED = True
     return finish_encode(handle)
 
 

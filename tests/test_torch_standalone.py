@@ -3,20 +3,26 @@ host layers give the same results as the originals.
 
 Independence, shown mechanically: an AST scan of every module of the port
 and of chip_smoke.py for an import of foldcomp_tpu or JAX at any depth, and
-a subprocess whose import system refuses foldcomp_tpu and JAX while the
-port's CLI runs its seven modes on the CPU, and `decompress --fast` on the
-backbone-only wire as well.
+for code in a string (built for `python -c`) that names or imports one; a
+subprocess whose import system refuses foldcomp_tpu and JAX while the
+port's CLI runs its seven modes on the CPU, `decompress --fast` on the
+backbone-only wire, the hybrid database route of both modes, `warmup` and
+the sharded extract; and one that refuses torch as well, in itself and in
+every worker process it starts, while the hybrid scheduler and the sharded
+extract run their process workers.
 
 Copy fidelity: on a seeded synthetic corpus at tests/test_wclass.py scale
 (lengths 26-240), each copied stage against its foldcomp_tpu original, down
 to the byte: the FCZ serializer and parser, the exact encoder and decoder,
 the PDB writer, the ragged-lane pack, the bb wire's host stitch, the
 device-encode parse and host finish, the database writer, verify's
-synthetic structures, and the CLI's exact routes.
+synthetic structures, the CLI's exact routes, the Python API, the shard
+layer (parallel/dist.py) and the hybrid scheduler's host parts.
 """
 import ast
 import os
 import pathlib
+import re
 import subprocess
 import sys
 import textwrap
@@ -47,12 +53,28 @@ FORBIDDEN = ("foldcomp_tpu", "jax")
 LENGTHS = (26, 60, 151, 240, 60)
 
 
+# code in a string that names a module of foldcomp_tpu or imports it or JAX
+FORBIDDEN_TEXT = re.compile(r"foldcomp_tpu\.|import foldcomp_tpu\b|"
+                            r"from foldcomp_tpu\b|import jax\b|from jax\b")
+
+
 def _forbidden_imports(path):
     """(line, module) of every import of foldcomp_tpu[.*] or jax[.*] in the
-    file, at any depth (inside functions too)."""
+    file, at any depth (inside functions too), and (line, text) of every
+    string constant but the docstrings that FORBIDDEN_TEXT matches: code
+    built for another interpreter, which the import scan cannot see."""
     tree = ast.parse(path.read_text(), str(path))
+    docs = {id(node.body[0].value) for node in ast.walk(tree)
+            if isinstance(node, (ast.Module, ast.ClassDef, ast.FunctionDef,
+                                 ast.AsyncFunctionDef))
+            and node.body and isinstance(node.body[0], ast.Expr)
+            and isinstance(node.body[0].value, ast.Constant)}
     bad = []
     for node in ast.walk(tree):
+        if isinstance(node, ast.Constant) and isinstance(node.value, str) \
+                and id(node) not in docs:
+            bad += [(node.lineno, m.group())
+                    for m in FORBIDDEN_TEXT.finditer(node.value)]
         if isinstance(node, ast.Import):
             mods = [a.name for a in node.names]
         elif isinstance(node, ast.ImportFrom) and node.level == 0:
@@ -89,9 +111,26 @@ _BLOCKED_RUN = textwrap.dedent("""
         ["rmsd", "pdbs/p0.pdb", "pdb_dir/p0.pdb"],
         ["decompress", "--fast", "db_fast", "pdb_fast_bb", "--db"],
     ]
-    for i, argv in enumerate(runs):
-        if i == 7:      # the last run takes the backbone-only wire
+    # then the database jobs: warmup (its estimate under a scratch HOME),
+    # the hybrid route with a device stream on the CPU (the link forced
+    # ok, jobs above 2 entries) and the sharded extract
+    hybrid_runs = [
+        ["warmup", "db_fast"],
+        ["decompress", "-t", "2", "db_fast", "pdb_hybrid", "--db"],
+        ["compress", "-t", "2", "pdb_fast", "fcz_hybrid", "--db"],
+        ["extract", "--plddt", "-t", "2", "db_fast", "plddt_sharded.txt"],
+    ]
+    for i, argv in enumerate(runs + hybrid_runs):
+        if i == 7:      # the eighth run takes the backbone-only wire
             os.environ["FOLDCOMP_TPU_WIRE"] = "bb"
+        if i == 8:
+            os.environ.pop("FOLDCOMP_TPU_WIRE")
+            os.environ.pop("FOLDCOMP_TPU_WARMUP_EST", None)
+            os.environ.update(FOLDCOMP_TPU_LINK="ok",
+                              HOME=os.path.abspath("home"))
+            cli.FAST_DEFAULT_MIN = 2
+        if i == 9:
+            os.environ["FOLDCOMP_TPU_WARMUP_EST"] = "0"
         out = io.StringIO()
         with contextlib.redirect_stdout(out):
             rc = cli.main(argv)
@@ -127,9 +166,91 @@ def test_port_imports_nothing_of_foldcomp_tpu(case, tmp_path):
     r = subprocess.run([sys.executable, "-c", _BLOCKED_RUN, str(tmp_path)],
                        env=env, capture_output=True, text=True, timeout=600)
     assert r.returncode == 0, r.stdout + r.stderr
-    assert r.stdout.count(" ok ") == 8, r.stdout
+    assert r.stdout.count(" ok ") == 12, r.stdout
     assert len(list((tmp_path / "pdb_dir").iterdir())) == 3
     assert (tmp_path / "pdb_fast_bb").exists()
+    assert "device stream on cpu" in r.stderr
+    for name in ("pdb_hybrid", "fcz_hybrid"):
+        reader = port_db.DatabaseReader(str(tmp_path / name))
+        assert len(reader) == 3
+        reader.close()
+    # the directory's records are named by path, the database's by name
+    sharded, plain = ([ln for ln in (tmp_path / f).read_text().splitlines()
+                       if not ln.startswith(">")]
+                      for f in ("plddt_sharded.txt", "plddt.txt"))
+    assert len(sharded) == 3 and sharded == plain
+    assert [p.name for p in (tmp_path / "home").rglob("*.json")] == \
+        ["device_warmup.json"]
+
+
+# Installed by sitecustomize in a process and every worker process it
+# starts: an import system that refuses foldcomp_tpu, JAX and torch.
+_REFUSE_SITE = textwrap.dedent("""
+    import importlib.abc, sys
+
+    class Refuse(importlib.abc.MetaPathFinder):
+        def find_spec(self, name, path, target=None):
+            if name.split(".")[0] in ("foldcomp_tpu", "jax", "jaxlib",
+                                      "torch"):
+                raise ImportError("refused: " + name)
+            return None
+
+    sys.meta_path.insert(0, Refuse())
+""")
+
+# The process routes (no native library, FOLDCOMP_TPU_NO_NATIVE=1): the
+# hybrid scheduler's native workers and the sharded extract's workers,
+# started with `python -c`, in a work directory argv[1] with an FCZ db.
+_WORKER_RUN = textwrap.dedent("""
+    import contextlib, os, sys
+    from foldcomp_tpu_torch import cli
+    from foldcomp_tpu_torch.parallel.hybrid import (ChunkController,
+                                                    EndgameGuard,
+                                                    run_hybrid_db)
+
+    os.chdir(sys.argv[1])
+    with contextlib.redirect_stdout(sys.stderr):
+        rcs = [run_hybrid_db("decompress", "db", "out_hybrid", n_native=2,
+                             chunk_entries=1, use_device=False),
+               cli.main(["extract", "--plddt", "-t", "2", "db", "x.txt"])]
+    guard = EndgameGuard(ChunkController.create("ctrl", 4), 1, 4,
+                         lambda: 0)
+    bad = sorted(m for m in sys.modules if m.split(".")[0] in
+                 ("foldcomp_tpu", "jax", "jaxlib", "torch"))
+    print(rcs, guard.warmup_est, bad)
+    sys.exit(1 if any(rcs) or bad else 0)
+""")
+
+
+def test_process_workers_import_no_torch(tmp_path, corpus):
+    """The hybrid scheduler's and the sharded extract's worker processes,
+    and the parent of a job without a device stream, run with torch,
+    JAX and foldcomp_tpu refused."""
+    _, fczs = corpus
+    site = tmp_path / "site"
+    site.mkdir()
+    (site / "sitecustomize.py").write_text(_REFUSE_SITE)
+    w = port_db.DatabaseWriter(str(tmp_path / "db"))
+    for i, f in enumerate(fczs[:3]):
+        w.append(tpu_fcz.serialize(f), i, f"e{i}")
+    w.close()
+    env = {k: v for k, v in os.environ.items()
+           if k != "FOLDCOMP_TPU_WARMUP_EST"}
+    env.update(PYTHONPATH=f"{site}{os.pathsep}{REPO}",
+               FOLDCOMP_TPU_NO_NATIVE="1", HOME=str(tmp_path))
+    r = subprocess.run([sys.executable, "-c", _WORKER_RUN, str(tmp_path)],
+                       env=env, capture_output=True, text=True, timeout=600)
+    assert r.returncode == 0, r.stdout + r.stderr
+    assert r.stdout.split() == ["[0,", "0]", "5.0", "[]"]
+    reader = port_db.DatabaseReader(str(tmp_path / "out_hybrid"))
+    try:
+        got = {k: bytes(d) for k, _, d in reader.entries()}
+    finally:
+        reader.close()
+    assert got == {i: (tpu_pdb.format_pdb(tpu_decoder.decode(f), f.title)
+                       .encode() + b"\x00")
+                   for i, f in enumerate(fczs[:3])}
+    assert (tmp_path / "x.txt").read_text().count(">") == 3
 
 
 @pytest.fixture(scope="module")
@@ -261,6 +382,97 @@ def _fidelity_case(case, corpus, tmp_path):
         for n, seed in ((3, 9), *zip(LENGTHS, range(len(LENGTHS)))):
             _assert_same(vars(synthesize(n, seed)),
                          vars(orig_synthesize(n, seed)))
+    elif case == "api":
+        from foldcomp_tpu import api as tpu_api
+        from foldcomp_tpu_torch import api as port_api
+        for i, (a, f) in enumerate(zip(structs, fczs)):
+            text = tpu_pdb.format_pdb(a, f"s{i}")
+            blob = tpu_fcz.serialize(f)
+            for fn in (lambda m: m.compress(f"s{i}", text),
+                       lambda m: m.decompress(blob),
+                       lambda m: m.get_data(blob),
+                       lambda m: m.get_data(text),
+                       lambda m: m.split_pdb_by_chain(text)):
+                _assert_same(fn(port_api), fn(tpu_api))
+    elif case == "dist":
+        from foldcomp_tpu.parallel import dist as tpu_dist
+        from foldcomp_tpu_torch.parallel import dist as port_dist
+        for n in (0, 1, 7, 24, 100):
+            for k in (1, 2, 3, 8):
+                assert [port_dist.shard_range(n, s, k) for s in range(k)] \
+                    == [tpu_dist.shard_range(n, s, k) for s in range(k)]
+        fdb, pdb = tmp_path / "fcz_db", tmp_path / "pdb_db"
+        wf, wp = tpu_db.DatabaseWriter(str(fdb)), tpu_db.DatabaseWriter(
+            str(pdb))
+        for i, (a, f) in enumerate(zip(structs, fczs)):
+            wf.append(tpu_fcz.serialize(f), 9 - i, f"e{i}")
+            wp.append(tpu_pdb.format_pdb(a, f"e{i}").encode() + b"\x00",
+                      9 - i, f"e{i}")
+        wf.close()
+        wp.close()
+        for mod, name in ((port_dist, "port"), (tpu_dist, "jax")):
+            for s in range(3):
+                mod.decompress_db_shard(str(fdb), str(tmp_path / f"d_{name}"),
+                                        s, 3, fast=False)
+                mod.compress_db_shard(str(pdb), str(tmp_path / f"c_{name}"),
+                                      s, 3, fast=False)
+                mod.extract_db_shard(str(fdb), str(tmp_path / f"x_{name}"),
+                                     s, 3, ext_mode=1)
+                mod.extract_db_shard(str(fdb), str(tmp_path / f"m_{name}"),
+                                     s, 3, digits=2, merged=True)
+            for kind in "dcx":
+                assert mod.merge_shard_dbs(str(tmp_path / f"{kind}_{name}"),
+                                           3) == len(fczs)
+            mod.merge_shard_files(str(tmp_path / f"m_{name}"), 3)
+        for kind in "dcxm":
+            got = _db_files(tmp_path / f"{kind}_port")
+            assert got and got == _db_files(tmp_path / f"{kind}_jax"), kind
+    elif case == "hybrid_host":
+        from foldcomp_tpu.parallel import hybrid as tpu_hybrid
+        from foldcomp_tpu_torch.parallel import hybrid as port_hybrid
+        fdb, pdb = tmp_path / "fcz_db", tmp_path / "pdb_db"
+        wf, wp = tpu_db.DatabaseWriter(str(fdb)), tpu_db.DatabaseWriter(
+            str(pdb))
+        for i, (a, f) in enumerate(zip(structs, fczs)):
+            wf.append(tpu_fcz.serialize(f), 100 + i, f"e{i}")
+            wp.append(tpu_pdb.format_pdb(a, f"e{i}").encode() + b"\x00",
+                      100 + i, f"e{i}")
+        wf.close()
+        wp.close()
+        for mod, name in ((port_hybrid, "port"), (tpu_hybrid, "jax")):
+            # the controller's file after the same claims
+            ctrl = mod.ChunkController.create(str(tmp_path / f"k_{name}"),
+                                              9)
+            claims = [ctrl.take_front(), ctrl.take_back(), ctrl.take_back()]
+            assert claims == [0, 8, 7] and ctrl.peek() == (1, 7)
+            # a worker of each mode drains the front of a fresh list, the
+            # mop-up finishes two claimed chunks (one entry of them done)
+            # and steals the rest
+            for mode, src in (("decompress", fdb), ("compress", pdb)):
+                out = str(tmp_path / f"{mode}_{name}")
+                cpath = out + ".ctrl"
+                ctrl = mod.ChunkController.create(cpath, len(fczs))
+                ctrl.take_back()
+                ctrl.take_back()
+                worker = (mod.native_decompress_worker
+                          if mode == "decompress"
+                          else mod.native_compress_worker)
+                assert worker(str(src), out, 0, cpath, 1) == len(fczs) - 2
+                reader = mod.DatabaseReader(str(src), use_lookup=True)
+                writer = mod.DatabaseWriter(mod.shard_db_path(out, 1))
+                ctrl = mod.ChunkController.create(cpath, len(fczs))
+                mod._native_mop_up(mode, reader, writer, ctrl, 2, [2, 1],
+                                   {4}, 25)
+                writer.close()
+                reader.close()
+        for mode in ("decompress", "compress"):
+            for s in (0, 1):
+                shard = f"{mode}_port.{s}"
+                got = _db_files(tmp_path / shard)
+                assert got and got == _db_files(
+                    tmp_path / f"{mode}_jax.{s}"), shard
+        assert (tmp_path / "k_port").read_bytes() == \
+            (tmp_path / "k_jax").read_bytes()
     elif case.startswith("cli_"):
         _write_pdbs(tmp_path / "pdbs")
         cmds = {
@@ -288,6 +500,7 @@ def _fidelity_case(case, corpus, tmp_path):
     "fcz_serialize_parse", "exact_encode", "exact_decode", "format_pdb",
     "pack_decode_batch_lanes", "gather_a14_bb", "encode_pdb_device",
     "finish_encode_device",
-    "database", "synthesize", "cli_compress", "cli_db_to_db", "cli_extract"])
+    "database", "synthesize", "cli_compress", "cli_db_to_db", "cli_extract",
+    "api", "dist", "hybrid_host"])
 def test_copy_matches_foldcomp_tpu(case, corpus, tmp_path):
     _fidelity_case(case, corpus, tmp_path)
