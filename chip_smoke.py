@@ -86,7 +86,21 @@ non-zero:
    line; then each mode through `cli.main` in this process with
    FOLDCOMP_TPU_WARMUP_EST=0, -t 1 and 512-entry batches, and the launch
    counters around it: decompress must launch k1, k2 and k3 (or k2_bb),
-   compress k4.
+   compress k4;
+13. multi_device, the multi-device layers on torch.distributed
+   (foldcomp_tpu_torch/dryrun.py dryrun_multichip, one spawned process a
+   rank): a one-rank run under NCCL on card 0 beside an n-rank run, NCCL
+   with one rank a card where the machine has two or more, else two ranks
+   on card 0 under gloo, whose collectives stage through host memory (the
+   line names the backend). In each: the data-parallel roundtrip step on
+   a batch of bench.py's 8 lengths, 2048 entries a rank, with k1, k2, k3
+   and k4 launched on every rank, records byte-identical and decoded
+   atoms bit-identical to the one-rank run row for row, the global RMSD
+   beside phase 3's per-protein gate; sharded_backbone_features and
+   sharded_encode_features on a 34,350-residue chain (titin's length),
+   and encode_long_chain on its first 6,200 residues, bit-identical to
+   the one-rank run; then measure_scaling's rows, one world size per
+   count of cards, of 2048 entries a rank.
 
 Then the kernel summary (each kernel's launches on the main path, its
 largest difference from its plain version, its time and its plain
@@ -101,6 +115,8 @@ device or outside a checkout of the repository.
                                         no last line
     python3 chip_smoke.py --encode      phases 1, 7 and 9, no last line
     python3 chip_smoke.py --db-jobs     phases 1, 5 and 12, no last line
+    python3 chip_smoke.py --multi-device
+                                        phases 1 and 13, no last line
     python3 chip_smoke.py --ptxas F.cu  also the ptxas report of another
                                         source (an older k3, say) in phase 1
 """
@@ -1394,6 +1410,32 @@ def db_jobs(work, db, picks, uniq, card, fast_wall):
     return counts
 
 
+def multi_device(card):
+    """Phase 13: dryrun_multichip at 2048 entries a rank of the 8 lengths,
+    then measure_scaling over 1, 2, 4 and 8 ranks, as many as the cards.
+    Raises if a rank fails or a check does not hold."""
+    import torch
+
+    from foldcomp_tpu_torch.dryrun import dryrun_multichip
+    from foldcomp_tpu_torch.parallel.scaling import measure_scaling
+
+    count = torch.cuda.device_count()
+    t0 = time.perf_counter()
+    out = dryrun_multichip(entries_per_rank=ENC_BATCH, lengths=BENCH_LENGTHS,
+                           timeout=300)
+    emit("multi_device", part="dryrun", gpu=card, device_count=count,
+         wall_seconds=time.perf_counter() - t0, **out)
+    t0 = time.perf_counter()
+    counts = [n for n in (1, 2, 4, 8) if n <= count]
+    rows = measure_scaling(counts, b_per_device=ENC_BATCH,
+                           lengths=BENCH_LENGTHS, iters=2)
+    emit("multi_device", part="scaling", gpu=card, b_per_device=ENC_BATCH,
+         iters=2, wall_seconds=time.perf_counter() - t0,
+         rows=[dict(devices=n, residues_per_s=thr,
+                    residues_per_s_per_device=thr / n, linearity=lin)
+               for n, thr, lin in rows])
+
+
 def main(argv=None) -> int:
     import argparse
     ap = argparse.ArgumentParser(description="Smoke run of "
@@ -1406,6 +1448,9 @@ def main(argv=None) -> int:
                          "line")
     ap.add_argument("--db-jobs", action="store_true",
                     help="phases 1, 5 and 12 only; no kernel line, no last "
+                         "line")
+    ap.add_argument("--multi-device", action="store_true",
+                    help="phases 1 and 13 only; no kernel line, no last "
                          "line")
     ap.add_argument("--ptxas", metavar="SRC",
                     help="also report ptxas resource use of this CUDA "
@@ -1452,6 +1497,9 @@ def main(argv=None) -> int:
     if args.encode:
         encode_kernels(dev)
         encode_device(dev, card)
+        return 0
+    if args.multi_device:
+        multi_device(card)
         return 0
 
     t0 = time.perf_counter()
@@ -1587,6 +1635,10 @@ def main(argv=None) -> int:
         counts["k4"] = e2e_compress(work, card, uniq)["k4"]
     finally:
         shutil.rmtree(work, ignore_errors=True)
+
+    # ---- 13. the multi-device layers ----
+    torch.cuda.empty_cache()
+    multi_device(card)
 
     # no single PyTorch call computes any of these: library_ms is null
     print(json.dumps({"kernels": [

@@ -1,4 +1,5 @@
-"""Multi-host data-parallel database processing.
+"""Multi-host data-parallel database processing, and the ranks of the
+multi-device layers.
 
 Replacement for the reference's single-node OpenMP fan-out
 (input_processor.h:69-346): database entries are sharded by contiguous
@@ -10,8 +11,17 @@ per-protein codec requires no cross-device communication).
 The port's own copy of `foldcomp_tpu/parallel/dist.py:1`, kept line for
 line but for two things: the `fast=True` branches run the port's device
 decode and encode on an explicit `device` (None: the CUDA card, see
-backend.resolve_device), and the JAX package's `init_distributed`
-(jax.distributed) is not carried; multi-device bring-up is not ported yet.
+backend.resolve_device), and `init_distributed` joins a torch.distributed
+process group instead of the JAX runtime: one process per card (the
+torchrun model), NCCL between CUDA ranks and gloo between CPU ranks, the
+backend chosen from the rank's device. `local_device` gives a rank its
+card, and `spawn_ranks` starts one process per rank on this host, joined
+over a file:// store (pipeline.py, seqpar.py, scaling.py and dryrun.py
+run their ranks through it).
+
+The module imports torch only inside the functions that join or start
+ranks and in the `fast=True` branches, so that the native CPU workers
+that import it never load torch.
 """
 from __future__ import annotations
 
@@ -30,6 +40,78 @@ def shard_range(n: int, shard: int, n_shards: int):
     start = shard * base + min(shard, rem)
     end = start + base + (1 if shard < rem else 0)
     return start, end
+
+
+def init_distributed(coordinator_address: str | None = None,
+                     num_processes: int | None = None,
+                     process_id: int | None = None,
+                     backend: str | None = None, *,
+                     init_method: str | None = None, device=None,
+                     timeout: float = 60.0):
+    """torch.distributed.init_process_group wrapper; returns (rank,
+    world_size).
+
+    The rank and world size come from the arguments, else from torchrun's
+    RANK and WORLD_SIZE; the rendezvous from `init_method` (a file:// store
+    in the tests), else tcp://`coordinator_address`, else torchrun's
+    MASTER_ADDR/MASTER_PORT (env://). With none of these set it returns
+    (0, 1) without creating a process group, as the JAX package's does.
+
+    The rank's device is `device`, else local_device(); the backend is
+    `backend`, else "nccl" for a CUDA device and "gloo" for the CPU. It is
+    never chosen by trying one and then the other. A CUDA rank's device is
+    made current before the group is created. Every collective of the
+    group fails after `timeout` seconds instead of waiting for a rank that
+    is gone."""
+    env = os.environ
+    if coordinator_address is None and init_method is None and \
+            num_processes is None and "MASTER_ADDR" not in env and \
+            "WORLD_SIZE" not in env:
+        return 0, 1
+    import datetime
+
+    import torch
+    import torch.distributed as tdist
+
+    from ..backend import resolve_device
+    if tdist.is_initialized():
+        return tdist.get_rank(), tdist.get_world_size()
+    world = int(num_processes if num_processes is not None
+                else env.get("WORLD_SIZE", 1))
+    rank = int(process_id if process_id is not None
+               else env.get("RANK", 0))
+    if init_method is None:
+        init_method = (f"tcp://{coordinator_address}" if coordinator_address
+                       else "env://")
+    dev = local_device(int(env.get("LOCAL_RANK", rank))) if device is None \
+        else resolve_device(device)
+    if backend is None:
+        backend = "nccl" if dev.type == "cuda" else "gloo"
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    tdist.init_process_group(backend, init_method=init_method,
+                             world_size=world, rank=rank,
+                             timeout=datetime.timedelta(seconds=timeout))
+    return tdist.get_rank(), tdist.get_world_size()
+
+
+def local_device(local_rank: int | None = None):
+    """This rank's device: cuda:`local_rank` (default: torchrun's
+    LOCAL_RANK, else 0) through backend.resolve_device, or the CPU where
+    FOLDCOMP_TORCH_DEVICE=cpu asks for it. Without that card it raises
+    DeviceUnavailable."""
+    import torch
+
+    from ..backend import DEVICE_ENV, DeviceUnavailable, resolve_device
+    if os.environ.get(DEVICE_ENV) == "cpu":
+        return resolve_device("cpu")
+    if local_rank is None:
+        local_rank = int(os.environ.get("LOCAL_RANK", 0))
+    dev = resolve_device(f"cuda:{local_rank}")
+    if dev.index >= torch.cuda.device_count():
+        raise DeviceUnavailable(f"{dev}: this host has "
+                                f"{torch.cuda.device_count()} CUDA devices")
+    return dev
 
 
 def shard_db_path(out_path: str, shard: int) -> str:
@@ -383,3 +465,93 @@ def _get_lib_or_none():
         return get_lib()
     except Exception:
         return None
+
+
+def _rank_entry(results, rank, world, init_method, backend, device,
+                pg_timeout, fn, args):
+    """One spawned rank: join, build the mesh, run fn(mesh, *args), put
+    (rank, True, result) or (rank, False, traceback) on `results`."""
+    import traceback
+
+    import torch.distributed as tdist
+    try:
+        init_distributed(init_method=init_method, num_processes=world,
+                         process_id=rank, backend=backend, device=device,
+                         timeout=pg_timeout)
+        from .pipeline import make_mesh
+        results.put((rank, True, fn(make_mesh(device=device), *args)))
+    except Exception:  # noqa: BLE001 — the parent raises it
+        results.put((rank, False, traceback.format_exc()))
+    finally:
+        if tdist.is_initialized():
+            tdist.destroy_process_group()
+
+
+def spawn_ranks(fn, world_size: int, args=(), *, devices=None,
+                backend: str | None = None, timeout: float = 600.0,
+                pg_timeout: float = 60.0):
+    """Run fn(mesh, *args) in `world_size` spawned processes on this host,
+    one rank each, joined by init_distributed over a file:// store in a
+    fresh temporary directory (no TCP port to collide on). Returns the
+    ranks' results in rank order.
+
+    fn is a module-level function (the spawned processes import it by
+    name); args and results are pickled. devices: one device per rank
+    (default cuda:rank); backend as init_distributed chooses it unless
+    given. A rank that raises, exits without a result, or is not done
+    after `timeout` seconds fails the call with RuntimeError, and the
+    other ranks are killed; each collective gives up after `pg_timeout`."""
+    import multiprocessing
+    import queue
+    import tempfile
+    import time
+
+    ctx = multiprocessing.get_context("spawn")
+    results = ctx.Queue()
+    devices = [f"cuda:{r}" for r in range(world_size)] if devices is None \
+        else [str(d) for d in devices]
+    if len(devices) != world_size:
+        raise ValueError(f"{len(devices)} devices for {world_size} ranks")
+    done, errors = {}, []
+    with tempfile.TemporaryDirectory(prefix="foldcomp_ranks_") as tmp:
+        init = "file://" + os.path.join(tmp, "store")
+        procs = [ctx.Process(target=_rank_entry, daemon=True,
+                             args=(results, r, world_size, init, backend,
+                                   devices[r], pg_timeout, fn, tuple(args)))
+                 for r in range(world_size)]
+        for p in procs:
+            p.start()
+        deadline = time.monotonic() + timeout
+        try:
+            while len(done) + len(errors) < world_size and not errors:
+                try:
+                    rank, ok, val = results.get(timeout=1.0)
+                except queue.Empty:
+                    if time.monotonic() > deadline:
+                        errors.append(f"not done after {timeout} s")
+                    gone = [r for r, p in enumerate(procs)
+                            if p.exitcode is not None and r not in done]
+                    if gone:
+                        # a last message may still be in the pipe
+                        try:
+                            rank, ok, val = results.get(timeout=5.0)
+                        except queue.Empty:
+                            errors.append(f"ranks {gone} exited without "
+                                          "a result")
+                            continue
+                    else:
+                        continue
+                if ok:
+                    done[rank] = val
+                else:
+                    errors.append(f"rank {rank}:\n{val}")
+        finally:
+            for p in procs:
+                p.join(timeout=0 if errors else 30)
+                if p.is_alive():
+                    p.kill()
+                    p.join(timeout=30)
+    if errors:
+        raise RuntimeError(f"{world_size}-rank run failed: "
+                           + "\n".join(errors))
+    return [done[r] for r in range(world_size)]

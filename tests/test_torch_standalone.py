@@ -7,9 +7,11 @@ for code in a string (built for `python -c`) that names or imports one; a
 subprocess whose import system refuses foldcomp_tpu and JAX while the
 port's CLI runs its seven modes on the CPU, `decompress --fast` on the
 backbone-only wire, the hybrid database route of both modes, `warmup` and
-the sharded extract; and one that refuses torch as well, in itself and in
+the sharded extract; one that refuses torch as well, in itself and in
 every worker process it starts, while the hybrid scheduler and the sharded
-extract run their process workers.
+extract run their process workers; and `python -m
+foldcomp_tpu_torch.parallel.scaling --help` with foldcomp_tpu and JAX
+refused.
 
 Copy fidelity: on a seeded synthetic corpus at tests/test_wclass.py scale
 (lengths 26-240), each copied stage against its foldcomp_tpu original, down
@@ -17,7 +19,8 @@ to the byte: the FCZ serializer and parser, the exact encoder and decoder,
 the PDB writer, the ragged-lane pack, the bb wire's host stitch, the
 device-encode parse and host finish, the database writer, verify's
 synthetic structures, the CLI's exact routes, the Python API, the shard
-layer (parallel/dist.py) and the hybrid scheduler's host parts.
+layer (parallel/dist.py), the hybrid scheduler's host parts and the
+scaling harness's synthetic batch and databases (parallel/scaling.py).
 """
 import ast
 import os
@@ -473,6 +476,29 @@ def _fidelity_case(case, corpus, tmp_path):
                     tmp_path / f"{mode}_jax.{s}"), shard
         assert (tmp_path / "k_port").read_bytes() == \
             (tmp_path / "k_jax").read_bytes()
+    elif case == "scaling_host":
+        from foldcomp_tpu.parallel import scaling as tpu_scaling
+        from foldcomp_tpu_torch.parallel import scaling as port_scaling
+        for b, l, seed in ((3, 17, 0), (2, 40, 5)):
+            _assert_same(port_scaling.synthetic_batch(b, l, seed),
+                         tpu_scaling.synthetic_batch(b, l, seed))
+        blobs = [tpu_fcz.serialize(f) + b"\x00" for f in fczs]
+        _assert_same(port_scaling._mixed_variants(blobs, seed=3),
+                     tpu_scaling._mixed_variants(blobs, seed=3))
+        src = tmp_path / "src_db"
+        w = tpu_db.DatabaseWriter(str(src))
+        for i, blob in enumerate(blobs):
+            w.append(blob, i, f"s{i}")
+        w.close()
+        for mixed in (False, True):
+            totals = [mod.build_synthetic_db(str(tmp_path / f"{name}_{mixed}"),
+                                             12, src_db=str(src),
+                                             mixed=mixed, seed=1)
+                      for mod, name in ((port_scaling, "port"),
+                                        (tpu_scaling, "jax"))]
+            assert totals[0] == totals[1]
+            got = _db_files(tmp_path / f"port_{mixed}")
+            assert got and got == _db_files(tmp_path / f"jax_{mixed}")
     elif case.startswith("cli_"):
         _write_pdbs(tmp_path / "pdbs")
         cmds = {
@@ -501,6 +527,34 @@ def _fidelity_case(case, corpus, tmp_path):
     "pack_decode_batch_lanes", "gather_a14_bb", "encode_pdb_device",
     "finish_encode_device",
     "database", "synthesize", "cli_compress", "cli_db_to_db", "cli_extract",
-    "api", "dist", "hybrid_host"])
+    "api", "dist", "hybrid_host", "scaling_host"])
 def test_copy_matches_foldcomp_tpu(case, corpus, tmp_path):
     _fidelity_case(case, corpus, tmp_path)
+
+
+_SCALING_HELP = textwrap.dedent("""
+    import importlib.abc, runpy, sys
+
+    class Refuse(importlib.abc.MetaPathFinder):
+        def find_spec(self, name, path, target=None):
+            if name.split(".")[0] in ("foldcomp_tpu", "jax", "jaxlib"):
+                raise ImportError("refused: " + name)
+            return None
+
+    sys.meta_path.insert(0, Refuse())
+    sys.argv = ["scaling", "--help"]
+    runpy.run_module("foldcomp_tpu_torch.parallel.scaling",
+                     run_name="__main__")
+""")
+
+
+def test_scaling_cli_help_without_jax():
+    """`python -m foldcomp_tpu_torch.parallel.scaling --help`, with JAX and
+    foldcomp_tpu refused by the import system."""
+    r = subprocess.run([sys.executable, "-c", _SCALING_HELP],
+                       env=dict(os.environ, PYTHONPATH=str(REPO)),
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stderr
+    for flag in ("--devices", "--multiprocess", "--hybrid-additivity",
+                 "--src-db"):
+        assert flag in r.stdout, flag
