@@ -32,11 +32,13 @@ non-zero:
    (`pack_order_ms`), the lane order's own time (`k2.order_ms`), and the
    torch glue (`glue_ms`: the device decode less the three kernels);
 5. e2e: `python -m foldcomp_tpu_torch decompress --fast <db> <out> --db`
-   on a 4096-entry FCZ database in a subprocess, timed; 64 sampled
-   outputs held to the phase-3 bound;
+   on a 4096-entry FCZ database in a subprocess (FOLDCOMP_TPU_WCLASS=auto,
+   the default), timed; 64 sampled outputs held to the phase-3 bound;
 6. main path: the same CLI entry point in this process with the kernel
-   launch counters reset just before and read just after; each kernel
-   must have launched;
+   launch counters reset just before and read just after, and the decode
+   calls counted: at least one batch must have taken width classes, and
+   k1, k2 and k3 must each have launched once a single-class batch and
+   once a class of each classed batch;
 7. encode_kernels: the fused encode kernel (k4 with the epilogue) against
    its plain version, parity_tail(merged_plain(...)), on the same inputs:
    a mixed 256-entry batch of the 8 lengths by the compact wire and by the
@@ -100,7 +102,21 @@ non-zero:
    sharded_encode_features on a 34,350-residue chain (titin's length),
    and encode_long_chain on its first 6,200 residues, bit-identical to
    the one-rank run; then measure_scaling's rows, one world size per
-   count of cards, of 2048 entries a rank.
+   count of cards, of 2048 entries a rank;
+14. wclass, width-classed lanes (split_lanes_classes and
+   decode_seg_fused_classes; its kernel and device parts run after phase
+   11's, its CLI part after phase 5): the classed decode's kernels (k1
+   into the shared tails, k2 seeded through prev_idx, k3 into the flat
+   buffer) against decode_seg_fused_classes_plain on phase 2's corpora
+   split with the savings gate off and on phase 4's B=8192 batch split by
+   the auto rule, bit-equal on the rows each lane owns; at B=8192 the
+   classed decode against the single-class one, gathered per protein,
+   bit-equal on every row; each form's slots, output and D2H bytes, D2H
+   seconds, device decode time and peak device memory; each class's k1,
+   k2 and k3 and the glue; the launches of a batch; then phase 5's
+   `decompress --fast` again with FOLDCOMP_TPU_WCLASS=0, 0 and auto (the
+   modes alternate with phase 5's auto run), every output byte-identical
+   to phase 5's.
 
 Then the kernel summary (each kernel's launches on the main path, its
 largest difference from its plain version, its time and its plain
@@ -110,9 +126,9 @@ run's inputs), the card's `nvidia-smi` name and power limit, and as the
 last line {"ok": true, "device": {...}}. Exits non-zero without a CUDA
 device or outside a checkout of the repository.
 
-    python3 chip_smoke.py --quick       phases 1, 2, 4 and phase 11's
-                                        kernel checks and device timings,
-                                        no last line
+    python3 chip_smoke.py --quick       phases 1-4 and the kernel
+                                        checks and device timings of
+                                        phases 11 and 14, no last line
     python3 chip_smoke.py --encode      phases 1, 7 and 9, no last line
     python3 chip_smoke.py --db-jobs     phases 1, 5 and 12, no last line
     python3 chip_smoke.py --multi-device
@@ -833,13 +849,10 @@ def decode_kernels(dev, uniq, err):
              max_abs=got, tol={"f32_A": TOL_A, "i16_units": TOL_I16})
 
 
-def kernel_cases(dev, uniq):
-    """Phase 2's inputs: yields (corpus, arrays, tensors, class_prep dict,
-    refine_iters, is_first) for a mixed batch of 512 entries, a corpus
-    with SEG > 96 and one packed without the 8-row bucket (SEG % 4 != 0),
-    at refine_iters 1 and 2, then the mixed batch at 2 with lane 0 made a
-    continuation (is_first[0] false), so that k2's seed roll wraps to lane
-    NL-1."""
+def phase2_corpora(uniq):
+    """Phase 2's corpora: (label, FczData list, the pack's seg_bucket) of a
+    mixed batch of 512 entries, a corpus with SEG > 96 and one packed
+    without the 8-row bucket (SEG % 4 != 0)."""
     from foldcomp_tpu_torch.codec.encoder import encode
 
     rng = random.Random(0)
@@ -849,8 +862,15 @@ def kernel_cases(dev, uniq):
     wide = [wide_u[i % 2] for i in range(256)]
     # k3 copies out with 16-byte stores only where SEG % 4 == 0
     odd = [encode(synthesize(n, seed=n)) for n in (37, 45, 61, 83, 97)] * 40
-    for label, fczs, bucket in (("mixed512", mixed, 8), ("wide", wide, 8),
-                                ("odd_seg", odd, 1)):
+    return (("mixed512", mixed, 8), ("wide", wide, 8), ("odd_seg", odd, 1))
+
+
+def kernel_cases(dev, uniq):
+    """Phase 2's inputs: yields (corpus, arrays, tensors, class_prep dict,
+    refine_iters, is_first) for phase2_corpora at refine_iters 1 and 2,
+    then the mixed batch at 2 with lane 0 made a continuation (is_first[0]
+    false), so that k2's seed roll wraps to lane NL-1."""
+    for label, fczs, bucket in phase2_corpora(uniq):
         arrays, _, ta, pr = prep_of(fczs, dev, bucket)
         seg = arrays["seg_records"].shape[1]
         if label == "wide" and not seg > 96:
@@ -1092,7 +1112,8 @@ def bb_device(dev, card, uniq, err, entries=8192):
               for _ in range(6)]
     pos = torch.empty((nl,), dtype=torch.int32, device=dev)
     FD._launch(lib.fd_backbone, "k2 backbone", dev, *FD._ptrs(
-        recs, t9, fwd9, first, *lane, order.perm, *planes, pos), seg, nl)
+        recs, t9, None, fwd9, first, *lane, order.perm, *planes, pos), nl,
+        seg, nl)
     alone = tuple(torch.empty_like(t) for t in got)
 
     def bb_out():
@@ -1215,6 +1236,272 @@ def bb_cli(work, db, names, card, hold):
                        and counts["k2_bb"] > 0 and counts["k3"] == 0):
         raise AssertionError(f"bb main path rc {rc}, launches {counts}")
     return counts
+
+
+# the classed decode against its plain version: the gate is bit-equality
+# on the rows each lane owns
+TOL_CLASSES = {"i16_units": 0, "f32_A": 0.0}
+
+
+def class_inputs(ta):
+    """The per-class kernel inputs of a classed tensor dict
+    (arrays_to_torch of split_lanes_classes' dict): (decode args, class_prep
+    dicts with their lane orders, the classes' first lanes in the shared
+    tails, NL_total appended)."""
+    from foldcomp_tpu_torch.codec.batch import _CLASS_DTYPES
+    from foldcomp_tpu_torch.kernels import fused_decode as FD
+    c = ta["classes"]
+    args = tuple(c[k] for k in _CLASS_DTYPES)
+    prs, bases = [], [0]
+    for i in range(len(c["recs"])):
+        pr = FD.class_prep(*(a[i] for a in args[:6]), c["segm"][i])
+        pr["order"] = FD.lane_order(pr["tat"])
+        pr["lane"] = (pr["rev9"], pr["tat"], pr["mins6"], pr["cont6"])
+        pr["isf"], pr["segm"] = c["isf"][i], c["segm"][i]
+        prs.append(pr)
+        bases.append(bases[-1] + pr["recs"].shape[2])
+    return args, prs, bases
+
+
+def hold_classes(label, ta, refine_iters, err):
+    """decode_seg_fused_classes through the kernels against
+    decode_seg_fused_classes_plain on the same classed inputs, on the rows
+    each lane of each class owns (s < seg_m), with k1 (each class into its
+    columns of the shared tails) and k2 (seeded through prev_idx) against
+    their plain versions too. Raises past TOL_CLASSES. -> the differences."""
+    import torch
+
+    from foldcomp_tpu_torch.kernels import fused_decode as FD
+    args, prs, bases = class_inputs(ta)
+    prev, nl_outs = ta["prev_idx"], ta["nl_outs"]
+    got = FD.decode_seg_fused_classes(*args, prev, refine_iters=refine_iters,
+                                      nl_outs=nl_outs)
+    want = FD.decode_seg_fused_classes_plain(
+        *args, prev, refine_iters=refine_iters, nl_outs=nl_outs)
+    d = {"k1": 0.0, "k2": 0.0, "k3_off_units": 0, "k3_ca": 0.0}
+    for (go, gc), (wo, wc), pr in zip(got, want, prs):
+        own = torch.arange(go.shape[1], device=go.device)[None, :] \
+            < pr["segm"][:go.shape[0], None]
+        d["k3_off_units"] = max(d["k3_off_units"], (go.int() - wo.int())
+                                .abs()[own].max().item())
+        d["k3_ca"] = max(d["k3_ca"], (gc - wc).abs()[own].max().item())
+    del got, want
+    tails_g = None
+    if refine_iters >= 2:
+        tails_g = torch.empty((9, bases[-1]), dtype=torch.float32,
+                              device=prs[0]["recs"].device)
+        for i, pr in enumerate(prs):
+            FD.tails(pr["recs"], pr["fwd9"], *pr["lane"], order=pr["order"],
+                     out=tails_g[:, bases[i]:bases[i + 1]])
+        tp = torch.cat([FD.tails_plain(pr["recs"], FD.n_ca_lengths(
+            pr["recs"]), pr["fwd9"], *pr["lane"]) for pr in prs], dim=1)
+        d["k1"] = (tails_g - tp).abs().max().item()
+    for i, pr in enumerate(prs):
+        p_i = None if tails_g is None else prev[bases[i]:bases[i + 1]]
+        bk = FD.backbone(pr["recs"], tails_g, pr["fwd9"], pr["isf"],
+                         *pr["lane"], order=pr["order"], prev=p_i)
+        d["k2"] = max(d["k2"], owned_max(bk, FD.backbone_rolled_plain(
+            pr["recs"], tails_g, pr["fwd9"], pr["isf"], *pr["lane"], p_i),
+            pr["tat"]))
+    if not (d["k3_off_units"] <= TOL_CLASSES["i16_units"]
+            and max(d["k1"], d["k2"], d["k3_ca"]) <= TOL_CLASSES["f32_A"]):
+        raise AssertionError(f"{label} r={refine_iters}: classed kernels vs "
+                             f"plain: {d}")
+    err["k1"] = max(err["k1"], d["k1"])
+    err["k2"] = max(err["k2"], d["k2"])
+    err["k3"] = max(err["k3"], d["k3_off_units"] * 1e-3, d["k3_ca"])
+    return d
+
+
+def class_kernels(dev, uniq, err):
+    """Phase 14, kernels: the classed decode's kernels against their plain
+    versions on phase 2's corpora, each split into width classes with the
+    savings gate off (min_save -100), at refine_iters 1 and 2."""
+    import torch
+
+    from foldcomp_tpu_torch.codec.batch import arrays_to_torch
+    from foldcomp_tpu_torch.codec.batch_host import (pack_decode_batch_lanes,
+                                                     split_lanes_classes)
+    for label, fczs, bucket in phase2_corpora(uniq):
+        arrays, metas = pack_decode_batch_lanes(fczs, seg_bucket=bucket)
+        split = split_lanes_classes(dict(arrays), metas, min_save=-100.0)
+        if split is None:     # a corpus of one width class has no split
+            if label == "mixed512":
+                raise AssertionError("mixed512: no width classes")
+            emit("wclass", part="kernels", corpus=label, classes=1)
+            continue
+        ta = arrays_to_torch(split[0], dev)
+        for r in (1, 2):
+            d = hold_classes(label, ta, r, err)
+            torch.cuda.synchronize()
+            emit("wclass", part="kernels", corpus=label, refine_iters=r,
+                 classes=len(ta["classes"]["recs"]),
+                 seg=[int(t.shape[1]) for t in ta["classes"]["recs"]],
+                 lanes=[int(t.shape[2]) for t in ta["classes"]["recs"]],
+                 max_abs=d, tol=TOL_CLASSES)
+
+
+def class_device(dev, card, uniq, err, entries=8192):
+    """Phase 14, device: the B=8192 batch of phase 4, packed as the full
+    wire's auto rule packs it (FOLDCOMP_TPU_WCLASS=auto: classes) and as
+    one class. The classed kernels against their plain versions; the
+    classed decode against the single-class one, gathered per protein
+    through each pack's metas, bit-equal on every row; each form's slots,
+    output bytes, D2H seconds (pageable, as the stream copies), device
+    decode time in turns and peak device memory; each class's k1, k2 and
+    k3 by CUDA events and the glue; the launches of a batch; the host
+    seconds of the pack alone and of the pack with the split."""
+    import numpy as np
+    import torch
+
+    from foldcomp_tpu_torch.codec import batch as CB
+    from foldcomp_tpu_torch.codec.batch_host import pack_decode_batch_lanes
+    from foldcomp_tpu_torch.kernels import fused_decode as FD
+
+    rng = random.Random(0)
+    big = [uniq[rng.choice(BENCH_LENGTHS)] for _ in range(entries)]
+    t0 = time.perf_counter()
+    arrays, metas = pack_decode_batch_lanes(big)
+    t1 = time.perf_counter()
+    cls_arrays, cls_metas = CB.pack_decode_wire(big, False, wclass="auto")
+    host_s = {"pack": t1 - t0, "pack_and_split": time.perf_counter() - t1}
+    if "classes" not in cls_arrays:
+        raise AssertionError(f"B={entries}: the auto rule made no classes")
+    forms = {"single": CB.arrays_to_torch(arrays, dev),
+             "classed": CB.arrays_to_torch(cls_arrays, dev)}
+    d = hold_classes(f"B={entries}", forms["classed"], 2, err)
+
+    def decode(form):
+        return CB._seg_decode_arrays(forms[form], 2)
+
+    # every protein's rows through its own pack's metas
+    seg = arrays["seg_records"].shape[1]
+    idx = {"single": np.concatenate([m.lane_of * seg + m.rec_of
+                                     for m in metas]),
+           "classed": np.concatenate([m.lane_of for m in cls_metas])}
+    rows = {}
+    for form in forms:
+        off, ca = decode(form)
+        i = torch.from_numpy(idx[form]).to(dev)
+        rows[form] = (off.reshape(-1, 42)[i], ca.reshape(-1, 3)[i])
+        del off, ca
+    n_rows = rows["single"][0].shape[0]
+    diff_rows = int(((rows["single"][0] != rows["classed"][0]).any(1)
+                     | (rows["single"][1] != rows["classed"][1]).any(1))
+                    .sum().item())
+    if diff_rows:
+        raise AssertionError(f"B={entries}: {diff_rows} of {n_rows} rows "
+                             "differ between the classed and single decode")
+    del rows
+
+    dec = {"single": [], "classed": []}
+    xfer = {"single": [], "classed": []}
+    mem = {}
+    slots = {}
+    for form in ("single", "classed", "classed", "single"):
+        dec[form].append(cuda_ms(torch, lambda: decode(form), 10))
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        outs = decode(form)
+        torch.cuda.synchronize()
+        mem[form] = torch.cuda.max_memory_allocated() - base
+        slots[form] = outs[0].shape[0] * outs[0].shape[1]
+        dt, nbytes = d2h(outs)
+        xfer[form].append({"seconds": dt, "bytes": nbytes,
+                           "mb_per_s": nbytes / dt / 1e6})
+        del outs
+
+    launches = {}
+    for form in forms:
+        FD.reset_launch_counts()
+        decode(form)
+        torch.cuda.synchronize()
+        launches[form] = FD.launch_counts()
+
+    # each class's kernels alone
+    args, prs, bases = class_inputs(forms["classed"])
+    prev, nl_outs = forms["classed"]["prev_idx"], forms["classed"]["nl_outs"]
+    tails_g = torch.empty((9, bases[-1]), dtype=torch.float32, device=dev)
+    kern = []
+    for i, pr in enumerate(prs):
+        cols = tails_g[:, bases[i]:bases[i + 1]]
+        kern.append((
+            lambda pr=pr, cols=cols: FD.tails(
+                pr["recs"], pr["fwd9"], *pr["lane"], order=pr["order"],
+                out=cols),
+            lambda pr=pr, i=i: FD.backbone(
+                pr["recs"], tails_g, pr["fwd9"], pr["isf"], *pr["lane"],
+                order=pr["order"], prev=prev[bases[i]:bases[i + 1]])))
+    for k1, _ in kern:
+        k1()
+    per_class = []
+    for i, (pr, (k1, k2)) in enumerate(zip(prs, kern)):
+        bb = k2()
+
+        def k3(pr=pr, bb=bb, i=i):
+            return FD.sidechain(*bb, pr["code"], pr["sct"], nl_outs[i],
+                                seg_m=pr["segm"])
+        t = {k: min(cuda_ms(torch, fn, 10), cuda_ms(torch, fn, 10))
+             for k, fn in (("k1", k1), ("k2", k2), ("k3", k3))}
+        per_class.append(dict(seg=int(pr["recs"].shape[1]),
+                              lanes=int(pr["recs"].shape[2]),
+                              nl_out=nl_outs[i],
+                              rows=int(pr["recs"].shape[1]) * nl_outs[i],
+                              **{f"{k}_ms": v for k, v in t.items()}))
+        del bb
+    del tails_g, kern, args, prs
+    ms = {f: min(v) for f, v in dec.items()}
+    kernels_ms = sum(c[f"{k}_ms"] for c in per_class for k in ("k1", "k2",
+                                                                "k3"))
+    emit("wclass", part="device", gpu=card, entries=len(big),
+         classes=len(per_class), class_seg=[c["seg"] for c in per_class],
+         host_seconds=host_s, kernel_vs_plain=d,
+         rows_compared=n_rows, rows_differing=diff_rows, slots=slots,
+         out_bytes={f: 96 * n for f, n in slots.items()}, d2h=xfer,
+         device_decode_ms=ms, device_decode_runs_ms=dec,
+         per_class=per_class, classed_kernels_ms=kernels_ms,
+         classed_glue_ms=ms["classed"] - kernels_ms,
+         peak_device_bytes=mem, launches=launches)
+    return ms
+
+
+def wclass_cli(db, out_auto, names, card, auto_wall):
+    """Phase 14, CLI: `decompress --fast` on phase 5's database in a
+    subprocess with FOLDCOMP_TPU_WCLASS=0, =0 again and =auto, so that with
+    phase 5's run (auto) the modes alternate auto, 0, 0, auto; every output
+    of every run byte-identical, by name, to phase 5's."""
+    want = {nm: data for nm, data in read_entries(out_auto).values()}
+    if len(want) != len(names):
+        raise AssertionError(f"phase 5 wrote {len(want)} of {len(names)}")
+    walls = {"auto": [auto_wall], "0": []}
+    differ = {"auto": 0, "0": 0}
+    for mode in ("0", "0", "auto"):
+        env = dict(os.environ, PYTHONPATH=str(REPO),
+                   FOLDCOMP_TPU_WCLASS=mode)
+        env.pop("FOLDCOMP_TORCH_DEVICE", None)
+        out = out_auto.parent / f"pdb_db_wclass_{mode}"
+        t0 = time.perf_counter()
+        r = subprocess.run(
+            [sys.executable, "-m", "foldcomp_tpu_torch", "decompress",
+             "--fast", str(db), str(out), "--db"], cwd=str(REPO), env=env,
+            capture_output=True, text=True, timeout=600)
+        walls[mode].append(time.perf_counter() - t0)
+        if r.returncode != 0:
+            raise AssertionError(f"WCLASS={mode} CLI rc {r.returncode}: "
+                                 f"{r.stderr[-4000:]}")
+        got = {nm: data for nm, data in read_entries(out).values()}
+        differ[mode] += sum(got.get(nm) != want[nm] for nm in names) \
+            + (len(got) != len(names))
+        for p in out.parent.glob(out.name + "*"):
+            p.unlink()
+    emit("wclass", part="e2e", gpu=card, entries=len(names),
+         command="FOLDCOMP_TPU_WCLASS=0|auto python -m foldcomp_tpu_torch "
+                 "decompress --fast <db> <out> --db",
+         order=["auto", "0", "0", "auto"], wall_seconds=walls,
+         outputs_compared=len(names), outputs_differing=differ)
+    if any(differ.values()):
+        raise AssertionError(f"WCLASS=0 vs auto: outputs differ {differ}")
 
 
 def read_entries(path):
@@ -1441,8 +1728,8 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description="Smoke run of "
                                  "foldcomp_tpu_torch on one CUDA card.")
     ap.add_argument("--quick", action="store_true",
-                    help="phases 1, 2 and 4 only; no kernel line, no last "
-                         "line")
+                    help="phases 1-4 and the kernel and device parts of "
+                         "11 and 14 only; no kernel line, no last line")
     ap.add_argument("--encode", action="store_true",
                     help="phases 1, 7 and 9 only; no kernel line, no last "
                          "line")
@@ -1529,6 +1816,11 @@ def main(argv=None) -> int:
         bb_kernels(dev, uniq, err)
         times["k2_bb"] = bb_device(dev, card, uniq, err)
         torch.cuda.empty_cache()
+
+        # ---- 14. width classes: kernels and device ----
+        class_kernels(dev, uniq, err)
+        class_device(dev, card, uniq, err)
+        torch.cuda.empty_cache()
         if args.quick:
             return 0
 
@@ -1545,7 +1837,8 @@ def main(argv=None) -> int:
         w.close()
         e2e_res = sum(uniq[n].n_residue for n in picks)
         out = work / "pdb_db"
-        env = dict(os.environ, PYTHONPATH=str(REPO))
+        env = dict(os.environ, PYTHONPATH=str(REPO),
+                   FOLDCOMP_TPU_WCLASS="auto")
         env.pop("FOLDCOMP_TORCH_DEVICE", None)
         t0 = time.perf_counter()
         r = subprocess.run(
@@ -1594,6 +1887,9 @@ def main(argv=None) -> int:
                      "<db> <out> --db",
              sampled=64, worst_dev_over_ref_A=worst)
         fast_wall = wall
+        if not args.db_jobs:
+            # ---- 14. width classes through the CLI ----
+            wclass_cli(db, out, names, card, wall)
         for p in work.glob(out.name + "*"):     # data file + index files
             p.unlink()
         if args.db_jobs:
@@ -1601,20 +1897,51 @@ def main(argv=None) -> int:
             return 0
 
         # ---- 6. the main path, launch counters around it ----
+        # (FOLDCOMP_TPU_WCLASS as phase 5 had it, auto; the batches that
+        # the rule splits launch k1, k2 and k3 once a class: the decode
+        # calls are counted too, to know how many launches to expect)
         out2 = work / "pdb_db_main"
-        FD.reset_launch_counts()
-        FE.reset_launch_counts()
-        t0 = time.perf_counter()
-        with contextlib.redirect_stdout(sys.stderr):
-            rc = cli.main(["decompress", "--fast", str(db), str(out2),
-                           "--db"])
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        counts = {**FD.launch_counts(), **FE.launch_counts()}
+        calls = {"single": 0, "classes": []}
+        real = (FD.decode_seg_fused, FD.decode_seg_fused_classes)
+
+        def single(*a, **kw):
+            calls["single"] += 1
+            return real[0](*a, **kw)
+
+        def classed(*a, **kw):
+            calls["classes"].append(len(a[0]))
+            return real[1](*a, **kw)
+
+        saved = os.environ.get("FOLDCOMP_TPU_WCLASS")
+        os.environ["FOLDCOMP_TPU_WCLASS"] = "auto"
+        FD.decode_seg_fused, FD.decode_seg_fused_classes = single, classed
+        try:
+            FD.reset_launch_counts()
+            FE.reset_launch_counts()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(sys.stderr):
+                rc = cli.main(["decompress", "--fast", str(db), str(out2),
+                               "--db"])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            counts = {**FD.launch_counts(), **FE.launch_counts()}
+        finally:
+            FD.decode_seg_fused, FD.decode_seg_fused_classes = real
+            if saved is None:
+                os.environ.pop("FOLDCOMP_TPU_WCLASS")
+            else:
+                os.environ["FOLDCOMP_TPU_WCLASS"] = saved
+        expect = calls["single"] + sum(calls["classes"])
         emit("main_path", rc=rc, launches=counts, wall_seconds=wall,
-             residues_per_s=e2e_res / wall, gpu=card)
-        if rc != 0 or not all(counts[k] > 0 for k in ("k1", "k2", "k3")):
-            raise AssertionError(f"main path rc {rc}, launches {counts}")
+             residues_per_s=e2e_res / wall, gpu=card,
+             batches={"single_class": calls["single"],
+                      "classed": len(calls["classes"]),
+                      "classes": calls["classes"]},
+             launches_expected=expect)
+        if rc != 0 or not calls["classes"] or \
+                not all(counts[k] == expect for k in ("k1", "k2", "k3")):
+            raise AssertionError(f"main path rc {rc}, launches {counts}, "
+                                 f"decode calls {calls}")
         for p in work.glob(out2.name + "*"):
             p.unlink()
 

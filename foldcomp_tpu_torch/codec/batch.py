@@ -10,7 +10,7 @@ fragment tensors (`fragment_to_tensors`), the numpy compact wire
 (`_compact_coord_batch`), its scratch pool, and the sparse host finish with
 the FczData assembly (`finish_encode` -> `finish_encode_device`). Only the
 device stages and what touches their tensors are here, mirroring
-foldcomp_tpu/codec/batch.py (`use_bb_wire`, the bb half of
+foldcomp_tpu/codec/batch.py (`use_bb_wire`, the ragged-lane half of
 `pack_decode_batch_auto`, `_seg_decode_arrays`, `_outs_to_host`,
 `decode_fcz_batch`, `decode_fcz_to_pdb_batch`, `decode_fcz_stream`,
 `_pack_encode_wire_native`, `encode_submit`, `encode_finish`,
@@ -22,7 +22,10 @@ SEG, so there is no grid-core fallback to route wide segments to. Each
 decode call chooses its wire once (`use_bb_wire`): the full wire ships
 96 B a residue slot (k1, k2, k3), the backbone-only wire 24 B (k1, k2 and
 its epilogue k2_bb_out), and the host then places O and the side chains
-with the native codec. Width classes are not on this path. The encode
+with the native codec. A full-wire batch is split into width classes
+(`split_lanes_classes`) where `use_wclass` and the savings gate say so, as
+in foldcomp_tpu: then k1, k2 and k3 run once per class, their rows land in
+one flat buffer, and one copy brings it to the host. The encode
 takes any length and needs no protein block: every batch goes through k4,
 by its compact or its f32 loader.
 """
@@ -41,10 +44,12 @@ import torch
 from ..backend import resolve_device
 from ..kernels import fused_decode, fused_encode
 from ..native import get_lib
-from .batch_host import (_POOL, _assemble_protein, _compact_coord_batch,
+from .batch_host import (_POOL, _WCLASS_MIN_LANES, _WCLASS_MIN_SAVE,
+                         _assemble_protein, _compact_coord_batch,
                          _format_batch, _gather_a14, _round_up,
                          finish_encode, fragment_to_tensors,
-                         pack_decode_batch_lanes, seg_sort_key)
+                         pack_decode_batch_lanes, seg_sort_key,
+                         split_lanes_classes, use_wclass)
 
 # pack keys -> tensor dtype on the device
 _ARRAY_DTYPES = {
@@ -52,6 +57,12 @@ _ARRAY_DTYPES = {
     "cont_lane": torch.float32, "sc_codes_seg": torch.uint8,
     "fwd9": torch.float32, "rev9": torch.float32, "is_first": torch.bool,
     "seg_m": torch.int32}
+# the width classes' keys (split_lanes_classes) -> dtype, in the order of
+# decode_seg_fused_classes' arguments
+_CLASS_DTYPES = {
+    "recs": torch.uint8, "mins": torch.float32, "cont": torch.float32,
+    "sct": torch.uint8, "fwd": torch.float32, "rev": torch.float32,
+    "isf": torch.bool, "segm": torch.int32}
 
 # Set once a device decode or encode batch has completed in this process
 # (foldcomp_tpu/codec/batch.py:31): the hybrid scheduler's guard
@@ -90,28 +101,69 @@ def use_bb_wire() -> bool:
         and get_lib() is not None
 
 
-def pack_decode_wire(fczs, bb_wire: bool):
-    """pack_decode_batch_lanes, and for the bb wire each meta's side-chain
-    code stream and the arrays marked `bb_wire`, as
-    foldcomp_tpu/codec/batch.py pack_decode_batch_auto (:802-808) does."""
+def pack_decode_wire(fczs, bb_wire: bool, wclass: str | None = None):
+    """pack_decode_batch_lanes, then as foldcomp_tpu/codec/batch.py
+    pack_decode_batch_auto (:802-820): for the bb wire each meta's
+    side-chain code stream and the arrays marked `bb_wire` (never width
+    classes); for the full wire the width-class split where the mode
+    (wclass, else use_wclass(): "0", "1" or "auto") and the savings gate
+    allow it, which returns split_lanes_classes' dict and flat-row metas."""
     arrays, metas = pack_decode_batch_lanes(fczs)
-    if not bb_wire:
-        return arrays, metas
-    metas = [dataclasses.replace(m, sc_codes=np.asarray(f.sc_codes,
-                                                        np.uint8))
-             for m, f in zip(metas, fczs)]
-    return dict(arrays, bb_wire=True), metas
+    if bb_wire:
+        metas = [dataclasses.replace(m, sc_codes=np.asarray(f.sc_codes,
+                                                            np.uint8))
+                 for m, f in zip(metas, fczs)]
+        return dict(arrays, bb_wire=True), metas
+    mode = use_wclass() if wclass is None else wclass
+    if mode != "0":
+        nl_est = sum(f.n_anchor - 1 for f in fczs)
+        if mode == "1" or nl_est >= _WCLASS_MIN_LANES:
+            split = split_lanes_classes(
+                arrays, metas,
+                min_save=(0.15 if mode == "1" else _WCLASS_MIN_SAVE))
+            if split is not None:
+                return split
+    return arrays, metas
+
+
+def _classes_to_torch(arrays, dev) -> dict:
+    """arrays_to_torch of a width-classed dict: {"classes": {key: one
+    tensor a class}, "prev_idx": i32 [NL_total] tensor, "nl_outs": host
+    ints}. Checks 1 <= seg_m <= SEG_c in every class, one lane count a
+    class across its arrays, and 0 <= prev_idx < NL_total."""
+    c = arrays["classes"]
+    n_cls = len(c["recs"])
+    lanes = []
+    for i in range(n_cls):
+        seg, nl = c["recs"][i].shape[1], c["recs"][i].shape[2]
+        sm = np.asarray(c["segm"][i])
+        if sm.shape != (nl,) or (sm.size and (sm.min() < 1
+                                              or sm.max() > seg)):
+            raise ValueError(f"class {i}: seg_m outside [1, {seg}] or not "
+                             f"{nl} lanes")
+        lanes.append(nl)
+    prev = np.asarray(arrays["prev_idx"])
+    if prev.shape != (sum(lanes),) or (prev.size and (
+            prev.min() < 0 or prev.max() >= prev.size)):
+        raise ValueError(f"prev_idx: not {sum(lanes)} lanes in "
+                         f"[0, {sum(lanes)})")
+    classes = {k: tuple(torch.from_numpy(np.ascontiguousarray(a))
+                        .to(device=dev, dtype=dt) for a in c[k])
+               for k, dt in _CLASS_DTYPES.items()}
+    return {"classes": classes,
+            "prev_idx": torch.from_numpy(prev.astype(np.int32)).to(dev),
+            "nl_outs": tuple(int(n) for n in arrays["nl_outs"])}
 
 
 def arrays_to_torch(arrays, device) -> dict:
     """The pack's numpy dict (the same one the JAX path takes) -> tensors
-    on `device`; `nl_out` stays a host int and `bb_wire` a host bool.
-    Checks on the host what the kernels take for granted: 1 <= seg_m <= SEG
-    for every lane."""
+    on `device`; `nl_out` stays a host int and `bb_wire` a host bool; a
+    width-classed dict keeps its form (_classes_to_torch). Checks on the
+    host what the kernels take for granted: 1 <= seg_m <= SEG for every
+    lane."""
     dev = resolve_device(device)
     if "classes" in arrays:
-        raise ValueError("width-classed packs are not ported; pack with "
-                         "pack_decode_batch_lanes")
+        return _classes_to_torch(arrays, dev)
     seg = arrays["seg_records"].shape[1]
     seg_m = arrays["seg_m"]
     if seg_m.size and (seg_m.min() < 1 or seg_m.max() > seg):
@@ -127,7 +179,21 @@ def arrays_to_torch(arrays, device) -> dict:
 
 def _seg_decode_arrays(arrays, refine_iters=2):
     """Device decode of a ragged-lane tensor dict -> (off, ca) tensors, or
-    ("bb", off, ca) for a bb-wire pack."""
+    ("bb", off, ca) for a bb-wire pack. A width-classed dict goes through
+    decode_seg_fused_classes into one flat buffer, returned as (off [rows,
+    1, 42], ca [rows, 1, 3]): the form the flat-row metas index with SEG
+    1, which one copy per tensor takes to the host."""
+    if "classes" in arrays:
+        c = arrays["classes"]
+        nl_outs = arrays["nl_outs"]
+        rows = sum(fused_decode.class_rows(c["recs"], nl_outs))
+        dev = c["recs"][0].device
+        off = torch.empty((rows, 42), dtype=torch.int16, device=dev)
+        ca = torch.empty((rows, 3), dtype=torch.float32, device=dev)
+        fused_decode.decode_seg_fused_classes(
+            *(c[k] for k in _CLASS_DTYPES), arrays["prev_idx"],
+            refine_iters=refine_iters, nl_outs=nl_outs, out=(off, ca))
+        return off[:, None], ca[:, None]
     wire = "bb" if arrays.get("bb_wire") else "full"
     out = fused_decode.decode_seg_fused(
         arrays["seg_records"], arrays["mins_lane"], arrays["cont_lane"],

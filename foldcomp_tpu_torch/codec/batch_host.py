@@ -13,19 +13,23 @@ results):
 - `seg_sort_key` (:569), `_gather_a14` (:912, the ragged-lane full wire
   and the backbone-only wire), `_assemble_protein` (:968) and
   `_format_batch` (:1207);
+- the width-class split `split_lanes_classes` (:607-731), `use_wclass`
+  and its constants `_WCLASS_MIN_LANES`/`_WCLASS_MIN_SAVE` (:733-750);
 - the host finish (:1237-1635, `finish_encode_device` :1442);
 - `atoms_to_tensors_vec`, `fragment_to_tensors`, `_anchor_indices` and
   `encode_pdb_device` (:1637-1873);
 - `_ScratchPool`/`_POOL` (:1876-1909) and `_compact_coord_batch` (:1912);
 - `finish_encode`, the host half of `encode_finish` (:2124-2176).
 
-Not carried: the grid packs `pack_decode_batch`/`pack_decode_batch_seg`,
-the width-class split `split_lanes_classes` and the device probes
-`use_fused_decode`/`use_fused_encode`. `_gather_a14` and `_format_batch`
-take the two forms the port's decode emits, as host arrays: the full
-wire's ragged-lane rows (off i16 [NL, SEG, 42], ca f32 [NL, SEG, 3]) and
-the backbone-only wire's ("bb", off i16 [NL, SEG, 6], ca f32 [NL, SEG, 3]),
-whose O and side chains the native codec places from the metas'
+Not carried: the grid packs `pack_decode_batch`/`pack_decode_batch_seg`
+and the device probes `use_fused_decode`/`use_fused_encode`.
+`_gather_a14` and `_format_batch` take the forms the port's decode emits,
+as host arrays: the full wire's ragged-lane rows (off i16 [NL, SEG, 42],
+ca f32 [NL, SEG, 3]); a width-classed batch's rows, the classes' rows one
+after another as [rows, 1, 42] and [rows, 1, 3], which the metas of
+`split_lanes_classes` index by flat row (lane_of = row, rec_of = 0); and
+the backbone-only wire's ("bb", off i16 [NL, SEG, 6], ca f32 [NL, SEG,
+3]), whose O and side chains the native codec places from the metas'
 `sc_codes`.
 """
 from __future__ import annotations
@@ -340,6 +344,151 @@ def seg_sort_key(f):
     a = np.asarray(f.anchor_indices)
     w = int((a[1:] - a[:-1]).max()) + 1 if len(a) > 1 else f.n_residue
     return ((w + 7) // 8 * 8, f.n_residue)
+
+
+def split_lanes_classes(arrays, metas, seg_bucket: int = 8,
+                        max_classes: int = 4, min_save: float = 0.15):
+    """Width-classed re-layout of the ragged-lane arrays.
+
+    The reference's floored anchor interval hands each protein ONE tail
+    segment up to 2x wider than its others (_setAnchor,
+    foldcomp.cpp:745-761); in a single rectangular lane array that tail
+    drags every normal-width lane of the batch to the widest SEG
+    (foldcomp_tpu measured 1.7x lane-residue padding on an AFDB-like
+    corpus even with width-bucket batching). Here lanes are permuted into
+    width CLASSES (each a contiguous range, its own SEG); the re-seed
+    coupling becomes an explicit prev-lane index
+    (kernels/fused_decode.decode_seg_fused_classes), and the host
+    stitch indices are rewritten to FLAT row numbers over the
+    concatenated class outputs (lane_of = row, rec_of = 0, so
+    _gather_a14's lane_of*segw+rec_of works verbatim with segw=1).
+    Per-lane math is identical — coordinates are bit-equal to the
+    single-class path.
+
+    Returns (class_arrays, new_metas) or None when classing buys less
+    than min_save of the padded lane-residues (single width class,
+    near-uniform corpus, tiny batch)."""
+    import dataclasses
+
+    seg_m = np.asarray(arrays["seg_m"])
+    real = [m for m in metas if m.n_residue]
+    if not real:
+        return None
+    nl = max(int(np.max(m.lane_of)) for m in real) + 1
+    w = seg_m[:nl]
+    segpad = int(arrays["seg_records"].shape[1])
+    bucket = seg_bucket
+    while True:
+        cw = np.minimum((w + bucket - 1) // bucket * bucket, segpad)
+        widths = np.unique(cw)
+        if len(widths) <= max_classes:
+            break
+        bucket *= 2
+    if len(widths) < 2:
+        return None
+    padded_single = segpad * _round_up(nl, LANE_PAD)
+
+    def _lane_pad(c):
+        return _round_up(c, 512) if c <= 512 else _round_up(c, LANE_PAD)
+
+    padded_cls = sum(
+        int(v) * _lane_pad(int((cw == v).sum())) for v in widths)
+    if padded_cls > (1.0 - min_save) * padded_single:
+        return None
+
+    recs = np.asarray(arrays["seg_records"])
+    scs = np.asarray(arrays["sc_codes_seg"])
+    mins = np.asarray(arrays["mins_lane"])
+    cont = np.asarray(arrays["cont_lane"])
+    fwd = np.asarray(arrays["fwd9"])
+    rev = np.asarray(arrays["rev9"])
+    isf = np.asarray(arrays["is_first"])
+
+    cls_of = np.searchsorted(widths, cw)
+    order = np.argsort(cls_of, kind="stable")
+    newpos = np.empty(nl, np.int64)
+    cls = dict(recs=[], mins=[], cont=[], sct=[], fwd=[], rev=[],
+               isf=[], segm=[])
+    bases, rowbase, nl_outs, segws = [], [], [], []
+    base = rows = 0
+    for ci, v in enumerate(widths):
+        idx = order[cls_of[order] == ci]
+        n_c = len(idx)
+        # small classes pad to a 512-lane quantum (foldcomp_tpu's kernels
+        # run them in half-width lane groups), so the per-class rounding
+        # stops costing up to 1023 pad lanes each
+        nlp_c = _round_up(n_c, 512) if n_c <= 512 \
+            else _round_up(n_c, LANE_PAD)
+        segw = int(v)
+        r8 = np.zeros((8, segw, nlp_c), np.uint8)
+        r8[:, :, :n_c] = recs[:, :segw][:, :, idx]
+        sc = np.zeros((segw, 11, nlp_c), np.uint8)
+        sc[:, :, :n_c] = scs[:segw][:, :, idx]
+        mi = np.zeros((nlp_c, 6), F32)
+        mi[:n_c] = mins[idx]
+        co = np.zeros((nlp_c, 6), F32)
+        co[:n_c] = cont[idx]
+        f9 = np.zeros((9, nlp_c), F32)
+        f9[:, :n_c] = fwd[:, idx]
+        r9 = np.zeros((9, nlp_c), F32)
+        r9[:, :n_c] = rev[:, idx]
+        fi = np.ones(nlp_c, isf.dtype)
+        fi[:n_c] = isf[idx]
+        sm = np.ones(nlp_c, I32)
+        sm[:n_c] = seg_m[idx]
+        newpos[idx] = base + np.arange(n_c)
+        nl_out_c = min(_round_up(n_c, 512), nlp_c)
+        for k, a in (("recs", r8), ("mins", mi), ("cont", co),
+                     ("sct", sc), ("fwd", f9), ("rev", r9),
+                     ("isf", fi), ("segm", sm)):
+            cls[k].append(a)
+        bases.append(base)
+        rowbase.append(rows)
+        nl_outs.append(nl_out_c)
+        segws.append(segw)
+        base += nlp_c
+        rows += nl_out_c * segw
+
+    prev = np.arange(base, dtype=np.int32)
+    orig = np.arange(nl)
+    has_prev = (~isf[:nl].astype(bool)) & (orig > 0)
+    prev[newpos[has_prev]] = newpos[orig[has_prev] - 1]
+
+    base_a = np.asarray(bases)
+    rowb_a = np.asarray(rowbase)
+    segw_a = np.asarray(segws)
+    new_metas = []
+    for m in metas:
+        li = np.asarray(m.lane_of)
+        c = cls_of[li]
+        row = rowb_a[c] + (newpos[li] - base_a[c]) * segw_a[c] \
+            + np.asarray(m.rec_of)
+        new_metas.append(dataclasses.replace(
+            m, lane_of=row, rec_of=np.zeros_like(row)))
+    class_arrays = dict(
+        classes={k: tuple(v) for k, v in cls.items()},
+        prev_idx=prev, nl_outs=tuple(int(x) for x in nl_outs))
+    return class_arrays, new_metas
+
+
+def use_wclass() -> str:
+    """Width-classed decode mode from FOLDCOMP_TPU_WCLASS: "1" always (at
+    min_save 0.15), "0" never, "auto" (the default, any other value) for
+    batches of at least _WCLASS_MIN_LANES real lanes whose classes save at
+    least _WCLASS_MIN_SAVE of the padded lane rows.
+
+    foldcomp_tpu/codec/batch.py:733-750. There "auto" guards against
+    compile storms (every class composition is its own jit signature); the
+    CUDA kernels take any shape and compile once, so that reason does not
+    hold here. The rule and its constants are carried unchanged so that
+    both packages route a batch the same way."""
+    import os
+    v = os.environ.get("FOLDCOMP_TPU_WCLASS", "auto")
+    return v if v in ("0", "1") else "auto"
+
+
+_WCLASS_MIN_LANES = 4096
+_WCLASS_MIN_SAVE = 0.2
 
 
 def _gather_a14(outs_np, m):

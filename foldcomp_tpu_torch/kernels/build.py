@@ -114,9 +114,9 @@ def build() -> str:
 def _bind(lib):
     vp, ci = ctypes.c_void_p, ctypes.c_int
     lib.fd_set_tables.argtypes = [vp, vp, vp, vp, ci, ci]
-    lib.fd_tails.argtypes = [vp] * 8 + [ci, ci, vp]
-    lib.fd_backbone.argtypes = [vp] * 16 + [ci, ci, vp]
-    lib.fd_backbone_bb.argtypes = [vp] * 16 + [ci, ci, ci, vp]
+    lib.fd_tails.argtypes = [vp] * 8 + [ci, ci, ci, vp]
+    lib.fd_backbone.argtypes = [vp] * 17 + [ci, ci, ci, vp]
+    lib.fd_backbone_bb.argtypes = [vp] * 17 + [ci, ci, ci, ci, vp]
     lib.fd_bb_out.argtypes = [vp] * 7 + [ci, ci, ci, vp]
     lib.fd_sidechain.argtypes = [vp] * 8 + [ci, ci, ci, vp]
     lib.fe_encode.argtypes = [vp] * 8 + [ci] + [vp] * 6 + [ci, ci, vp]

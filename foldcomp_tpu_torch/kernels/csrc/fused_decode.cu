@@ -5,8 +5,9 @@
 // in foldcomp_tpu/kernels/pallas_decode.py:
 //   k1 fd_tails      <- _make_tails_kernel      (pallas_decode.py:186)
 //   k2 fd_backbone   <- _make_backbone_kernel   (pallas_decode.py:227),
-//                       with the seed roll of :596-610 and the N-CA
-//                       lengths of _class_prep (:405-437)
+//                       with the seed roll of :596-610 (or, for width
+//                       classes, the prev_idx gather of :654-670) and the
+//                       N-CA lengths of _class_prep (:405-437)
 //   k3 fd_sidechain  <- _make_sidechain_kernel  (pallas_decode.py:338)
 //   fd_backbone_bb   <- _run_backbone_only      (pallas_decode.py:529):
 //                       k2, then its XLA epilogue as k2_bb_out
@@ -241,14 +242,17 @@ __device__ __forceinline__ V3 get_row(const float* __restrict__ ox,
 // placements and 6 full-precision sin/cos pairs a residue; the lanes
 // against the card's resident threads are the only parallelism.
 //
-// out [9, NL] rows comp*3 + kk: tail row tat-3+kk blended with the stored
-// next anchor ranc by weights (tat-3+kk, 3-kk)/tat (pallas_decode.py:213-222).
+// out [9, NL] rows comp*3 + kk, row stride out_ld >= NL: tail row tat-3+kk
+// blended with the stored next anchor ranc by weights (tat-3+kk, 3-kk)/tat
+// (pallas_decode.py:213-222). A width class writes its columns of the
+// tails of every class, [9, NL_total] (out_ld = NL_total, out at the
+// class's first column), from which k2 gathers its seeds through prev.
 __global__ void __launch_bounds__(128)
 k1_tails(const uint8_t* __restrict__ recs, const float* __restrict__ seed,
          const float* __restrict__ ranc, const int* __restrict__ tat_,
          const float* __restrict__ mins6, const float* __restrict__ cont6,
-         const int* __restrict__ order, float* __restrict__ out, int seg,
-         int nl) {
+         const int* __restrict__ order, float* __restrict__ out, int out_ld,
+         int seg, int nl) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= nl) return;
   const int l = order[i];
@@ -281,9 +285,9 @@ k1_tails(const uint8_t* __restrict__ recs, const float* __restrict__ seed,
     const float w_f = tf - w_r;
     const V3 v = tails[kk];
     const V3 anc = load3(ranc, kk * 3, nl, l);
-    out[(size_t)kk * nl + l] = (v.x * w_f + anc.x * w_r) / tf;
-    out[(size_t)(3 + kk) * nl + l] = (v.y * w_f + anc.y * w_r) / tf;
-    out[(size_t)(6 + kk) * nl + l] = (v.z * w_f + anc.z * w_r) / tf;
+    out[(size_t)kk * out_ld + l] = (v.x * w_f + anc.x * w_r) / tf;
+    out[(size_t)(3 + kk) * out_ld + l] = (v.y * w_f + anc.y * w_r) / tf;
+    out[(size_t)(6 + kk) * out_ld + l] = (v.z * w_f + anc.z * w_r) / tf;
   }
 }
 
@@ -299,9 +303,14 @@ k1_tails(const uint8_t* __restrict__ recs, const float* __restrict__ seed,
 // the B=8192 batch walk 1.46x its real rows). A lane walks its own rows
 // only, 0 .. tat-1 (tat = 3*seg_m): rows >= tat are pack padding, neither
 // computed nor written, and pad lanes (seg_m 1) do the 3-row blend alone.
-//  - Seed: with tails9 (refine_iters >= 2), lane l-1's blended tail (lane
-//    -1 wraps to NL-1, as jnp.roll and torch.roll do) unless is_first[l];
-//    else the lane's own anchor seed fwd9.
+//  - Seed: with tails9 (refine_iters >= 2, [9, tails_ld] rows comp*3 +
+//    atom) and not is_first[l], the blended tail of the lane's predecessor:
+//    column prev[l] where prev is given (width classes: the tails of every
+//    class share one buffer, tails_ld = NL_total, and a protein's lanes may
+//    sit in different classes, pallas_decode.py:654-670), else lane l-1
+//    (tails_ld = NL; lane -1 wraps to NL-1, as jnp.roll and torch.roll
+//    do). Otherwise, and always without tails9, the lane's own anchor seed
+//    fwd9.
 //  - Forward: rows 0 .. tat-4 to the scratch planes sx/sy/sz at column i,
 //    the thread's place in the order, so a warp stores one aligned 128-byte
 //    line a plane; the last three rows stay in registers. Each residue's
@@ -326,13 +335,13 @@ k1_tails(const uint8_t* __restrict__ recs, const float* __restrict__ seed,
 // whole line.
 __global__ void __launch_bounds__(128)
 k2_backbone(const uint8_t* __restrict__ recs, const float* __restrict__ tails9,
-            const float* __restrict__ fwd9,
+            const int* __restrict__ prev, const float* __restrict__ fwd9,
             const uint8_t* __restrict__ is_first,
             const float* __restrict__ ranc, const int* __restrict__ tat_,
             const float* __restrict__ mins6, const float* __restrict__ cont6,
             const int* __restrict__ order, float* __restrict__ sx,
             float* __restrict__ sy, float* __restrict__ sz,
-            int* __restrict__ pos, int seg, int nl) {
+            int* __restrict__ pos, int tails_ld, int seg, int nl) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= nl) return;
   const int l = order[i];
@@ -344,13 +353,13 @@ k2_backbone(const uint8_t* __restrict__ recs, const float* __restrict__ tails9,
   lane_init(&ln, recs, mins6, cont6, seg, nl, l);
   V3 a, b, c;
   if (tails9 != nullptr && !is_first[l]) {
-    // lane l-1's tail, rows comp*3 + atom
-    const size_t p = l == 0 ? nl - 1 : l - 1;
-    a = v3(tails9[p], tails9[3 * (size_t)nl + p], tails9[6 * (size_t)nl + p]);
-    b = v3(tails9[(size_t)nl + p], tails9[4 * (size_t)nl + p],
-           tails9[7 * (size_t)nl + p]);
-    c = v3(tails9[2 * (size_t)nl + p], tails9[5 * (size_t)nl + p],
-           tails9[8 * (size_t)nl + p]);
+    // the predecessor's tail, rows comp*3 + atom
+    const size_t p = prev != nullptr ? (size_t)prev[l]
+                                     : (l == 0 ? nl - 1 : l - 1);
+    const size_t ld = (size_t)tails_ld;
+    a = v3(tails9[p], tails9[3 * ld + p], tails9[6 * ld + p]);
+    b = v3(tails9[ld + p], tails9[4 * ld + p], tails9[7 * ld + p]);
+    c = v3(tails9[2 * ld + p], tails9[5 * ld + p], tails9[8 * ld + p]);
   } else {
     a = load3(fwd9, 0, nl, l);
     b = load3(fwd9, 3, nl, l);
@@ -852,28 +861,31 @@ cudaError_t fd_set_tables(const int* pred32, const float* blen32,
   return e;
 }
 
+// k1 into out [9, NL] with row stride out_ld.
 cudaError_t fd_tails(const uint8_t* recs, const float* seed,
                      const float* ranc, const int* tat, const float* mins6,
                      const float* cont6, const int* order, float* out,
-                     int seg, int nl, cudaStream_t stream) {
+                     int out_ld, int seg, int nl, cudaStream_t stream) {
   k1_tails<<<blocks_for(nl, 128), 128, 0, stream>>>(
-      recs, seed, ranc, tat, mins6, cont6, order, out, seg, nl);
+      recs, seed, ranc, tat, mins6, cont6, order, out, out_ld, seg, nl);
   return cudaGetLastError();
 }
 
 // k2: k2_backbone, then k2_copy_out, on the stream. sx, sy, sz: [3*SEG,
 // NL] float scratch planes, pos: [NL] int scratch. tails9 null: the seeds
-// are fwd9 (refine_iters 1).
+// are fwd9 (refine_iters 1); else [9, tails_ld], read at column prev[l]
+// (prev given) or l-1 (prev null, tails_ld = NL).
 cudaError_t fd_backbone(const uint8_t* recs, const float* tails9,
-                        const float* fwd9, const uint8_t* is_first,
-                        const float* ranc, const int* tat, const float* mins6,
+                        const int* prev, const float* fwd9,
+                        const uint8_t* is_first, const float* ranc,
+                        const int* tat, const float* mins6,
                         const float* cont6, const int* order, float* ox,
                         float* oy, float* oz, float* sx, float* sy,
-                        float* sz, int* pos, int seg, int nl,
+                        float* sz, int* pos, int tails_ld, int seg, int nl,
                         cudaStream_t stream) {
   k2_backbone<<<blocks_for(nl, 128), 128, 0, stream>>>(
-      recs, tails9, fwd9, is_first, ranc, tat, mins6, cont6, order, sx, sy,
-      sz, pos, seg, nl);
+      recs, tails9, prev, fwd9, is_first, ranc, tat, mins6, cont6, order, sx,
+      sy, sz, pos, tails_ld, seg, nl);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return e;
   k2_copy_out<<<dim3(blocks_for(nl, 256), seg), 256, 0, stream>>>(
@@ -895,16 +907,17 @@ cudaError_t fd_bb_out(const float* sx, const float* sy, const float* sz,
 // The bb wire: k2_backbone as fd_backbone runs it, then k2_bb_out in place
 // of k2_copy_out, on the stream.
 cudaError_t fd_backbone_bb(const uint8_t* recs, const float* tails9,
-                           const float* fwd9, const uint8_t* is_first,
-                           const float* ranc, const int* tat,
-                           const float* mins6, const float* cont6,
-                           const int* order, const int* seg_m, int16_t* off,
-                           float* ca, float* sx, float* sy, float* sz,
-                           int* pos, int seg, int nl, int nl_out,
+                           const int* prev, const float* fwd9,
+                           const uint8_t* is_first, const float* ranc,
+                           const int* tat, const float* mins6,
+                           const float* cont6, const int* order,
+                           const int* seg_m, int16_t* off, float* ca,
+                           float* sx, float* sy, float* sz, int* pos,
+                           int tails_ld, int seg, int nl, int nl_out,
                            cudaStream_t stream) {
   k2_backbone<<<blocks_for(nl, 128), 128, 0, stream>>>(
-      recs, tails9, fwd9, is_first, ranc, tat, mins6, cont6, order, sx, sy,
-      sz, pos, seg, nl);
+      recs, tails9, prev, fwd9, is_first, ranc, tat, mins6, cont6, order, sx,
+      sy, sz, pos, tails_ld, seg, nl);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return e;
   return fd_bb_out(sx, sy, sz, pos, seg_m, off, ca, seg, nl, nl_out, stream);

@@ -2,8 +2,10 @@
 inside), k3 side chains, or on the bb wire k2's 24-byte epilogue.
 
 Counterpart of foldcomp_tpu/kernels/pallas_decode.py `decode_seg_fused`
-(wire "full" and "bb"): the same inputs (the arrays of codec/batch.py
-pack_decode_batch_lanes) and the same output contracts. Each kernel has
+(wire "full" and "bb") and `decode_seg_fused_classes` (width classes):
+the same inputs (the arrays of codec/batch.py pack_decode_batch_lanes, or
+of batch_host.split_lanes_classes) and the same output contracts. Each
+kernel has
 
 - a plain PyTorch version (`*_plain`), operation for operation the Pallas
   kernel's math (the bb epilogue: the XLA epilogue's): the CPU path and
@@ -197,23 +199,27 @@ def backbone_plain(recs, blca, seed, ranc, tat, mins6, cont6):
                  for c, f in enumerate((fx, fy, fz)))
 
 
-def refine_seeds(tails9, fwd9, is_first):
+def refine_seeds(tails9, fwd9, is_first, prev=None):
     """Seed roll (pallas_decode.py:596-610): lane s is seeded with lane
     s-1's blended tail unless it is its protein's first segment. Ragged
     lanes are protein-contiguous, so the shift is a roll by one lane.
+    With prev (i32 [NL], width classes, pallas_decode.py:654-670) lane s
+    takes column prev[s] of tails9, the tails of every class [9, NL_total].
     tails9 rows are comp*3 + atom; seeds rows atom*3 + comp."""
-    nl = tails9.shape[1]
-    rolled = torch.roll(tails9, 1, dims=1).reshape(3, 3, nl) \
-        .transpose(0, 1).reshape(9, nl)
+    nl = fwd9.shape[1]
+    src = torch.roll(tails9, 1, dims=1) if prev is None \
+        else tails9[:, prev.long()]
+    rolled = src.reshape(3, 3, nl).transpose(0, 1).reshape(9, nl)
     return torch.where(is_first[None], fwd9, rolled).contiguous()
 
 
 def backbone_rolled_plain(recs, tails9, fwd9, is_first, ranc, tat, mins6,
-                          cont6):
-    """The function k2 computes: the seed roll (refine_seeds; tails9 None
-    means refine_iters 1, seeded by fwd9), the N-CA lengths of the
-    records, then backbone_plain."""
-    seeds = fwd9 if tails9 is None else refine_seeds(tails9, fwd9, is_first)
+                          cont6, prev=None):
+    """The function k2 computes: the seed roll (refine_seeds, by prev where
+    given; tails9 None means refine_iters 1, seeded by fwd9), the N-CA
+    lengths of the records, then backbone_plain."""
+    seeds = fwd9 if tails9 is None \
+        else refine_seeds(tails9, fwd9, is_first, prev)
     return backbone_plain(recs, n_ca_lengths(recs), seeds, ranc, tat, mins6,
                           cont6)
 
@@ -339,48 +345,73 @@ def _launch(fn, name, dev, *args):
         raise RuntimeError(f"{name} launch failed: cudaError {err}")
 
 
-def tails(recs, seed, ranc, tat, mins6, cont6, order=None):
+def _check_out(name, t, dtype, shape, device):
+    """An output the caller gives: rows may have a stride of their own (a
+    class's columns of a wider buffer), elements within a row may not."""
+    if t.device != device or t.dtype != dtype or \
+            tuple(t.shape) != tuple(shape) or \
+            (t.numel() and t.stride(-1) != 1):
+        raise ValueError(f"{name}: {t.dtype} {tuple(t.shape)} on {t.device} "
+                         f"strides {t.stride()}, expected {dtype} "
+                         f"{tuple(shape)} on {device}, unit stride in a row")
+
+
+def tails(recs, seed, ranc, tat, mins6, cont6, order=None, out=None):
     """k1 -> [9, NL] blended tails of the forward scan from `seed` ([9,
     NL] rows atom*3 + comp). The N-CA lengths come from the records (the
     plain version on the CPU takes n_ca_lengths). order (a LaneOrder of
     these lanes): the order the threads walk the lanes in, lane_order(tat)
-    when None; it changes no value."""
+    when None; it changes no value. out: where to write them, a [9, NL]
+    f32 view whose rows may be rows of a wider buffer (a width class's
+    columns of the tails of every class); None allocates."""
     global K1_LAUNCHES
+    nl = recs.shape[-1]
+    if out is not None:
+        _check_out("out", out, F32, (9, nl), recs.device)
     if recs.device.type == "cpu":
-        return tails_plain(recs, n_ca_lengths(recs), seed, ranc, tat,
-                           mins6, cont6)
+        got = tails_plain(recs, n_ca_lengths(recs), seed, ranc, tat, mins6,
+                          cont6)
+        return got if out is None else out.copy_(got)
     lib = _cuda_lib(recs)
     if order is None:
         order = lane_order(tat)
     seg, nl = _check_lane_inputs(recs, ranc, tat, mins6, cont6, order,
                                  {"seed": seed})
-    out = torch.empty((9, nl), dtype=F32, device=recs.device)
+    if out is None:
+        out = torch.empty((9, nl), dtype=F32, device=recs.device)
     if nl:
         _launch(lib.fd_tails, "k1 tails", recs.device,
                 *_ptrs(recs, seed, ranc, tat, mins6, cont6, order.perm, out),
-                seg, nl)
+                out.stride(0), seg, nl)
         K1_LAUNCHES += 1
     return out
 
 
 def _k2_inputs(recs, tails9, fwd9, is_first, ranc, tat, mins6, cont6,
-               order):
+               order, prev=None):
     """Check k2's lane inputs (tails9 None: refine_iters 1, k2 reads fwd9
-    alone) -> (library, order, SEG, NL); order None is lane_order(tat)."""
+    alone; prev given: tails9 is [9, NL_total] and prev i32 [NL]) ->
+    (library, order, SEG, NL); order None is lane_order(tat)."""
     lib = _cuda_lib(recs)
     if order is None:
         order = lane_order(tat)
     if tails9 is None:
         seg, nl = _check_lane_inputs(recs, ranc, tat, mins6, cont6, order,
                                      {"fwd9": fwd9})
-    else:
+    elif prev is None:
         seg, nl = _check_lane_inputs(recs, ranc, tat, mins6, cont6, order,
                                      {"tails9": tails9, "fwd9": fwd9},
                                      is_first)
+    else:
+        seg, nl = _check_lane_inputs(recs, ranc, tat, mins6, cont6, order,
+                                     {"fwd9": fwd9}, is_first)
+        _check("tails9", tails9, F32, (9, tails9.shape[-1]), recs.device)
+        _check("prev", prev, torch.int32, (nl,), recs.device)
     return lib, order, seg, nl
 
 
-def _launch_k2(fn, name, lane_args, order, outs, seg, nl, *sizes):
+def _launch_k2(fn, name, lane_args, order, outs, seg, nl, *sizes,
+               prev=None):
     """Launch a k2 launcher (fd_backbone, fd_backbone_bb): k2_backbone
     into staging planes at each thread's column, then its second kernel
     from them into outs (the launcher's tensors between order and the
@@ -392,18 +423,24 @@ def _launch_k2(fn, name, lane_args, order, outs, seg, nl, *sizes):
     scratch = tuple(torch.empty((3 * seg, nl), dtype=F32, device=dev)
                     for _ in range(3))
     pos = torch.empty((nl,), dtype=torch.int32, device=dev)
+    tails_ld = nl if tails9 is None else tails9.shape[1]
     _launch(fn, name, dev,
-            *_ptrs(recs, tails9, fwd9, is_first, ranc, tat, mins6, cont6,
-                   order.perm, *outs, *scratch, pos), seg, nl, *sizes)
+            *_ptrs(recs, tails9, prev, fwd9, is_first, ranc, tat, mins6,
+                   cont6, order.perm, *outs, *scratch, pos), tails_ld, seg,
+            nl, *sizes)
 
 
 def backbone(recs, tails9, fwd9, is_first, ranc, tat, mins6, cont6,
-             order=None):
+             order=None, prev=None):
     """k2 -> blended backbone rows [3*SEG, NL] x3.
 
     Seeds: lane l starts from lane l-1's k1 tail (tails9 [9, NL], rows
     comp*3 + atom; lane -1 is lane NL-1) unless is_first[l], and from its
-    own fwd9 when tails9 is None (refine_iters 1). The N-CA lengths come
+    own fwd9 when tails9 is None (refine_iters 1). With prev (i32 [NL],
+    width classes) tails9 is the tails of every class, [9, NL_total], and
+    lane l starts from column prev[l]; the caller checks 0 <= prev <
+    NL_total (codec/batch.py arrays_to_torch does, on the host), since the
+    kernel reads there unchecked. The N-CA lengths come
     from the records. On a CUDA device the kernels compute and write rows
     r < tat[l] only: rows >= tat (pack padding) of a CUDA result are
     unspecified. The plain version on the CPU computes every row. order:
@@ -413,14 +450,14 @@ def backbone(recs, tails9, fwd9, is_first, ranc, tat, mins6, cont6,
     global K2_LAUNCHES
     if recs.device.type == "cpu":
         return backbone_rolled_plain(recs, tails9, fwd9, is_first, ranc,
-                                     tat, mins6, cont6)
+                                     tat, mins6, cont6, prev)
     lane_args = (recs, tails9, fwd9, is_first, ranc, tat, mins6, cont6)
-    lib, order, seg, nl = _k2_inputs(*lane_args, order)
+    lib, order, seg, nl = _k2_inputs(*lane_args, order, prev)
     outs = tuple(torch.empty((3 * seg, nl), dtype=F32, device=recs.device)
                  for _ in range(3))
     if nl and seg:
         _launch_k2(lib.fd_backbone, "k2 backbone", lane_args, order, outs,
-                   seg, nl)
+                   seg, nl, prev=prev)
         K2_LAUNCHES += 1
     return outs
 
@@ -455,22 +492,31 @@ def backbone_only(recs, tails9, fwd9, is_first, ranc, tat, mins6, cont6,
     return off, ca
 
 
-def sidechain(bx, by, bz, code, sct, nl_out=None, seg_m=None):
+def sidechain(bx, by, bz, code, sct, nl_out=None, seg_m=None, out=None):
     """k3 -> (off i16 [NL_out, SEG, 42], ca f32 [NL_out, SEG, 3]).
 
     seg_m (i32 [NL], the lanes' residue counts) names the real rows: the
     kernel computes and writes rows s < seg_m[l] only, and the other rows
     of a CUDA result are unspecified (the host stitch reads none of them).
     None means every row is real. The plain version on the CPU computes
-    every row."""
+    every row. out: contiguous (off, ca) of those shapes to write into (a
+    width class's rows of one flat buffer); None allocates."""
     global K3_LAUNCHES
-    if bx.device.type == "cpu":
-        return sidechain_plain(bx, by, bz, code, sct, nl_out)
-    lib = _cuda_lib(bx)
     t, nl = bx.shape
     if t % 3:
         raise ValueError(f"backbone rows {t}: not a multiple of 3")
     seg = t // 3
+    nlo = nl if nl_out is None else min(int(nl_out), nl)
+    if out is not None:
+        for name, o, dt, w in (("off", out[0], torch.int16, 42),
+                               ("ca", out[1], F32, 3)):
+            _check(f"out {name}", o, dt, (nlo, seg, w), bx.device)
+    if bx.device.type == "cpu":
+        got = sidechain_plain(bx, by, bz, code, sct, nl_out)
+        if out is None:
+            return got
+        return out[0].copy_(got[0]), out[1].copy_(got[1])
+    lib = _cuda_lib(bx)
     dev = bx.device
     for name, p in (("bx", bx), ("by", by), ("bz", bz)):
         _check(name, p, F32, (t, nl), dev)
@@ -479,9 +525,9 @@ def sidechain(bx, by, bz, code, sct, nl_out=None, seg_m=None):
     if seg_m is None:
         seg_m = torch.full((nl,), seg, dtype=torch.int32, device=dev)
     _check("seg_m", seg_m, torch.int32, (nl,), dev)
-    nlo = nl if nl_out is None else min(int(nl_out), nl)
-    off = torch.empty((nlo, seg, 42), dtype=torch.int16, device=dev)
-    ca = torch.empty((nlo, seg, 3), dtype=F32, device=dev)
+    off, ca = out if out is not None else (
+        torch.empty((nlo, seg, 42), dtype=torch.int16, device=dev),
+        torch.empty((nlo, seg, 3), dtype=F32, device=dev))
     if nlo and seg:
         _launch(lib.fd_sidechain, "k3 sidechain", dev,
                 *_ptrs(bx, by, bz, code, sct, seg_m, off, ca), seg, nl, nlo)
@@ -521,3 +567,106 @@ def decode_seg_fused(seg_records, mins_lane, cont_lane, sc_codes_seg,
     bx, by, bz = backbone(pr["recs"], tails9, pr["fwd9"], is_first, *rest,
                           order=order)
     return sidechain(bx, by, bz, pr["code"], pr["sct"], nl_out, seg_m=seg_m)
+
+
+def class_rows(recs_t, nl_outs=()):
+    """Output rows of each width class, nl_out_c * SEG_c (nl_out_c the
+    class's lane count where nl_outs has no entry), in the order the
+    classes' rows follow one another in the flat output."""
+    return [min(int(nl_outs[i]), r.shape[2]) * r.shape[1]
+            if i < len(nl_outs) else r.shape[2] * r.shape[1]
+            for i, r in enumerate(recs_t)]
+
+
+def _class_views(flat, recs_t, nl_outs, width):
+    """Each class's [nl_out_c, SEG_c, width] rows of the flat [rows,
+    width] buffer, at the class's row base."""
+    views, base = [], 0
+    for i, n in enumerate(class_rows(recs_t, nl_outs)):
+        views.append(flat[base:base + n].view(n // recs_t[i].shape[1],
+                                              recs_t[i].shape[1], width))
+        base += n
+    return views
+
+
+def decode_seg_fused_classes(recs_t, mins_t, cont_t, sct_t, fwd_t, rev_t,
+                             isf_t, segm_t, prev_idx, refine_iters: int = 2,
+                             nl_outs=(), out=None):
+    """Width-classed fused decode (pallas_decode.py:619-678
+    decode_seg_fused_classes): the arrays of batch_host.split_lanes_classes,
+    one tuple entry per class, each class at its own SEG.
+
+    k1 runs per class into its columns of one [9, NL_total] tails buffer;
+    then k2 per class seeds lane l from column prev_idx[base_c + l] of that
+    buffer unless isf_t[c][l] (a protein's lanes may lie in different
+    classes), or from its own fwd9 when refine_iters < 2; then k2's copy-out
+    and k3 per class. Per-lane math is that of decode_seg_fused, so the rows
+    are bit-equal lane for lane.
+
+    Returns JAX's tuple of per-class (off i16 [nl_out_c, SEG_c, 42], ca f32
+    [nl_out_c, SEG_c, 3]); each is a view of one flat pair (off [rows, 42],
+    ca [rows, 3]; the classes' rows one after another, class_rows), so one
+    copy takes the batch to the host. out: that flat pair to write into;
+    None allocates it. On a CUDA device rows past a lane's seg_m are left
+    unspecified; on the CPU the wrappers run the plain versions."""
+    n_cls = len(recs_t)
+    dev = recs_t[0].device
+    rows = sum(class_rows(recs_t, nl_outs))
+    if out is None:
+        out = (torch.empty((rows, 42), dtype=torch.int16, device=dev),
+               torch.empty((rows, 3), dtype=F32, device=dev))
+    _check("out off", out[0], torch.int16, (rows, 42), dev)
+    _check("out ca", out[1], F32, (rows, 3), dev)
+    views = list(zip(_class_views(out[0], recs_t, nl_outs, 42),
+                     _class_views(out[1], recs_t, nl_outs, 3)))
+    prs = [class_prep(recs_t[i], mins_t[i], cont_t[i], sct_t[i], fwd_t[i],
+                      rev_t[i], segm_t[i]) for i in range(n_cls)]
+    orders = [lane_order(p["tat"]) for p in prs]
+    bases = [0]
+    for p in prs:
+        bases.append(bases[-1] + p["recs"].shape[2])
+    tails_g = None
+    if refine_iters >= 2:
+        tails_g = torch.empty((9, bases[-1]), dtype=F32, device=dev)
+        for i, p in enumerate(prs):
+            tails(p["recs"], p["fwd9"], p["rev9"], p["tat"], p["mins6"],
+                  p["cont6"], order=orders[i],
+                  out=tails_g[:, bases[i]:bases[i + 1]])
+    for i, p in enumerate(prs):
+        prev = None if tails_g is None else \
+            prev_idx[bases[i]:bases[i + 1]]
+        bb = backbone(p["recs"], tails_g, p["fwd9"], isf_t[i], p["rev9"],
+                      p["tat"], p["mins6"], p["cont6"], order=orders[i],
+                      prev=prev)
+        sidechain(*bb, p["code"], p["sct"],
+                  nl_outs[i] if i < len(nl_outs) else None,
+                  seg_m=segm_t[i].to(torch.int32).contiguous(),
+                  out=views[i])
+    return tuple(views)
+
+
+def decode_seg_fused_classes_plain(recs_t, mins_t, cont_t, sct_t, fwd_t,
+                                   rev_t, isf_t, segm_t, prev_idx,
+                                   refine_iters: int = 2, nl_outs=()):
+    """decode_seg_fused_classes through the plain versions alone (the
+    kernels' oracle on the card): every class's tails, the seeds gathered
+    through prev_idx, backbone and side chains. -> the tuple of per-class
+    (off, ca), each its own tensor."""
+    prs = [class_prep(recs_t[i], mins_t[i], cont_t[i], sct_t[i], fwd_t[i],
+                      rev_t[i], segm_t[i]) for i in range(len(recs_t))]
+    tails_g = None
+    if refine_iters >= 2:
+        tails_g = torch.cat([
+            tails_plain(p["recs"], n_ca_lengths(p["recs"]), p["fwd9"],
+                        p["rev9"], p["tat"], p["mins6"], p["cont6"])
+            for p in prs], dim=1)
+    outs, base = [], 0
+    for i, p in enumerate(prs):
+        nl = p["recs"].shape[2]
+        bb = backbone_rolled_plain(p["recs"], tails_g, p["fwd9"], isf_t[i],
+                                   p["rev9"], p["tat"], p["mins6"],
+                                   p["cont6"], prev_idx[base:base + nl])
+        outs.append(sidechain_plain(*bb, p["code"], p["sct"],
+                                    nl_outs[i] if i < len(nl_outs) else None))
+        base += nl
+    return tuple(outs)

@@ -183,8 +183,8 @@ def roundtrip_core(atom14, res_code, tf_ca, res_mask, *, threshold: int = 25,
     segment, each as wide as its own segment. The encode is the port's
     batched encode of the real residues (records byte-identical to the
     exact encoder's), the decode runs those records through the full wire
-    (pinned, so that the side-chain kernel places every atom) and the
-    host stitch, and the masked squared error is summed on the device."""
+    (pinned, so that the side-chain kernel places every atom; one lane
+    class, so that each kernel launches once a step) and the host stitch, and the masked squared error is summed on the device."""
     from ..codec.batch import (_outs_to_host, _seg_decode_arrays,
                                arrays_to_torch, encode_tensor_batch,
                                pack_decode_wire)
@@ -209,7 +209,7 @@ def roundtrip_core(atom14, res_code, tf_ca, res_mask, *, threshold: int = 25,
     records = np.zeros((b, l, 8), np.uint8)
     dec = np.zeros((b, l, MAX_ATOM, 3), np.float32)
     if b:
-        arrays, dmetas = pack_decode_wire(fczs, False)
+        arrays, dmetas = pack_decode_wire(fczs, False, wclass="0")
         outs = _outs_to_host(_seg_decode_arrays(
             arrays_to_torch(arrays, dev), refine_iters))
         for k, (f, m) in enumerate(zip(fczs, dmetas)):

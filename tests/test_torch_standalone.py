@@ -333,6 +333,18 @@ def _fidelity_case(case, corpus, tmp_path):
             _assert_same(got[0], want[0], f"arrays native={native}")
             for gm, wm in zip(got[1], want[1]):
                 _assert_same(vars(gm), vars(wm), "meta")
+    elif case == "split_lanes_classes":
+        # the width-class split of one pack, forced and at the default gate
+        # (one class too few to save: None from both)
+        arrays, metas = tpu_batch.pack_decode_batch_lanes(fczs)
+        for kw in ({"min_save": -100.0}, {}):
+            got = port_batch.split_lanes_classes(dict(arrays), metas, **kw)
+            want = tpu_batch.split_lanes_classes(dict(arrays), metas, **kw)
+            assert (got is None) == (want is None) == (not kw.get("min_save"))
+            if got is not None:
+                _assert_same(got[0], want[0], f"classes {kw}")
+                for gm, wm in zip(got[1], want[1]):
+                    _assert_same(vars(gm), vars(wm), "meta")
     elif case == "gather_a14_bb":
         # the bb wire's host stitch: the same host ("bb", off, ca) rows and
         # metas through both copies
@@ -524,7 +536,8 @@ def _fidelity_case(case, corpus, tmp_path):
 
 @pytest.mark.parametrize("case", [
     "fcz_serialize_parse", "exact_encode", "exact_decode", "format_pdb",
-    "pack_decode_batch_lanes", "gather_a14_bb", "encode_pdb_device",
+    "pack_decode_batch_lanes", "split_lanes_classes", "gather_a14_bb",
+    "encode_pdb_device",
     "finish_encode_device",
     "database", "synthesize", "cli_compress", "cli_db_to_db", "cli_extract",
     "api", "dist", "hybrid_host", "scaling_host"])
