@@ -33,7 +33,9 @@ non-zero:
    torch glue (`glue_ms`: the device decode less the three kernels);
 5. e2e: `python -m foldcomp_tpu_torch decompress --fast <db> <out> --db`
    on a 4096-entry FCZ database in a subprocess (FOLDCOMP_TPU_WCLASS=auto,
-   the default), timed; 64 sampled outputs held to the phase-3 bound;
+   the default), timed; 64 sampled outputs held to the phase-3 bound (the
+   corpus and the database from foldcomp_tpu_torch/bench.py's builders,
+   which the bench's e2e databases share);
 6. main path: the same CLI entry point in this process with the kernel
    launch counters reset just before and read just after, and the decode
    calls counted: at least one batch must have taken width classes, and
@@ -116,7 +118,15 @@ non-zero:
    k2 and k3 and the glue; the launches of a batch; then phase 5's
    `decompress --fast` again with FOLDCOMP_TPU_WCLASS=0, 0 and auto (the
    modes alternate with phase 5's auto run), every output byte-identical
-   to phase 5's.
+   to phase 5's;
+15. bench, the port's bench and its single-device entry:
+   `python3 -m foldcomp_tpu_torch.bench --quick` in a subprocess, its one
+   line parsed, every key of bench.KEYS present, the parity check passed
+   and no gate failed (the paired hybrid gate is not computed at the quick
+   size); then dryrun.entry() on the card, bit-equal on the rows each lane
+   owns to the same entry through the plain versions on the card, and
+   within 1 i16 unit and 1e-3 A of them on the CPU (torch's CPU and CUDA
+   sin and cos differ by ulps, so the two devices are not bit-equal).
 
 Then the kernel summary (each kernel's launches on the main path, its
 largest difference from its plain version, its time and its plain
@@ -133,6 +143,7 @@ device or outside a checkout of the repository.
     python3 chip_smoke.py --db-jobs     phases 1, 5 and 12, no last line
     python3 chip_smoke.py --multi-device
                                         phases 1 and 13, no last line
+    python3 chip_smoke.py --bench       phases 1 and 15, no last line
     python3 chip_smoke.py --ptxas F.cu  also the ptxas report of another
                                         source (an older k3, say) in phase 1
 """
@@ -152,8 +163,6 @@ REPO = pathlib.Path(__file__).resolve().parent
 BENCH_LENGTHS = (120, 200, 280, 360, 480, 640, 840, 1080)
 TOL_A = 1e-3
 TOL_I16 = 1
-# printed PDB coordinates carry 3 decimals: rounding adds <= 5e-4 A
-PRINT_SLACK_A = 5e-4
 _DEC = "foldcomp_tpu_torch/kernels/csrc/fused_decode.cu"
 SOURCES = {"k1": _DEC, "k2": _DEC, "k2_bb": _DEC, "k3": _DEC,
            "k4": "foldcomp_tpu_torch/kernels/csrc/fused_encode.cu"}
@@ -1471,6 +1480,7 @@ def wclass_cli(db, out_auto, names, card, auto_wall):
     subprocess with FOLDCOMP_TPU_WCLASS=0, =0 again and =auto, so that with
     phase 5's run (auto) the modes alternate auto, 0, 0, auto; every output
     of every run byte-identical, by name, to phase 5's."""
+    from foldcomp_tpu_torch.bench import read_entries
     want = {nm: data for nm, data in read_entries(out_auto).values()}
     if len(want) != len(names):
         raise AssertionError(f"phase 5 wrote {len(want)} of {len(names)}")
@@ -1504,35 +1514,16 @@ def wclass_cli(db, out_auto, names, card, auto_wall):
         raise AssertionError(f"WCLASS=0 vs auto: outputs differ {differ}")
 
 
-def read_entries(path):
-    """{key: (name, payload bytes)} of a database."""
-    from foldcomp_tpu_torch.io.db import DatabaseReader
-    reader = DatabaseReader(str(path))
-    try:
-        return {key: (name, bytes(data))
-                for key, name, data in reader.entries()}
-    finally:
-        reader.close()
-
-
-def pdb_xyz(data):
-    """[n, 3] coordinates of the ATOM lines of a PDB payload."""
-    import numpy as np
-    cols = b"".join(ln[30:54] for ln in data.split(b"\n")
-                    if ln.startswith(b"ATOM"))
-    return np.frombuffer(cols, dtype="S8").astype(np.float64).reshape(-1, 3)
-
-
-def db_jobs(work, db, picks, uniq, card, fast_wall):
+def db_jobs(work, db, picks, uniq, card, fast_wall, pdb_gate):
     """Phase 12: warmup, then db -> db decompress and compress through the
-    hybrid CPU + GPU scheduler (no flag) against the exact route, then
-    each mode in this process with the launch counters around it.
+    hybrid CPU + GPU scheduler (no flag) against the exact route (the
+    decompressed entries held by phase 5's `pdb_gate`), then each mode in
+    this process with the launch counters around it.
     -> {"decompress": launch counts, "compress": launch counts}."""
-    import numpy as np
     import torch
 
-    from foldcomp_tpu_torch import cli, verify
-    from foldcomp_tpu_torch.codec.decoder import decode as decode_exact
+    from foldcomp_tpu_torch import cli
+    from foldcomp_tpu_torch.bench import read_entries
     from foldcomp_tpu_torch.kernels import fused_decode as FD
     from foldcomp_tpu_torch.kernels import fused_encode as FE
 
@@ -1588,25 +1579,6 @@ def db_jobs(work, db, picks, uniq, card, fast_wall):
     exact = read_entries(work / "pdb_exact")
     if {k: nm for k, (nm, _) in exact.items()} != want_keys:
         raise AssertionError("exact decompress: keys or names differ")
-    ref = verify.load_ref_dev()
-    xyz = {n: np.asarray(decode_exact(f).coords) for n, f in uniq.items()}
-    excess = {}
-
-    def held(name, data):
-        """An entry's deviation from the exact decoder less the JAX
-        reference's; raises past phase 5's bound. Cached by payload."""
-        if data not in excess:
-            n = int(name.rsplit("_L", 1)[1])
-            got = pdb_xyz(data)
-            m = min(len(got), len(xyz[n]))
-            d = float(np.abs(got[:m] - xyz[n][:m]).max())
-            if abs(len(got) - len(xyz[n])) > 1 or \
-                    not d <= ref[n] + verify.REF_DEV_SLACK_A + PRINT_SLACK_A:
-                raise AssertionError(f"{name}: {len(got)} atoms, dev {d} A "
-                                     f"vs ref {ref[n]}")
-            excess[data] = d - ref[n]
-        return excess[data]
-
     for label, extra in (("guarded", {}),
                          ("eager", {"FOLDCOMP_TPU_WARMUP_EST": "0"})):
         out = work / f"pdb_hybrid_{label}"
@@ -1618,7 +1590,9 @@ def db_jobs(work, db, picks, uniq, card, fast_wall):
             raise AssertionError(f"hybrid decompress {label}: keys or "
                                  "names differ")
         differ = [k for k, (_, d) in got.items() if d != exact[k][1]]
-        worst = max([held(*got[k]) for k in differ], default=0.0)
+        bad, worst = pdb_gate.check(f"hybrid decompress {label}", got, exact)
+        if bad:
+            raise AssertionError("; ".join(bad[:5]))
         emit("db_jobs", part="decompress", mode=label, info=line,
              wall_seconds=wall, residues_per_s=residues / wall,
              entries=len(got), device_entries=n_dev,
@@ -1723,6 +1697,78 @@ def multi_device(card):
                for n, thr, lin in rows])
 
 
+def bench_phase(card):
+    """Phase 15: `python3 -m foldcomp_tpu_torch.bench --quick` in a
+    subprocess, its line parsed and held (every key of bench.KEYS, the
+    parity check passed, no gate failed; hybrid_ge_native is not computed
+    at the quick size); then dryrun.entry() on the card against the same
+    entry through the plain versions on the card (bit-equal) and on the
+    CPU (TOL_I16, TOL_A), on the rows each lane owns."""
+    import torch
+
+    from foldcomp_tpu_torch import bench
+    from foldcomp_tpu_torch.dryrun import entry
+
+    work = pathlib.Path(tempfile.mkdtemp(prefix=".chip_smoke_", dir=REPO))
+    try:
+        env = dict(os.environ, PYTHONPATH=str(REPO), HOME=str(work))
+        env.pop("FOLDCOMP_TORCH_DEVICE", None)
+        t0 = time.perf_counter()
+        r = subprocess.run(
+            [sys.executable, "-m", "foldcomp_tpu_torch.bench", "--quick",
+             "--out-dir", str(work)], cwd=str(REPO), env=env,
+            capture_output=True, text=True, timeout=600)
+        wall = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    lines = r.stdout.strip().splitlines()
+    try:
+        line = json.loads(lines[-1])
+    except (IndexError, json.JSONDecodeError):
+        raise AssertionError(f"bench rc {r.returncode}, no JSON line: "
+                             f"{r.stdout[-2000:]}{r.stderr[-4000:]}")
+    missing = [k for k in bench.KEYS if k not in line]
+    emit("bench", part="quick", gpu=card, rc=r.returncode,
+         wall_seconds=wall, stdout_lines=len(lines), missing_keys=missing,
+         line=line)
+    if r.returncode != 0 or len(lines) != 1 or missing or \
+            line["device_parity_ok"] is not True or line["gates_failed"]:
+        raise AssertionError(f"bench rc {r.returncode}, {len(lines)} lines, "
+                             f"missing {missing}, gates "
+                             f"{line.get('gates_failed')}: "
+                             f"{r.stderr[-4000:]}")
+
+    fn, args = entry("cuda")
+    off, ca = fn(*args)
+    nl_out = fn.keywords["nl_out"]
+    off_p, ca_p = plain_decode(dict(zip(DECODE_KEYS, args)), nl_out)
+    fn_c, args_c = entry("cpu")
+    off_c, ca_c = fn_c(*args_c)
+    torch.cuda.synchronize()
+    own = torch.arange(off_c.shape[1])[None, :] \
+        < args_c[-1][:nl_out, None]
+    diffs = {}
+    for label, (o, c) in (("card_plain", (off_p.cpu(), ca_p.cpu())),
+                          ("cpu_plain", (off_c, ca_c))):
+        d_off = (off.cpu().int() - o.int()).abs()[own]
+        d_ca = (ca.cpu() - c).abs()[own]
+        diffs[label] = dict(off_units_max=d_off.max().item(),
+                            ca_A_max=d_ca.max().item(),
+                            off_differing=int((d_off != 0).sum()),
+                            ca_differing=int((d_ca != 0).sum()))
+    emit("bench", part="entry", gpu=card, nl_out=nl_out,
+         shapes=[list(off.shape), list(ca.shape)], owned_rows=int(own.sum()),
+         vs=diffs, tol={"f32_A": TOL_A, "i16_units": TOL_I16})
+    worst = max(diffs.values(), key=lambda d: (d["off_units_max"],
+                                               d["ca_A_max"]))
+    if diffs["card_plain"]["off_units_max"] or \
+            diffs["card_plain"]["ca_A_max"] or \
+            not (worst["off_units_max"] <= TOL_I16
+                 and worst["ca_A_max"] <= TOL_A):
+        raise AssertionError(f"dryrun.entry() on the card against its "
+                             f"plain version: {diffs}")
+
+
 def main(argv=None) -> int:
     import argparse
     ap = argparse.ArgumentParser(description="Smoke run of "
@@ -1739,6 +1785,9 @@ def main(argv=None) -> int:
     ap.add_argument("--multi-device", action="store_true",
                     help="phases 1 and 13 only; no kernel line, no last "
                          "line")
+    ap.add_argument("--bench", action="store_true",
+                    help="phases 1 and 15 only; no kernel line, no last "
+                         "line")
     ap.add_argument("--ptxas", metavar="SRC",
                     help="also report ptxas resource use of this CUDA "
                          "source, compiled with the build's flags")
@@ -1752,13 +1801,9 @@ def main(argv=None) -> int:
               file=sys.stderr)
         return 2
     sys.path.insert(0, str(REPO))
-    import numpy as np
-
-    from foldcomp_tpu_torch import cli, verify
+    from foldcomp_tpu_torch import bench, cli, verify
     from foldcomp_tpu_torch.backend import describe
     from foldcomp_tpu_torch.codec.decoder import decode as decode_exact
-    from foldcomp_tpu_torch.codec.fcz import serialize
-    from foldcomp_tpu_torch.io.db import DatabaseReader, DatabaseWriter
     from foldcomp_tpu_torch.kernels import build
     from foldcomp_tpu_torch.kernels import fused_decode as FD
     from foldcomp_tpu_torch.kernels import fused_encode as FE
@@ -1788,9 +1833,12 @@ def main(argv=None) -> int:
     if args.multi_device:
         multi_device(card)
         return 0
+    if args.bench:
+        bench_phase(card)
+        return 0
 
     t0 = time.perf_counter()
-    uniq = verify.synthetic_corpus(BENCH_LENGTHS)
+    uniq = bench.mixed_corpus(BENCH_LENGTHS)
     emit("corpus", lengths=list(BENCH_LENGTHS),
          encode_seconds=time.perf_counter() - t0)
 
@@ -1827,14 +1875,9 @@ def main(argv=None) -> int:
     # ---- 5. end to end through the CLI, in a subprocess ----
     work = pathlib.Path(tempfile.mkdtemp(prefix=".chip_smoke_", dir=REPO))
     try:
-        rng = random.Random(1)
-        picks = [rng.choice(BENCH_LENGTHS) for _ in range(4096)]
-        blobs = {n: serialize(f) for n, f in uniq.items()}
+        picks = bench.draw_lengths(E2E_FILES, seed=1)
         db = work / "fcz_db"
-        w = DatabaseWriter(str(db))
-        for i, n in enumerate(picks):
-            w.append(blobs[n], i, f"e{i}_L{n}")
-        w.close()
+        names = bench.write_fcz_db(db, uniq, picks)
         e2e_res = sum(uniq[n].n_residue for n in picks)
         out = work / "pdb_db"
         env = dict(os.environ, PYTHONPATH=str(REPO),
@@ -1848,38 +1891,21 @@ def main(argv=None) -> int:
         wall = time.perf_counter() - t0
         if r.returncode != 0:
             raise AssertionError(f"CLI rc {r.returncode}: {r.stderr[-4000:]}")
-        ref = verify.load_ref_dev()
-        exact = {n: np.asarray(decode_exact(f).coords)
-                 for n, f in uniq.items()}
+        pdb_gate = bench.PdbGate({n: decode_exact(f)
+                                  for n, f in uniq.items()})
 
         def hold(out_db, names):
-            """Every entry written; 64 sampled outputs per protein within
-            the JAX reference's deviation from the exact decoder + the
-            slack and the print's rounding. -> the worst excess."""
-            reader = DatabaseReader(str(out_db))
-            try:
-                entries = list(reader.entries())
-            finally:
-                reader.close()
-            if sorted(nm for _, nm, _ in entries) != sorted(names):
-                raise AssertionError(f"{len(entries)} outputs for "
-                                     f"{len(names)}")
-            worst = 0.0
-            for _, name, data in random.Random(2).sample(entries, 64):
-                n = int(name.rsplit("_L", 1)[1])
-                xyz = np.asarray(
-                    [[float(ln[30:38]), float(ln[38:46]), float(ln[46:54])]
-                     for ln in bytes(data).decode().splitlines()
-                     if ln.startswith("ATOM")], np.float64)
-                m = min(len(xyz), len(exact[n]))
-                d = float(np.abs(xyz[:m] - exact[n][:m]).max())
-                worst = max(worst, d - ref[n])
-                if not d <= ref[n] + verify.REF_DEV_SLACK_A + PRINT_SLACK_A:
-                    raise AssertionError(f"{out_db.name} {name}: dev {d} A "
-                                         f"vs ref {ref[n]}")
+            """Every entry written; 64 sampled outputs held by the bench's
+            PdbGate (the JAX reference's deviation from the exact decoder
+            + the slack and the print's rounding). -> the worst excess."""
+            got = bench.read_entries(out_db)
+            if sorted(nm for nm, _ in got.values()) != sorted(names):
+                raise AssertionError(f"{len(got)} outputs for {len(names)}")
+            bad, worst = pdb_gate.check(out_db.name, got, sample=64)
+            if bad:
+                raise AssertionError("; ".join(bad[:5]))
             return worst
 
-        names = [f"e{i}_L{n}" for i, n in enumerate(picks)]
         worst = hold(out, names)
         emit("e2e", gpu=card, entries=len(picks), residues=e2e_res,
              wall_seconds=wall, residues_per_s=e2e_res / wall,
@@ -1893,7 +1919,7 @@ def main(argv=None) -> int:
         for p in work.glob(out.name + "*"):     # data file + index files
             p.unlink()
         if args.db_jobs:
-            db_jobs(work, db, picks, uniq, card, fast_wall)
+            db_jobs(work, db, picks, uniq, card, fast_wall, pdb_gate)
             return 0
 
         # ---- 6. the main path, launch counters around it ----
@@ -1949,7 +1975,7 @@ def main(argv=None) -> int:
         counts["k2_bb"] = bb_cli(work, db, names, card, hold)["k2_bb"]
 
         # ---- 12. the database jobs through the hybrid scheduler ----
-        db_jobs(work, db, picks, uniq, card, fast_wall)
+        db_jobs(work, db, picks, uniq, card, fast_wall, pdb_gate)
         shutil.rmtree(work, ignore_errors=True)
         work.mkdir()
 
@@ -1966,6 +1992,10 @@ def main(argv=None) -> int:
     # ---- 13. the multi-device layers ----
     torch.cuda.empty_cache()
     multi_device(card)
+
+    # ---- 15. the port's bench and its single-device entry ----
+    torch.cuda.empty_cache()
+    bench_phase(card)
 
     # no single PyTorch call computes any of these: library_ms is null
     print(json.dumps({"kernels": [

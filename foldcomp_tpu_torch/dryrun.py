@@ -1,6 +1,10 @@
-"""Multi-device dry run of the port's parallel layers.
+"""The single-device entry and the multi-device dry run of the port.
 
-The counterpart of the JAX package's `dryrun_multichip`
+`entry()` is the counterpart of the JAX package's single-device entry
+(__graft_entry__.py:43-66): the decode step the port's main path runs,
+with example inputs.
+
+`dryrun_multichip` is the counterpart of its `dryrun_multichip`
 (__graft_entry__.py:90): one process per rank (parallel/dist.py
 spawn_ranks), and for each layer a run on one rank beside a run on n:
 
@@ -23,6 +27,7 @@ gloo, the CPU tests' rehearsal of the same checks.
 """
 from __future__ import annotations
 
+import functools
 import hashlib
 import time
 
@@ -35,6 +40,34 @@ from .parallel.scaling import MIXED_LENGTHS, mixed_batch, mixed_protos
 CHAIN_RES = 34350
 LONG_RES = 6200
 BACKBONE_TOL_DEG = 1e-3
+
+
+def entry(device=None):
+    """(fn, args): the decode step of the port's main path and a synthetic
+    batch for it.
+
+    JAX's entry returns the residue-space core `decode_seg_core`, which
+    the port does not carry (ROADMAP queue 1 item 8). Its counterpart here
+    is the step `decompress --fast` runs: fn is
+    functools.partial(decode_seg_fused, refine_iters=2, nl_out=...) (the
+    pack's real lane count, as codec/batch.py passes it), args the eight
+    tensors of pack_decode_batch_lanes over one protein of each of the 8
+    lengths of verify.synthetic_corpus: 8 proteins, the size of JAX's
+    example batch. The tensors are on `device` (default: the card), so
+    fn(*args) launches k1, k2 and k3 there, or runs their plain versions
+    on the CPU. fn returns (off i16 [NL, SEG, 42], ca f32 [NL, SEG, 3]);
+    rows s >= seg_m[l] are pack padding."""
+    from .codec.batch import arrays_to_torch
+    from .codec.batch_host import pack_decode_batch_lanes
+    from .kernels.fused_decode import DECODE_ARGS, decode_seg_fused
+    from .verify import synthetic_corpus
+
+    arrays, _ = pack_decode_batch_lanes(
+        list(synthetic_corpus(MIXED_LENGTHS).values()))
+    ta = arrays_to_torch(arrays, device)
+    args = tuple(ta[k] for k in DECODE_ARGS)
+    return functools.partial(decode_seg_fused, refine_iters=2,
+                             nl_out=ta["nl_out"]), args
 
 
 def _row_digests(a):

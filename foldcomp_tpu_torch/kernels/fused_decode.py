@@ -538,6 +538,12 @@ def sidechain(bx, by, bz, code, sct, nl_out=None, seg_m=None, out=None):
 # ---------------------------------------------------------------------------
 # the pipeline
 
+# the pack's keys (pack_decode_batch_lanes) in decode_seg_fused's argument
+# order
+DECODE_ARGS = ("seg_records", "mins_lane", "cont_lane", "sc_codes_seg",
+               "fwd9", "rev9", "is_first", "seg_m")
+
+
 def decode_seg_fused(seg_records, mins_lane, cont_lane, sc_codes_seg,
                      fwd9, rev9, is_first, seg_m, refine_iters: int = 2,
                      nl_out: int | None = None, wire: str = "full"):

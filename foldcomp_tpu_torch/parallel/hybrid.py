@@ -153,14 +153,17 @@ class EndgameGuard:
         self.t0 = self._time()
         self.lo0 = ctrl.peek()[0]
         self.claimed_entries = 0
+        self._in_process_warm = self._device_warmed()
+        self.warmup_est = self.cold_horizon()
+        self._first_done_dt = None
+
+    @staticmethod
+    def _device_warmed() -> bool:
         # codec/batch.py imports torch: a process that has not loaded it
         # has completed no device batch
         _batch = sys.modules.get(__package__.rsplit(".", 1)[0]
                                  + ".codec.batch")
-        self._in_process_warm = bool(getattr(_batch, "DEVICE_WARMED",
-                                             False))
-        self.warmup_est = self._load_warmup_est()
-        self._first_done_dt = None
+        return bool(getattr(_batch, "DEVICE_WARMED", False))
 
     @staticmethod
     def _warmup_path():
@@ -168,7 +171,10 @@ class EndgameGuard:
         return os.path.join(os.path.expanduser("~"), ".cache",
                             "foldcomp_tpu_torch", "device_warmup.json")
 
-    def _load_warmup_est(self) -> float:
+    @classmethod
+    def cold_horizon(cls) -> float:
+        """The time to the device stream's first completion that a guard
+        made now takes (its `warmup_est`), in seconds."""
         import json
         env = os.environ.get("FOLDCOMP_TPU_WARMUP_EST")
         if env is not None:
@@ -176,12 +182,12 @@ class EndgameGuard:
                 return max(float(env), 0.0)
             except ValueError:
                 pass
-        if self._in_process_warm:
+        if cls._device_warmed():
             # pipeline already compiled + dispatched in this process:
             # first completion is one dispatch away, not a cold start
             return 0.5
         try:
-            with open(self._warmup_path()) as fh:
+            with open(cls._warmup_path()) as fh:
                 return max(float(json.load(fh)["warmup_s"]), 0.0)
         except Exception:  # noqa: BLE001 — no cache yet / unreadable
             return 5.0

@@ -26,8 +26,8 @@ device they go through the CUDA kernels. Each check that ran is named
 under `checked`.
 
 The gates, the fixture loader and the synthetic structures are the port's
-own copies: `_DEV_TOL_A`, `_RMSD_GOLD`, `_RMSD_TOL` and `_load_fragments`
-of foldcomp_tpu/verify.py:31-50, and `synthesize` of
+own copies: `DEV_TOL_A`, `_RMSD_GOLD`, `_RMSD_TOL` and `_load_fragments`
+(with `load_fragment`) of foldcomp_tpu/verify.py:31-50, and `synthesize` of
 tests/test_property_roundtrip.py:21. The fixtures are read from the
 directory FOLDCOMP_REF_TEST names, when it is set.
 """
@@ -52,27 +52,29 @@ REF_DEV_SLACK_A = 1e-3
 # build.sh:35-36 golden: all-atom RMSD of the test.pdb roundtrip
 _RMSD_GOLD = 0.0826751
 _RMSD_TOL = 1.5e-3
-_DEV_TOL_A = 5e-3        # vs exact decoder: compact wire quantum + ulps
+DEV_TOL_A = 5e-3        # vs exact decoder: compact wire quantum + ulps
+
+
+def load_fragment(path) -> AtomArray:
+    """The one fragment of a single-chain PDB file."""
+    from .io.pdb import parse_pdb
+    from .io.structure import (identify_chains,
+                               identify_discontinuous_fragments,
+                               remove_alternative_positions)
+    atoms = remove_alternative_positions(
+        parse_pdb(pathlib.Path(path).read_bytes()))
+    (cs, ce), = identify_chains(atoms)
+    (fs, fe), = identify_discontinuous_fragments(atoms, cs, ce)
+    return atoms.slice(fs, fe)
 
 
 def _load_fragments():
     """[(name, AtomArray)] of test.pdb and test_af.pdb's one fragment each,
     from FOLDCOMP_REF_TEST; empty when it is unset or holds neither."""
-    from .io.pdb import parse_pdb
-    from .io.structure import (identify_chains,
-                               identify_discontinuous_fragments,
-                               remove_alternative_positions)
     root = os.environ.get("FOLDCOMP_REF_TEST")
-    frags = []
-    for name in ("test.pdb", "test_af.pdb") if root else ():
-        p = pathlib.Path(root) / name
-        if not p.exists():
-            continue
-        atoms = remove_alternative_positions(parse_pdb(p.read_bytes()))
-        (cs, ce), = identify_chains(atoms)
-        (fs, fe), = identify_discontinuous_fragments(atoms, cs, ce)
-        frags.append((name, atoms.slice(fs, fe)))
-    return frags
+    return [(name, load_fragment(pathlib.Path(root) / name))
+            for name in (("test.pdb", "test_af.pdb") if root else ())
+            if (pathlib.Path(root) / name).exists()]
 
 
 def synthesize(n_res: int, seed: int) -> AtomArray:
@@ -229,7 +231,7 @@ def device_parity_check(device=None) -> dict:
         names = [n for n, _ in frags]
         structures = [f for _, f in frags]
         fczs = [encode_exact(f) for f in structures]
-        gates = [_DEV_TOL_A] * len(fczs)
+        gates = [DEV_TOL_A] * len(fczs)
         out["corpus"] = "fixtures"
     else:
         ref = load_ref_dev()
