@@ -9,7 +9,9 @@ non-zero:
 
 1. setup: the card, the toolchain, and the build of the CUDA kernels
    (kernels/csrc/fused_decode.cu and fused_encode.cu, one nvcc each, then
-   one link) from this checkout, with each kernel's ptxas report;
+   one link) from this checkout, with each kernel's ptxas report and the
+   float instructions of one step of k1's loop from its SASS (the count
+   of a sincosf in every decode kernel's bound);
 2. kernels: k1, k2 and k3 against their plain PyTorch versions on the
    card, on the same inputs: a mixed batch of 512 entries (refine_iters 1
    and 2), a corpus with segments wider than 96 residues, and one packed
@@ -38,9 +40,9 @@ non-zero:
    which the bench's e2e databases share);
 6. main path: the same CLI entry point in this process with the kernel
    launch counters reset just before and read just after, and the decode
-   calls counted: at least one batch must have taken width classes, and
-   k1, k2 and k3 must each have launched once a single-class batch and
-   once a class of each classed batch;
+   calls counted: at least one batch must have taken width classes, k1
+   must have launched once a batch, and k2 and k3 each once a
+   single-class batch and once a class of each classed batch;
 7. encode_kernels: the fused encode kernel (k4 with the epilogue) against
    its plain version, parity_tail(merged_plain(...)), on the same inputs:
    a mixed 256-entry batch of the 8 lengths by the compact wire and by the
@@ -66,16 +68,17 @@ non-zero:
    must have launched;
 11. bb_wire, the backbone-only decode wire (`FOLDCOMP_TPU_WIRE=bb`; its
    kernel and device parts run after phase 4, its CLI parts after phase 6):
-   k2 with its epilogue k2_bb_out (`fused_decode.backbone_only`) against
-   its plain version on phase 2's corpora and at B=8192, offsets within 1
-   i16 unit (0.1 mA) and CA within 1e-3 A on the rows each lane owns;
-   k2_bb_out alone, the bb call and the whole bb device decode timed with
-   CUDA events beside the full wire's; the D2H bytes and seconds of one
-   B=8192 batch on each wire; the link probe's MB/s and the wire it
-   chooses; then `decompress --fast` on phase 5's database with
-   FOLDCOMP_TPU_WIRE=bb in a subprocess, 64 sampled outputs held to phase
-   5's bound, and the same entry point in this process with the launch
-   counters around it: k2_bb must have launched and k3 not;
+   the bb call, one kernel (k2_backbone_bb, `fused_decode.backbone_only`),
+   against its plain version on phase 2's corpora at refine_iters 1 and 2
+   and at B=8192, bit-equal (0 i16 units, 0.0 A CA) on the rows each lane
+   owns; the bb call and the whole bb device decode timed with CUDA
+   events beside the full wire's, the call against its bound; the D2H
+   bytes and seconds of one B=8192 batch on each wire; the link probe's
+   MB/s and the wire it chooses; then `decompress --fast` on phase 5's
+   database with FOLDCOMP_TPU_WIRE=bb in a subprocess, 64 sampled outputs
+   held to phase 5's bound, and the same entry point in this process
+   with the launch counters around it: k1 and k2_bb must have launched,
+   k2 and k3 not;
 12. db_jobs, the database jobs through the hybrid CPU + GPU scheduler
    (after phase 11's CLI parts, on phase 5's database, with -t T,
    T = min(8, CPU count)): `warmup` in a subprocess with HOME in a scratch
@@ -108,14 +111,17 @@ non-zero:
 14. wclass, width-classed lanes (split_lanes_classes and
    decode_seg_fused_classes; its kernel and device parts run after phase
    11's, its CLI part after phase 5): the classed decode's kernels (k1
-   into the shared tails, k2 seeded through prev_idx, k3 into the flat
-   buffer) against decode_seg_fused_classes_plain on phase 2's corpora
+   over every class in one launch into the shared tails, k2 seeded
+   through prev_idx, k3 into the flat buffer) against
+   decode_seg_fused_classes_plain on phase 2's corpora
    split with the savings gate off and on phase 4's B=8192 batch split by
    the auto rule, bit-equal on the rows each lane owns; at B=8192 the
    classed decode against the single-class one, gathered per protein,
    bit-equal on every row; each form's slots, output and D2H bytes, D2H
-   seconds, device decode time and peak device memory; each class's k1,
-   k2 and k3 and the glue; the launches of a batch; then phase 5's
+   seconds, device decode time and peak device memory; k1 over the
+   classes in one launch beside the same kernel launched once a class;
+   each class's k1, k2 and k3 and the glue; the launches of a batch (k1
+   once); then phase 5's
    `decompress --fast` again with FOLDCOMP_TPU_WCLASS=0, 0 and auto (the
    modes alternate with phase 5's auto run), every output byte-identical
    to phase 5's;
@@ -131,8 +137,9 @@ non-zero:
 Then the kernel summary (each kernel's launches on the main path, its
 largest difference from its plain version, its time and its plain
 version's, and its bound: the larger of the bytes it must move over the
-card's memory rate and its operations over the float32 rate, from this
-run's inputs), the card's `nvidia-smi` name and power limit, and as the
+card's memory rate and its float operations over the float32 rate
+without FMA, from this run's inputs), the card's `nvidia-smi` name and
+power limit, and as the
 last line {"ok": true, "device": {...}}. Exits non-zero without a CUDA
 device or outside a checkout of the repository.
 
@@ -171,24 +178,36 @@ REPLACES = {"k1": "foldcomp_tpu/kernels/pallas_decode.py:186",
             "k2_bb": "foldcomp_tpu/kernels/pallas_decode.py:529",
             "k3": "foldcomp_tpu/kernels/pallas_decode.py:338",
             "k4": "foldcomp_tpu/kernels/pallas_encode.py:147 + :370-432"}
-NAMES = {"k1": "k1_tails", "k2": "k2_backbone", "k2_bb": "k2_bb_out",
+NAMES = {"k1": "k1_tails", "k2": "k2_backbone", "k2_bb": "k2_backbone_bb",
          "k3": "k3_sidechain", "k4": "k4_fused_encode"}
 # the bb wire's offsets: 0.1 mA units
 BB_UNIT_A = 1e-4
 # one H100 SXM's published peaks (NVIDIA's data sheet, at a 700 W limit):
-# HBM bytes/s and float32 operations/s outside the tensor cores
+# HBM bytes/s, and float32 instructions/s outside the tensor cores. The
+# sheet's 67 T float32 operations/s count an FMA as two. Every kernel here
+# is built with -fmad=false (kernels/build.py), so the compiler contracts
+# none of their arithmetic into FMA (library code such as sincosf keeps its
+# own fmaf): an operation is one float instruction, at 33.5 T a second
+# (132 SMs x 128 lanes x 1.98 GHz), not 67 T.
 PEAK_BYTES_S = 3.35e12
-PEAK_F32_S = 67e12
+PEAK_F32_S = 33.5e12
 # What each decode kernel must do, counted from this run's inputs: inputs
 # read once, outputs written once, real lanes and residues only. A lane of
 # seg_m residues takes seg_m - 1 forward steps (k1, k2) and as many reverse
 # ones (k2); per residue, per step and per lane, (bytes, float operations):
 #  - a step reads its residue's 8 B record (the last residue's is never
 #    read; the N-CA length comes from the record's residue code) and costs
-#    3 NeRF placements of 73 (62 in place_frame, 8 for a (cos, sin) pair,
-#    3 for an angle in degrees; a sinf/cosf/rsqrtf/sqrtf/division counts
-#    as one) and 6 dequantized fields of 2; k2's reverse step 3 more
-#    placements of 70, 3 bond angles of 31 and 3 torsions of 2;
+#    3 NeRF placements of 69 (62 in place_frame, 5 to scale the offsets, 2
+#    angles to radians) with 2 sincosf each, and 6 dequantized fields of 2;
+#    k2's reverse step 3 more placements of 68 (62, 5, the torsion to
+#    radians) with 1 sincosf each (the bond angle comes from
+#    bond_angle_cs), 3 bond angles of 31 and 3 torsions of 2 (an rsqrtf,
+#    sqrtf or division counts as one);
+#  - a sincosf counts as the float instructions of its compiled fast path
+#    (|x| small enough for the three-part reduction, no Payne-Hanek), not
+#    as one: SINCOS_OPS, read from the SASS of one step of k1's loop in
+#    this run's build (k1_step_sass), as that step's float instructions
+#    less the 219 of the rest of the step, over 6;
 #  - a k1 lane reads its seed fwd9, its next anchor rev9, tat and 12
 #    quantizer floats (124 B) and writes a 9-float tail (36 B), blended at
 #    4 operations a float;
@@ -198,21 +217,38 @@ PEAK_F32_S = 67e12
 #  - k3 reads 9 backbone floats, a code and 11 torsion codes and writes 42
 #    int16 and 3 floats a residue (147 B), 11 placements of 66 and 42
 #    offsets of 5;
-#  - the bb call (k2 and k2_bb_out, _run_backbone_only's function) does
-#    k2's work but writes 6 int16 offsets and 3 floats a residue (24 B),
-#    each offset a subtraction, a product, a rounding and a clip of 2.
-DECODE_WORK = {
-    "k1": {"residue": (0, 0), "step": (8, 3 * 73 + 6 * 2),
-           "lane": (124 + 36, 9 * 4)},
-    "k2": {"residue": (36, 3 * 12),
-           "step": (8, 3 * 73 + 6 * 2 + 3 * (70 + 31 + 2)),
-           "lane": (125, 0)},
-    "k2_bb": {"residue": (24, 3 * 12 + 6 * 5),
-              "step": (8, 3 * 73 + 6 * 2 + 3 * (70 + 31 + 2)),
-              "lane": (125, 0)},
-    "k3": {"residue": (36 + 4 + 11 + 84 + 12, 11 * 66 + 42 * 5),
-           "step": (0, 0), "lane": (0, 0)},
-}
+#  - the bb call (k2_backbone_bb, _run_backbone_only's function) does k2's
+#    work but writes 6 int16 offsets and 3 floats a residue (24 B), each
+#    offset a subtraction, a product, a rounding and a clip of 2.
+K1_STEP_OTHER_OPS = 3 * 69 + 6 * 2
+SINCOS_OPS = None       # set by main() from k1_step_sass before any bound
+
+
+def decode_work(k):
+    """What decode kernel k must do, {unit: (bytes, operations)}, a
+    sincosf at SINCOS_OPS operations."""
+    fwd = K1_STEP_OTHER_OPS + 6 * SINCOS_OPS
+    rev = 3 * (68 + SINCOS_OPS + 31 + 2)
+    return {
+        "k1": {"residue": (0, 0), "step": (8, fwd),
+               "lane": (124 + 36, 9 * 4)},
+        "k2": {"residue": (36, 3 * 12), "step": (8, fwd + rev),
+               "lane": (125, 0)},
+        "k2_bb": {"residue": (24, 3 * 12 + 6 * 5), "step": (8, fwd + rev),
+                  "lane": (125, 0)},
+        "k3": {"residue": (36 + 4 + 11 + 84 + 12, 11 * 66 + 42 * 5),
+               "step": (0, 0), "lane": (0, 0)},
+    }[k]
+
+
+def work_bound(k, count):
+    """(bytes, operations, bound ms, "bytes" or "operations") of decode
+    kernel k on `count` {"residue", "step", "lane"} of this run."""
+    w = decode_work(k)
+    n_bytes, n_ops = (sum(w[u][i] * count[u] for u in w) for i in (0, 1))
+    return (n_bytes, n_ops, *bound(n_bytes, n_ops))
+
+
 # The fused encode kernel (fused_encode.cu k4_fused_encode), float
 # operations a real residue, counted from its code (an acosf, rsqrtf,
 # sqrtf, floorf, rintf or division counts as one): the correctly rounded
@@ -249,8 +285,8 @@ def ptxas_report(log):
         m = re.search(r"(?:Compiling entry function|Function properties "
                       r"for) '?(\w+)", line)
         if m:
-            cur = next((k for k in ("k1_tails", "k2_backbone",
-                                    "k2_copy_out", "k2_bb_out",
+            cur = next((k for k in ("k1_tails", "k2_backbone_bb",
+                                    "k2_backbone", "k2_copy_out",
                                     "k3_sidechain", "k3_tables",
                                     "k4_fused_encode", "k4_acos")
                         if k in m.group(1)), m.group(1))
@@ -272,6 +308,64 @@ def ptxas_report(log):
             s = re.search(r"(\d+) bytes smem", line)
             out[cur]["smem"] = int(s.group(1)) if s else 0
     return out
+
+
+# SASS opcodes counted as float instructions: the F* family (FADD, FMUL,
+# FFMA, FSETP, FSEL, FMNMX, F2I, ...), MUFU and the int-to-float
+# conversions
+SASS_FLOAT_OP = r"^(F[A-Z0-9]+|MUFU|I2F|I2FP)$"
+
+
+def k1_step_sass(lib_path):
+    """{"float_instructions", "instructions", "loop"} of one step of
+    k1_tails's loop on its fast path, from `cuobjdump -sass` of the built
+    library. The loop is the function's backward branch of the widest
+    span; the fast path is the path from its head to that branch with the
+    fewest instructions (forward edges only), which takes no sincosf slow
+    path (the Payne-Hanek reduction of a large argument) and no load a step
+    ahead. Predicated instructions on it count."""
+    import re
+    from foldcomp_tpu_torch.backend import nvcc_path
+    tool = os.path.join(os.path.dirname(nvcc_path()), "cuobjdump")
+    r = subprocess.run([tool, "-sass", lib_path], capture_output=True,
+                       text=True, timeout=300)
+    if r.returncode != 0:
+        raise AssertionError(f"cuobjdump rc {r.returncode}: {r.stderr}")
+    body = next(f for f in re.split(r"\n\s*Function : ", r.stdout)[1:]
+                if "k1_tails" in f.split("\n", 1)[0])
+    ins = []            # (address, conditional, opcode, branch target)
+    for m in re.finditer(r"/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;", body):
+        txt = m.group(2)
+        cond = txt.startswith("@")
+        if cond:
+            txt = txt.split(None, 1)[1]
+        op = txt.split()[0].split(".")[0]
+        tgt = None
+        if op == "BRA":
+            tgt = int(re.findall(r"0x([0-9a-f]+)", txt)[-1], 16)
+            cond = cond or "P" in txt.split(",")[0]     # BRA !P0, 0x...
+        ins.append((int(m.group(1), 16), cond, op, tgt))
+    at = {a: i for i, (a, *_) in enumerate(ins)}
+    _, end = max((a - t, i) for i, (a, _, op, t) in enumerate(ins)
+                 if op == "BRA" and t < a)
+    head = at[ins[end][3]]
+    isf = [int(bool(re.match(SASS_FLOAT_OP, op))) for _, _, op, _ in ins]
+    best = {head: (1, isf[head])}      # (instructions, float ones) to here
+    for i in range(head, end):
+        if i not in best:
+            continue
+        _, cond, op, tgt = ins[i]
+        nxt = [] if op in ("BRA", "EXIT", "RET") and not cond else [i + 1]
+        if op == "BRA" and at[tgt] > i:
+            nxt.append(at[tgt])
+        for j in nxt:
+            if j <= end:
+                c = (best[i][0] + 1, best[i][1] + isf[j])
+                if j not in best or c < best[j]:
+                    best[j] = c
+    n, f = best[end]
+    return {"float_instructions": f, "instructions": n,
+            "loop": [hex(ins[head][0]), hex(ins[end][0])]}
 
 
 def ptxas_of(src):
@@ -979,10 +1073,7 @@ def device_decode(dev, card, uniq, err, entries=8192):
         r1 = cuda_ms(torch, kern, 10)
         r2 = cuda_ms(torch, kern, 10)
         p2 = cuda_ms(torch, plain_k, 2)
-        n_bytes, n_ops = (sum(w[i] * count[u]
-                              for u, w in DECODE_WORK[k].items())
-                          for i in (0, 1))
-        b_ms, b_by = bound(n_bytes, n_ops)
+        n_bytes, n_ops, b_ms, b_by = work_bound(k, count)
         times[k] = {"ms": min(r1, r2), "plain_ms": min(p1, p2),
                     "runs_ms": [p1, r1, r2, p2], "bytes": n_bytes,
                     "operations": n_ops, "bound_ms": b_ms, "bound_by": b_by,
@@ -1027,11 +1118,16 @@ def bb_owned_max(got, want, seg_m):
             (got[1] - want[1]).abs()[own].max().item())
 
 
+# the one-kernel bb call against its plain version: the gate is
+# bit-equality on the rows each lane owns
+TOL_BB = {"i16_units": 0, "ca_A": 0.0}
+
+
 def hold_bb(label, got, want, seg_m, err):
-    """Gate a bb-wire output against its plain version: offsets within
-    TOL_I16 units, CA within TOL_A, on owned rows. -> the difference."""
+    """Gate a bb-wire output against its plain version: TOL_BB (bit-equal)
+    on owned rows. -> the difference."""
     d_off, d_ca = bb_owned_max(got, want, seg_m)
-    if not (d_off <= TOL_I16 and d_ca <= TOL_A):
+    if not (d_off <= TOL_BB["i16_units"] and d_ca <= TOL_BB["ca_A"]):
         raise AssertionError(f"{label}: k2_bb vs plain: off {d_off} units, "
                              f"ca {d_ca} A")
     err["k2_bb"] = max(err["k2_bb"], d_off * BB_UNIT_A, d_ca)
@@ -1039,8 +1135,9 @@ def hold_bb(label, got, want, seg_m, err):
 
 
 def bb_kernels(dev, uniq, err):
-    """Phase 11, kernels: backbone_only (k2_backbone and k2_bb_out) against
-    bb_epilogue_plain(backbone_rolled_plain(...)) on phase 2's inputs."""
+    """Phase 11, kernels: backbone_only (one kernel, k2_backbone_bb)
+    against bb_epilogue_plain(backbone_rolled_plain(...)) on phase 2's
+    inputs, at refine_iters 1 and 2."""
     import torch
 
     from foldcomp_tpu_torch.kernels import fused_decode as FD
@@ -1060,7 +1157,7 @@ def bb_kernels(dev, uniq, err):
              lane0_wraps=first is not ta["is_first"],
              seg=int(arrays["seg_records"].shape[1]),
              lanes=int(arrays["seg_records"].shape[2]), max_abs=d,
-             tol={"i16_units": TOL_I16, "ca_A": TOL_A})
+             tol=TOL_BB)
 
 
 def d2h(outs):
@@ -1078,12 +1175,11 @@ def d2h(outs):
 
 def bb_device(dev, card, uniq, err, entries=8192):
     """Phase 11, device: the B=8192 batch of phase 4 on the bb wire.
-    backbone_only against its plain version; k2_bb_out alone (fd_bb_out on
-    rows fd_backbone staged), the bb call (k2_backbone + k2_bb_out) beside
-    the full wire's k2 (k2_backbone + k2_copy_out), its plain version, and
-    the whole device decode on each wire, all by CUDA events in turns; the
-    D2H seconds and bytes of each wire's output; the link probe.
-    -> k2_bb's times and bound."""
+    backbone_only (one kernel, k2_backbone_bb) against its plain version;
+    the bb call beside the full wire's k2 (k2_backbone + k2_copy_out) and
+    its plain version, and the whole device decode on each wire, all by
+    CUDA events in turns; the D2H seconds and bytes of each wire's output;
+    the link probe. -> k2_bb's times and bound."""
     import torch
 
     from foldcomp_tpu_torch import cli
@@ -1098,6 +1194,7 @@ def bb_device(dev, card, uniq, err, entries=8192):
     recs, fwd9, lane, order, first, seg_m = (pr["recs"], pr["fwd9"],
                                              pr["lane"], pr["order"],
                                              ta["is_first"], ta["seg_m"])
+    seg, nl = recs.shape[1], recs.shape[2]
     t9 = FD.tails(recs, fwd9, *lane, order=order)
 
     def bb_call():
@@ -1111,36 +1208,13 @@ def bb_device(dev, card, uniq, err, entries=8192):
         return FD.bb_epilogue_plain(*FD.backbone_rolled_plain(
             recs, t9, fwd9, first, *lane), nl_out)
 
-    got = bb_call()
-    d = hold_bb(f"B={entries}", got, plain(), seg_m, err)
-
-    # k2_bb_out alone, on rows fd_backbone staged in planes of our own
-    lib = FD._cuda_lib(recs)
-    seg, nl = recs.shape[1], recs.shape[2]
-    planes = [torch.empty((3 * seg, nl), dtype=torch.float32, device=dev)
-              for _ in range(6)]
-    pos = torch.empty((nl,), dtype=torch.int32, device=dev)
-    FD._launch(lib.fd_backbone, "k2 backbone", dev, *FD._ptrs(
-        recs, t9, None, fwd9, first, *lane, order.perm, *planes, pos), nl,
-        seg, nl)
-    alone = tuple(torch.empty_like(t) for t in got)
-
-    def bb_out():
-        FD._launch(lib.fd_bb_out, "k2_bb_out", dev, *FD._ptrs(
-            *planes[3:], pos, seg_m, *alone), seg, nl, alone[0].shape[0])
-
-    bb_out()
-    d_alone = bb_owned_max(alone, got, seg_m)
-    if d_alone != (0, 0.0):
-        raise AssertionError(f"k2_bb_out alone vs backbone_only: {d_alone}")
-
-    runs = {}
-    for name, fn, reps in (("bb_call", bb_call, 10), ("full_k2", full_k2, 10),
-                           ("bb_out", bb_out, 20)):
-        runs[name] = [cuda_ms(torch, fn, reps), cuda_ms(torch, fn, reps)]
+    d = hold_bb(f"B={entries}", bb_call(), plain(), seg_m, err)
+    runs = {"bb_call": [], "full_k2": []}
+    for name, fn in (("bb_call", bb_call), ("full_k2", full_k2),
+                     ("full_k2", full_k2), ("bb_call", bb_call)):
+        runs[name].append(cuda_ms(torch, fn, 10))
     p1 = cuda_ms(torch, plain, 2)
     p2 = cuda_ms(torch, plain, 2)
-    del planes, pos, alone, got
 
     def decode(wire):
         return FD.decode_seg_fused(*fused_args, refine_iters=2,
@@ -1164,21 +1238,14 @@ def bb_device(dev, card, uniq, err, entries=8192):
     nl_real = sum(f.n_anchor - 1 for f in big)
     rows = int(seg_m[:nl_real].sum())
     count = {"residue": rows, "step": rows - nl_real, "lane": nl_real}
-    n_bytes, n_ops = (sum(w[i] * count[u]
-                          for u, w in DECODE_WORK["k2_bb"].items())
-                      for i in (0, 1))
-    b_ms, b_by = bound(n_bytes, n_ops)
+    n_bytes, n_ops, b_ms, b_by = work_bound("k2_bb", count)
     ms = min(runs["bb_call"])
     out_bytes = 24 * rows
     emit("bb_wire", part="device", gpu=card, entries=len(big),
          lanes_real=nl_real, rows_real=rows, seg=int(seg), lanes=int(nl),
-         nl_out=nl_out, kernel_vs_plain=d,
-         k2_bb_out_ms=min(runs["bb_out"]), k2_bb_out_runs_ms=runs["bb_out"],
-         k2_bb_out_bytes=60 * rows,
-         k2_bb_out_bound_ms=bound(60 * rows, 30 * rows)[0],
+         nl_out=nl_out, kernel_vs_plain=d, tol=TOL_BB,
          bb_call_ms=ms, bb_call_runs_ms=runs["bb_call"],
          full_k2_ms=min(runs["full_k2"]), full_k2_runs_ms=runs["full_k2"],
-         k2_backbone_ms_derived=ms - min(runs["bb_out"]),
          bb_call_plain_ms=min(p1, p2), bb_call_plain_runs_ms=[p1, p2],
          bb_call_bytes=n_bytes, bb_call_operations=n_ops,
          bb_call_bound_ms=b_ms, bb_call_bound_by=b_by,
@@ -1241,7 +1308,8 @@ def bb_cli(work, db, names, card, hold):
             os.environ["FOLDCOMP_TPU_WIRE"] = saved
     emit("bb_wire", part="main_path", rc=rc, launches=counts,
          wall_seconds=wall, gpu=card)
-    if rc != 0 or not (counts["k1"] > 0 and counts["k2"] > 0
+    # the bb call is one kernel, counted as k2_bb and not as k2
+    if rc != 0 or not (counts["k1"] > 0 and counts["k2"] == 0
                        and counts["k2_bb"] > 0 and counts["k3"] == 0):
         raise AssertionError(f"bb main path rc {rc}, launches {counts}")
     return counts
@@ -1272,12 +1340,26 @@ def class_inputs(ta):
     return args, prs, bases
 
 
+def k1_classed(prs, bases, out=None):
+    """k1 over every class of class_inputs' prs in one launch, into out
+    (None: a new [9, NL_total] buffer). -> out."""
+    import torch
+
+    from foldcomp_tpu_torch.kernels import fused_decode as FD
+    if out is None:
+        out = torch.empty((9, bases[-1]), dtype=torch.float32,
+                          device=prs[0]["recs"].device)
+    return FD.tails_classes([(pr["recs"], pr["fwd9"], *pr["lane"],
+                              pr["order"]) for pr in prs], out)
+
+
 def hold_classes(label, ta, refine_iters, err):
     """decode_seg_fused_classes through the kernels against
     decode_seg_fused_classes_plain on the same classed inputs, on the rows
-    each lane of each class owns (s < seg_m), with k1 (each class into its
-    columns of the shared tails) and k2 (seeded through prev_idx) against
-    their plain versions too. Raises past TOL_CLASSES. -> the differences."""
+    each lane of each class owns (s < seg_m), with k1 (one launch over
+    every class into the shared tails) and k2 (seeded through prev_idx)
+    against their plain versions too. Raises past TOL_CLASSES. -> the
+    differences."""
     import torch
 
     from foldcomp_tpu_torch.kernels import fused_decode as FD
@@ -1297,11 +1379,7 @@ def hold_classes(label, ta, refine_iters, err):
     del got, want
     tails_g = None
     if refine_iters >= 2:
-        tails_g = torch.empty((9, bases[-1]), dtype=torch.float32,
-                              device=prs[0]["recs"].device)
-        for i, pr in enumerate(prs):
-            FD.tails(pr["recs"], pr["fwd9"], *pr["lane"], order=pr["order"],
-                     out=tails_g[:, bases[i]:bases[i + 1]])
+        tails_g = k1_classed(prs, bases)
         tp = torch.cat([FD.tails_plain(pr["recs"], FD.n_ca_lengths(
             pr["recs"]), pr["fwd9"], *pr["lane"]) for pr in prs], dim=1)
         d["k1"] = (tails_g - tp).abs().max().item()
@@ -1357,9 +1435,12 @@ def class_device(dev, card, uniq, err, entries=8192):
     classed decode against the single-class one, gathered per protein
     through each pack's metas, bit-equal on every row; each form's slots,
     output bytes, D2H seconds (pageable, as the stream copies), device
-    decode time in turns and peak device memory; each class's k1, k2 and
-    k3 by CUDA events and the glue; the launches of a batch; the host
-    seconds of the pack alone and of the pack with the split."""
+    decode time in turns and peak device memory; k1 over every class in
+    one launch beside the same kernel launched once a class (a one-entry
+    table each; bit-equal), in turns; each class's k1, k2 and k3 by CUDA
+    events and the glue; the launches of a batch (k1 once, classed or
+    not); the host seconds of the pack alone and of the pack with the
+    split."""
     import numpy as np
     import torch
 
@@ -1428,50 +1509,67 @@ def class_device(dev, card, uniq, err, entries=8192):
         torch.cuda.synchronize()
         launches[form] = FD.launch_counts()
 
-    # each class's kernels alone
+    # k1 over the classes in one launch, and the same kernel launched once
+    # a class with a one-entry table each, in turns; then each class's k2
+    # and k3 alone
     args, prs, bases = class_inputs(forms["classed"])
     prev, nl_outs = forms["classed"]["prev_idx"], forms["classed"]["nl_outs"]
-    tails_g = torch.empty((9, bases[-1]), dtype=torch.float32, device=dev)
-    kern = []
-    for i, pr in enumerate(prs):
-        cols = tails_g[:, bases[i]:bases[i + 1]]
-        kern.append((
-            lambda pr=pr, cols=cols: FD.tails(
-                pr["recs"], pr["fwd9"], *pr["lane"], order=pr["order"],
-                out=cols),
-            lambda pr=pr, i=i: FD.backbone(
-                pr["recs"], tails_g, pr["fwd9"], pr["isf"], *pr["lane"],
-                order=pr["order"], prev=prev[bases[i]:bases[i + 1]])))
-    for k1, _ in kern:
-        k1()
+    tails_g = k1_classed(prs, bases)
+    tails_c = torch.empty_like(tails_g)
+    k1_each = [lambda pr=pr, i=i: FD.tails(
+        pr["recs"], pr["fwd9"], *pr["lane"], order=pr["order"],
+        out=tails_c[:, bases[i]:bases[i + 1]]) for i, pr in enumerate(prs)]
+
+    def k1_per_class():
+        for fn in k1_each:
+            fn()
+
+    k1_per_class()
+    if not torch.equal(tails_g, tails_c):
+        raise AssertionError(f"B={entries}: k1 in one launch and once a "
+                             "class differ")
+    k1_runs = {"one_launch": [], "per_class": []}
+    for form, fn in (("one_launch", lambda: k1_classed(prs, bases, tails_g)),
+                     ("per_class", k1_per_class),
+                     ("per_class", k1_per_class),
+                     ("one_launch", lambda: k1_classed(prs, bases, tails_g))):
+        k1_runs[form].append(cuda_ms(torch, fn, 20))
     per_class = []
-    for i, (pr, (k1, k2)) in enumerate(zip(prs, kern)):
+    for i, pr in enumerate(prs):
+        def k2(pr=pr, i=i):
+            return FD.backbone(pr["recs"], tails_g, pr["fwd9"], pr["isf"],
+                               *pr["lane"], order=pr["order"],
+                               prev=prev[bases[i]:bases[i + 1]])
         bb = k2()
 
         def k3(pr=pr, bb=bb, i=i):
             return FD.sidechain(*bb, pr["code"], pr["sct"], nl_outs[i],
                                 seg_m=pr["segm"])
         t = {k: min(cuda_ms(torch, fn, 10), cuda_ms(torch, fn, 10))
-             for k, fn in (("k1", k1), ("k2", k2), ("k3", k3))}
+             for k, fn in (("k1", k1_each[i]), ("k2", k2), ("k3", k3))}
         per_class.append(dict(seg=int(pr["recs"].shape[1]),
                               lanes=int(pr["recs"].shape[2]),
                               nl_out=nl_outs[i],
                               rows=int(pr["recs"].shape[1]) * nl_outs[i],
                               **{f"{k}_ms": v for k, v in t.items()}))
         del bb
-    del tails_g, kern, args, prs
+    del tails_g, tails_c, k1_each, args, prs
     ms = {f: min(v) for f, v in dec.items()}
-    kernels_ms = sum(c[f"{k}_ms"] for c in per_class for k in ("k1", "k2",
-                                                                "k3"))
+    k1_ms = {f: min(v) for f, v in k1_runs.items()}
+    kernels_ms = k1_ms["one_launch"] + sum(
+        c[f"{k}_ms"] for c in per_class for k in ("k2", "k3"))
     emit("wclass", part="device", gpu=card, entries=len(big),
          classes=len(per_class), class_seg=[c["seg"] for c in per_class],
          host_seconds=host_s, kernel_vs_plain=d,
          rows_compared=n_rows, rows_differing=diff_rows, slots=slots,
          out_bytes={f: 96 * n for f, n in slots.items()}, d2h=xfer,
          device_decode_ms=ms, device_decode_runs_ms=dec,
+         k1_classed_ms=k1_ms, k1_classed_runs_ms=k1_runs,
          per_class=per_class, classed_kernels_ms=kernels_ms,
          classed_glue_ms=ms["classed"] - kernels_ms,
          peak_device_bytes=mem, launches=launches)
+    if launches["classed"]["k1"] != 1 or launches["single"]["k1"] != 1:
+        raise AssertionError(f"B={entries}: k1 launches {launches}")
     return ms
 
 
@@ -1656,8 +1754,8 @@ def db_jobs(work, db, picks, uniq, card, fast_wall, pdb_gate):
                  device_entries=hybrid_lines(err.getvalue())[1],
                  wall_seconds=wall, residues_per_s=residues / wall,
                  entries=n_out, threads=1, batch_size=512, gpu=card)
-            ok = (c["k1"] > 0 and c["k2"] > 0
-                  and (c["k3"] > 0 or c["k2_bb"] > 0)) \
+            ok = (c["k1"] > 0 and (c["k2"] > 0 and c["k3"] > 0
+                                   or c["k2_bb"] > 0)) \
                 if mode == "decompress" else c["k4"] > 0
             if rc != 0 or not ok or n_out != len(picks):
                 raise AssertionError(f"hybrid {mode} in process: rc {rc}, "
@@ -1817,12 +1915,19 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     path = build.build()
     build.load()
+    # k1's step as compiled: its float instructions give a sincosf's count
+    # for every decode kernel's bound (decode_work)
+    global SINCOS_OPS
+    step = k1_step_sass(path)
+    SINCOS_OPS = (step["float_instructions"] - K1_STEP_OTHER_OPS) / 6
     emit("setup", describe=desc, library=os.path.relpath(path, REPO),
          nvcc_seconds=build.BUILD_SECONDS,
          build_and_load_seconds=time.perf_counter() - t0,
          nvcc_flags=" ".join(build.NVCC_FLAGS),
          ptxas=ptxas_report(build.BUILD_LOG)
-         if build.BUILD_LOG is not None else "library built before")
+         if build.BUILD_LOG is not None else "library built before",
+         k1_step_sass={**step, "other_operations": K1_STEP_OTHER_OPS,
+                       "sincosf_operations": SINCOS_OPS})
     if args.ptxas:
         emit("ptxas_of", source=args.ptxas, ptxas=ptxas_of(args.ptxas))
 
@@ -1924,8 +2029,9 @@ def main(argv=None) -> int:
 
         # ---- 6. the main path, launch counters around it ----
         # (FOLDCOMP_TPU_WCLASS as phase 5 had it, auto; the batches that
-        # the rule splits launch k1, k2 and k3 once a class: the decode
-        # calls are counted too, to know how many launches to expect)
+        # the rule splits launch k1 once and k2 and k3 once a class: the
+        # decode calls are counted too, to know how many launches to
+        # expect)
         out2 = work / "pdb_db_main"
         calls = {"single": 0, "classes": []}
         real = (FD.decode_seg_fused, FD.decode_seg_fused_classes)
@@ -1957,7 +2063,10 @@ def main(argv=None) -> int:
                 os.environ.pop("FOLDCOMP_TPU_WCLASS")
             else:
                 os.environ["FOLDCOMP_TPU_WCLASS"] = saved
-        expect = calls["single"] + sum(calls["classes"])
+        # k1 once a batch, k2 and k3 once a class
+        expect = {"k1": calls["single"] + len(calls["classes"]),
+                  "k2": calls["single"] + sum(calls["classes"])}
+        expect["k3"] = expect["k2"]
         emit("main_path", rc=rc, launches=counts, wall_seconds=wall,
              residues_per_s=e2e_res / wall, gpu=card,
              batches={"single_class": calls["single"],
@@ -1965,7 +2074,7 @@ def main(argv=None) -> int:
                       "classes": calls["classes"]},
              launches_expected=expect)
         if rc != 0 or not calls["classes"] or \
-                not all(counts[k] == expect for k in ("k1", "k2", "k3")):
+                not all(counts[k] == n for k, n in expect.items()):
             raise AssertionError(f"main path rc {rc}, launches {counts}, "
                                  f"decode calls {calls}")
         for p in work.glob(out2.name + "*"):

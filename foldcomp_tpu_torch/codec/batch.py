@@ -20,12 +20,13 @@ Every entry point takes `device` (see backend.resolve_device). The decode
 pack runs with no segment-width cap: the CUDA backbone kernel takes any
 SEG, so there is no grid-core fallback to route wide segments to. Each
 decode call chooses its wire once (`use_bb_wire`): the full wire ships
-96 B a residue slot (k1, k2, k3), the backbone-only wire 24 B (k1, k2 and
-its epilogue k2_bb_out), and the host then places O and the side chains
-with the native codec. A full-wire batch is split into width classes
-(`split_lanes_classes`) where `use_wclass` and the savings gate say so, as
-in foldcomp_tpu: then k1, k2 and k3 run once per class, their rows land in
-one flat buffer, and one copy brings it to the host. The encode
+96 B a residue slot (k1, k2, k3), the backbone-only wire 24 B (k1, then
+k2 with its epilogue in one kernel, k2_backbone_bb), and the host then
+places O and the side chains with the native codec. A full-wire batch is
+split into width classes (`split_lanes_classes`) where `use_wclass` and
+the savings gate say so, as in foldcomp_tpu: then k1 runs once over every
+class, k2 and k3 once per class, their rows land in one flat buffer, and
+one copy brings it to the host. The encode
 takes any length and needs no protein block: every batch goes through k4,
 by its compact or its f32 loader.
 """

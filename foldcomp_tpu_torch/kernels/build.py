@@ -2,13 +2,13 @@
 bound with ctypes.
 
 The library is compiled on first use from every csrc/*.cu source
-(fused_decode.cu: k1-k3 and the bb wire's epilogue, fused_encode.cu: k4
-with the encode epilogue) into kernels/build/, named by a hash of the
-sources and the flags, so an edited source or flag set builds a new
-library and never loads a stale one. One nvcc per source runs at once,
-then one link. The build writes to temporary names and renames the
-library into place, so processes that build at once do not see each
-other's half-written file.
+(fused_decode.cu: k1-k3 and the bb wire's backbone kernel,
+fused_encode.cu: k4 with the encode epilogue) into kernels/build/, named
+by a hash of the sources and the flags, so an edited source or flag set
+builds a new library and never loads a stale one. One nvcc per source
+runs at once, then one link. The build writes to temporary names and
+renames the library into place, so processes that build at once do not
+see each other's half-written file.
 
 Flags: sm_90a (Hopper), -O3, and -fmad=false with no --use_fast_math, so
 the float operation order of the JAX reference holds (no contraction into
@@ -114,16 +114,15 @@ def build() -> str:
 def _bind(lib):
     vp, ci = ctypes.c_void_p, ctypes.c_int
     lib.fd_set_tables.argtypes = [vp, vp, vp, vp, ci, ci]
-    lib.fd_tails.argtypes = [vp] * 8 + [ci, ci, ci, vp]
+    lib.fd_tails.argtypes = [ci, vp, vp, vp, ci, vp]
     lib.fd_backbone.argtypes = [vp] * 17 + [ci, ci, ci, vp]
-    lib.fd_backbone_bb.argtypes = [vp] * 17 + [ci, ci, ci, ci, vp]
-    lib.fd_bb_out.argtypes = [vp] * 7 + [ci, ci, ci, vp]
+    lib.fd_backbone_bb.argtypes = [vp] * 16 + [ci, ci, ci, ci, vp]
     lib.fd_sidechain.argtypes = [vp] * 8 + [ci, ci, ci, vp]
     lib.fe_encode.argtypes = [vp] * 8 + [ci] + [vp] * 6 + [ci, ci, vp]
     lib.fe_acos.argtypes = [vp, vp, ci, vp]
     for fn in (lib.fd_set_tables, lib.fd_tails, lib.fd_backbone,
-               lib.fd_backbone_bb, lib.fd_bb_out, lib.fd_sidechain,
-               lib.fe_encode, lib.fe_acos):
+               lib.fd_backbone_bb, lib.fd_sidechain, lib.fe_encode,
+               lib.fe_acos):
         fn.restype = ci
     return lib
 

@@ -1,16 +1,19 @@
 // Fused ragged-lane decode for Hopper (sm_90a): k1 tails, k2 backbone,
-// k3 side chains, and the bb wire's epilogue.
+// k3 side chains, and the bb wire's backbone kernel.
 //
 // Replaces the three Pallas TPU decode kernels and their bb-wire call site
 // in foldcomp_tpu/kernels/pallas_decode.py:
-//   k1 fd_tails      <- _make_tails_kernel      (pallas_decode.py:186)
+//   k1 fd_tails      <- _make_tails_kernel      (pallas_decode.py:186),
+//                       every width class of a batch in one launch
+//                       (_run_tails once a class, :654-656)
 //   k2 fd_backbone   <- _make_backbone_kernel   (pallas_decode.py:227),
 //                       with the seed roll of :596-610 (or, for width
 //                       classes, the prev_idx gather of :654-670) and the
 //                       N-CA lengths of _class_prep (:405-437)
 //   k3 fd_sidechain  <- _make_sidechain_kernel  (pallas_decode.py:338)
 //   fd_backbone_bb   <- _run_backbone_only      (pallas_decode.py:529):
-//                       k2, then its XLA epilogue as k2_bb_out
+//                       k2 with its XLA epilogue (:561-570) in one kernel,
+//                       k2_backbone_bb
 // Each computes what the Pallas kernel computes; the plain PyTorch
 // versions beside them (fused_decode.py tails_plain / backbone_rolled_plain
 // / sidechain_plain / bb_epilogue_plain) are the oracle, bit for bit on the
@@ -21,11 +24,14 @@
 // thread per lane in the order lane_order gives (by row count, longest
 // first), so that a warp's lanes have one length; k2 stages its rows at
 // the thread's column and copies them to the lane's (k2_copy_out), or on
-// the bb wire turns them into 24 B rows (k2_bb_out); k3 walks groups of
-// 32 neighbouring lanes. Each walks a lane's own rows only (r < tat =
-// 3*seg_m); the rest is pack padding and is left unwritten. On an H100 at
-// B=8192 (PERF.md §6) k2 takes ~0.42 ms, of which the copy ~0.14 and
-// k2_bb_out ~0.13; k1, the forward alone, runs near the issue rate.
+// the bb wire turns its blended rows into the wire's 24 B rows as it goes
+// (k2_backbone_bb); k3 walks groups of 32 neighbouring lanes. Each walks a
+// lane's own rows only (r < tat = 3*seg_m); the rest is pack padding and
+// is left unwritten. What bounds each on an H100 (PERF.md §6; chip_smoke.py
+// counts the operations, a full-precision sincosf at the float
+// instructions of its compiled fast path, at 33.5 T float instructions/s,
+// since -fmad=false leaves no FMA): k1, k2 and k2_backbone_bb their float
+// operations, k3 its loads and stores.
 //
 // Float rules (nvcc -fmad=false, no --use_fast_math; build.py):
 //  - no FMA contraction, so every expression rounds in the JAX order;
@@ -143,7 +149,9 @@ __device__ __forceinline__ void bond_angle_cs(V3 a, V3 b, V3 c, float* cos_t,
 // dequantized per field f as q * cont6[f] + mins6[f] in the field order
 // (psi, omega, phi, n_ca_c, ca_c_n, c_n_ca) of _unpack_ang6_into
 // (pallas_decode.py:127-151). A residue's bytes travel packed, bytes 0-3
-// in .x and 4-7 in .y, so they can be loaded one residue ahead of use.
+// in .x and 4-7 in .y, so they can be loaded one residue ahead of use,
+// through the read-only path (k1 takes its pointers from a class table,
+// where no __restrict__ parameter tells the compiler they are read-only).
 struct Lane {
   const uint8_t* p;  // recs + l
   size_t ps, rs;     // plane stride seg * nl, row stride nl
@@ -155,7 +163,7 @@ struct Lane {
     uint32_t w[2] = {0u, 0u};
 #pragma unroll
     for (int b = 0; b < 8; ++b) {
-      if (b < n) w[b >> 2] |= (uint32_t)*q << (8 * (b & 3));
+      if (b < n) w[b >> 2] |= (uint32_t)__ldg(q) << (8 * (b & 3));
       q += ps;
     }
     return make_uint2(w[0], w[1]);
@@ -229,36 +237,77 @@ __device__ __forceinline__ V3 get_row(const float* __restrict__ ox,
   return v3(ox[i], oy[i], oz[i]);
 }
 
-// k1: forward scan from the anchor seed, blended 3-atom tail per lane.
+// k1: forward scan from the anchor seed, blended 3-atom tail per lane,
+// for every width class of a batch in one launch.
 //
-// One thread per lane, the lanes taken in the order `order` gives
-// (fused_decode.py lane_order: by tat, longest first, stable), so that the
-// threads of a warp walk lanes of one length and none waits for a longer
-// one. The loop over residues runs inside the thread and stops at the
-// lane's own row tat-1; the tail atoms are the three in registers, so k1
-// needs no row buffer (the TPU kernel wrote all 3*SEG forward rows to VMEM
-// and picked rows tat-3..tat-1 with a masked pass over every row: a TPU
-// lane cannot index a row of its own). Bound: instruction issue, 3
-// placements and 6 full-precision sin/cos pairs a residue; the lanes
-// against the card's resident threads are the only parallelism.
+// One thread per lane, the lanes of a class taken in the order its
+// `order` gives (fused_decode.py lane_order: by tat, longest first,
+// stable), so that the threads of a warp walk lanes of one length and none
+// waits for a longer one. The loop over residues runs inside the thread
+// and stops at the lane's own row tat-1; the tail atoms are the three in
+// registers, so k1 needs no row buffer (the TPU kernel wrote all 3*SEG
+// forward rows to VMEM and picked rows tat-3..tat-1 with a masked pass
+// over every row: a TPU lane cannot index a row of its own).
 //
-// out [9, NL] rows comp*3 + kk, row stride out_ld >= NL: tail row tat-3+kk
-// blended with the stored next anchor ranc by weights (tat-3+kk, 3-kk)/tat
-// (pallas_decode.py:213-222). A width class writes its columns of the
-// tails of every class, [9, NL_total] (out_ld = NL_total, out at the
-// class's first column), from which k2 gathers its seeds through prev.
-__global__ void __launch_bounds__(128)
-k1_tails(const uint8_t* __restrict__ recs, const float* __restrict__ seed,
-         const float* __restrict__ ranc, const int* __restrict__ tat_,
-         const float* __restrict__ mins6, const float* __restrict__ cont6,
-         const int* __restrict__ order, float* __restrict__ out, int out_ld,
-         int seg, int nl) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+// Bound: operations. A forward step is 3 placements with 6 full-precision
+// sincosf: 357 float instructions on its compiled fast path, 23 a sincosf
+// (chip_smoke.py counts them from the SASS of this loop), and -fmad=false
+// leaves no FMA, so one float instruction is one operation at the card's
+// 33.5 T instructions/s; the 8 B record a step moves takes far less time
+// than that. At B=8192 on an H100 that bound is ~0.044 ms and k1 takes
+// ~0.096 (PERF.md §6); computing a run of steps' sincosf ahead of the
+// placement chain through shared memory made it slower. The lanes against
+// the card's resident threads are the only parallelism, so a launch must
+// give the card all of them at once: a width class alone (a few dozen
+// blocks for the widest class) left most SMs idle, and four class launches
+// ran one after another (~0.20 ms against ~0.09 in one). So one launch
+// takes a table of up to K1_MAX_CLASSES classes by value (no copy to the
+// device) and gives each class a range of blocks, the widest class (its
+// lanes the longest walks) the first blocks, so that its walks start first
+// and the shorter classes fill the SMs behind them.
+//
+// out [9, NL_total] rows comp*3 + kk, row stride out_ld >= NL_total: lane
+// l of a class writes column col0 + l, its tail row tat-3+kk blended with
+// the stored next anchor ranc by weights (tat-3+kk, 3-kk)/tat
+// (pallas_decode.py:213-222); k2 gathers its seeds from there through
+// prev.
+#define K1_THREADS 128
+#define K1_MAX_CLASSES 4  // split_lanes_classes makes at most 4
+
+struct K1Class {
+  const uint8_t* recs;  // [8, seg, nl]
+  const float* seed;    // [9, nl]
+  const float* ranc;    // [9, nl]
+  const int* tat;       // [nl]
+  const float* mins6;   // [6, nl]
+  const float* cont6;   // [6, nl]
+  const int* order;     // [nl], a permutation of the class's lanes
+  int seg, nl;
+  int col0;             // the class's first column of out
+  int block0;           // the class's first block
+};
+struct K1Table {
+  K1Class c[K1_MAX_CLASSES];  // by block0, ascending; none empty
+  int n;
+};
+
+__global__ void __launch_bounds__(K1_THREADS)
+k1_tails(const __grid_constant__ K1Table tab, float* __restrict__ out,
+         int out_ld) {
+  int ci = 0;  // the last class whose blocks start at or before this one
+  for (int k = 1; k < tab.n; ++k)
+    if ((int)blockIdx.x >= tab.c[k].block0) ci = k;
+  const K1Class& cl = tab.c[ci];
+  const int i = ((int)blockIdx.x - cl.block0) * K1_THREADS + threadIdx.x;
+  const int nl = cl.nl, seg = cl.seg;
   if (i >= nl) return;
-  const int l = order[i];
+  const int l = cl.order[i];
   Lane ln;
-  lane_init(&ln, recs, mins6, cont6, seg, nl, l);
-  int tat = tat_[l];
+  lane_init(&ln, cl.recs, cl.mins6, cl.cont6, seg, nl, l);
+  int tat = cl.tat[l];
+  const float* __restrict__ seed = cl.seed;
+  const float* __restrict__ ranc = cl.ranc;
+  out += cl.col0;
   V3 a = load3(seed, 0, nl, l), b = load3(seed, 3, nl, l),
      c = load3(seed, 6, nl, l);
   // rows 0..2 are the seed; step k writes rows 3k+3..3k+5. The tail rows
@@ -293,16 +342,19 @@ k1_tails(const uint8_t* __restrict__ recs, const float* __restrict__ seed,
 
 // k2: seed, forward scan, reverse C->N sweep and blend of each lane
 // (_make_backbone_kernel, pallas_decode.py:227-296, after the seed roll of
-// :596-610), in two launches: k2_backbone computes each lane's rows into
-// scratch planes at its thread's column, k2_copy_out moves them to the
-// lane's column of the output planes ox/oy/oz [3*SEG, NL].
+// :596-610). k2_lane is one lane's walk; the two wires differ only in
+// where its blended rows go (the Out policy): on the full wire
+// (k2_backbone, StageRows) into scratch planes at its thread's column,
+// which k2_copy_out then moves to the lane's column of the output planes
+// ox/oy/oz [3*SEG, NL]; on the bb wire (k2_backbone_bb, BbRuns) straight
+// into the wire's 24 B rows.
 //
-// k2_backbone: one thread per lane, the lanes in the order `order` gives
-// (lane_order: by tat, longest first, stable), so that a warp's lanes have
-// one length and none waits for a longer one (in pack order the warps of
-// the B=8192 batch walk 1.46x its real rows). A lane walks its own rows
-// only, 0 .. tat-1 (tat = 3*seg_m): rows >= tat are pack padding, neither
-// computed nor written, and pad lanes (seg_m 1) do the 3-row blend alone.
+// One thread per lane, the lanes in the order `order` gives (lane_order:
+// by tat, longest first, stable), so that a warp's lanes have one length
+// and none waits for a longer one (in pack order the warps of the B=8192
+// batch walk 1.46x its real rows). A lane walks its own rows only, 0 ..
+// tat-1 (tat = 3*seg_m): rows >= tat are pack padding, neither computed
+// nor written, and pad lanes (seg_m 1) do the 3-row blend alone.
 //  - Seed: with tails9 (refine_iters >= 2, [9, tails_ld] rows comp*3 +
 //    atom) and not is_first[l], the blended tail of the lane's predecessor:
 //    column prev[l] where prev is given (width classes: the tails of every
@@ -319,52 +371,18 @@ k1_tails(const uint8_t* __restrict__ recs, const float* __restrict__ seed,
 //    anchors ranc; row r <= tat-4 is placed from the reverse atoms at
 //    r+1..r+3 (registers), its bond angle from forward rows r..r+2 (row r
 //    read back a residue ahead, r+1 and r+2 in registers), its torsion from
-//    the record; then the blend (f*(tat-r) + rev*r)/tat goes back into
-//    scratch row r, in place.
+//    the record; then the blend (f*(tat-r) + rev*r)/tat goes to the Out
+//    policy, atom by atom (C, CA, N of residue j), then the residue.
 // The N-CA length comes from the record's residue code (fwd_step), the
 // bond lengths of the reverse cycle C-N, CA-C, N-CA by row, all as the
 // TPU kernel has them. No VMEM-style limit on SEG (the TPU kernel's 3*SEG
 // scratch capped SEG at ~96).
-//
-// Bound (PERF.md §6): the forward runs near the issue rate (k1, the
-// same loop without the stores, at ~0.095 ms for B=8192); the reverse's
-// arithmetic and divisions hide behind its loads and stores. The blend's
-// stores cost ~0.31 ms when they went straight to the lanes' columns of
-// the output planes, ~0.04 ms in place at the thread's; so they are
-// staged, and the copy moves the 36 B a row at ~2 TB/s with every store a
-// whole line.
-__global__ void __launch_bounds__(128)
-k2_backbone(const uint8_t* __restrict__ recs, const float* __restrict__ tails9,
-            const int* __restrict__ prev, const float* __restrict__ fwd9,
-            const uint8_t* __restrict__ is_first,
-            const float* __restrict__ ranc, const int* __restrict__ tat_,
-            const float* __restrict__ mins6, const float* __restrict__ cont6,
-            const int* __restrict__ order, float* __restrict__ sx,
-            float* __restrict__ sy, float* __restrict__ sz,
-            int* __restrict__ pos, int tails_ld, int seg, int nl) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= nl) return;
-  const int l = order[i];
-  pos[l] = i;
-  const int tat = min(tat_[l], 3 * seg);
-  if (tat < 3) return;
+template <class Out>
+__device__ __forceinline__ void k2_lane(
+    const Lane& ln, V3 a, V3 b, V3 c, const float* __restrict__ ranc,
+    float* __restrict__ sx, float* __restrict__ sy, float* __restrict__ sz,
+    int tat, int nl, int l, int i, Out& out) {
   const int sm = tat / 3;  // the lane's residues
-  Lane ln;
-  lane_init(&ln, recs, mins6, cont6, seg, nl, l);
-  V3 a, b, c;
-  if (tails9 != nullptr && !is_first[l]) {
-    // the predecessor's tail, rows comp*3 + atom
-    const size_t p = prev != nullptr ? (size_t)prev[l]
-                                     : (l == 0 ? nl - 1 : l - 1);
-    const size_t ld = (size_t)tails_ld;
-    a = v3(tails9[p], tails9[3 * ld + p], tails9[6 * ld + p]);
-    b = v3(tails9[ld + p], tails9[4 * ld + p], tails9[7 * ld + p]);
-    c = v3(tails9[2 * ld + p], tails9[5 * ld + p], tails9[8 * ld + p]);
-  } else {
-    a = load3(fwd9, 0, nl, l);
-    b = load3(fwd9, 3, nl, l);
-    c = load3(fwd9, 6, nl, l);
-  }
   uint2 w = ln.rec(0, 8);  // residue k's bytes, loaded a step ahead
   for (int k = 0; k < sm - 1; ++k) {
     const uint2 cur = w;
@@ -380,27 +398,27 @@ k2_backbone(const uint8_t* __restrict__ recs, const float* __restrict__ tails9,
   auto blend = [&](int r, V3 f, V3 w) {
     const float w_r = (float)r;
     const float w_f = tatf - w_r;
-    put_row(sx, sy, sz, r, nl, i,
-            v3((f.x * w_f + w.x * w_r) / tf, (f.y * w_f + w.y * w_r) / tf,
-               (f.z * w_f + w.z * w_r) / tf));
+    return v3((f.x * w_f + w.x * w_r) / tf, (f.y * w_f + w.y * w_r) / tf,
+              (f.z * w_f + w.z * w_r) / tf);
   };
   // reverse atoms at rows r+1..r+3 and forward atoms at r+1, r+2
   V3 v3_ = load3(ranc, 6, nl, l), v2 = load3(ranc, 3, nl, l),
      v1 = load3(ranc, 0, nl, l);
-  blend(tat - 1, c, v3_);
-  blend(tat - 2, b, v2);
-  blend(tat - 3, a, v1);
+  out.atom(2, tat - 1, blend(tat - 1, c, v3_));
+  out.atom(1, tat - 2, blend(tat - 2, b, v2));
+  out.atom(0, tat - 3, blend(tat - 3, a, v1));
+  out.residue(sm - 1);
   V3 f1 = a, f2 = b;
   auto rev = [&](int r, V3 f0, float bl, float2 tor) {
     float cos_a, sin_a;
     bond_angle_cs(f0, f1, f2, &cos_a, &sin_a);
     const V3 w = place_cs(v3_, v2, v1, bl, cos_a, sin_a, tor);
-    blend(r, f0, w);
     v3_ = v2;
     v2 = v1;
     v1 = w;
     f2 = f1;
     f1 = f0;
+    return blend(r, f0, w);
   };
   // residue j's forward rows and torsion bytes, loaded one residue ahead
   V3 p0 = a, p1 = a, p2 = a;
@@ -420,10 +438,78 @@ k2_backbone(const uint8_t* __restrict__ recs, const float* __restrict__ tails9,
       p2 = get_row(sx, sy, sz, 3 * j - 1, nl, i);
       tw = ln.rec(j - 1, 5);
     }
-    rev(3 * j + 2, q2, c_k[K_C_TO_N], cs_deg(ln.torsion(2, cw)));
-    rev(3 * j + 1, q1, c_k[K_CA_TO_C], cs_deg(ln.torsion(1, cw)));
-    rev(3 * j, q0, c_k[K_N_TO_CA], cs_deg(ln.torsion(0, cw)));
+    out.atom(2, 3 * j + 2,
+             rev(3 * j + 2, q2, c_k[K_C_TO_N], cs_deg(ln.torsion(2, cw))));
+    out.atom(1, 3 * j + 1,
+             rev(3 * j + 1, q1, c_k[K_CA_TO_C], cs_deg(ln.torsion(1, cw))));
+    out.atom(0, 3 * j,
+             rev(3 * j, q0, c_k[K_N_TO_CA], cs_deg(ln.torsion(0, cw))));
+    out.residue(j);
   }
+}
+
+// The lane's seed: the predecessor's blended tail or its own fwd9 (above).
+__device__ __forceinline__ void k2_seed(
+    const float* __restrict__ tails9, const int* __restrict__ prev,
+    const float* __restrict__ fwd9, const uint8_t* __restrict__ is_first,
+    int tails_ld, int nl, int l, V3* a, V3* b, V3* c) {
+  if (tails9 != nullptr && !is_first[l]) {
+    // the predecessor's tail, rows comp*3 + atom
+    const size_t p = prev != nullptr ? (size_t)prev[l]
+                                     : (l == 0 ? nl - 1 : l - 1);
+    const size_t ld = (size_t)tails_ld;
+    *a = v3(tails9[p], tails9[3 * ld + p], tails9[6 * ld + p]);
+    *b = v3(tails9[ld + p], tails9[4 * ld + p], tails9[7 * ld + p]);
+    *c = v3(tails9[2 * ld + p], tails9[5 * ld + p], tails9[8 * ld + p]);
+  } else {
+    *a = load3(fwd9, 0, nl, l);
+    *b = load3(fwd9, 3, nl, l);
+    *c = load3(fwd9, 6, nl, l);
+  }
+}
+
+// The full wire's Out: each blended row back into scratch row r, in place
+// (the forward row there has been read by then).
+struct StageRows {
+  float *sx, *sy, *sz;
+  int nl, i;
+  __device__ __forceinline__ void atom(int, int r, V3 v) {
+    put_row(sx, sy, sz, r, nl, i, v);
+  }
+  __device__ __forceinline__ void residue(int) {}
+};
+
+// k2_backbone, the full wire, in two launches: the lane walks into scratch
+// planes at its thread's column, then k2_copy_out to the lane's.
+//
+// Bound (PERF.md §6): operations, the forward's as k1's (k1 is the same
+// loop without the stores) and the reverse's placements, its 3 sincosf a
+// residue and its divisions, with its loads and stores behind them. The
+// blend's stores cost ~0.31 ms when they went straight to the lanes'
+// columns of the output planes, ~0.04 ms in place at the thread's; so they
+// are staged, and the copy moves the 36 B a row at ~2 TB/s with every
+// store a whole line.
+__global__ void __launch_bounds__(128)
+k2_backbone(const uint8_t* __restrict__ recs, const float* __restrict__ tails9,
+            const int* __restrict__ prev, const float* __restrict__ fwd9,
+            const uint8_t* __restrict__ is_first,
+            const float* __restrict__ ranc, const int* __restrict__ tat_,
+            const float* __restrict__ mins6, const float* __restrict__ cont6,
+            const int* __restrict__ order, float* __restrict__ sx,
+            float* __restrict__ sy, float* __restrict__ sz,
+            int* __restrict__ pos, int tails_ld, int seg, int nl) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= nl) return;
+  const int l = order[i];
+  pos[l] = i;
+  const int tat = min(tat_[l], 3 * seg);
+  if (tat < 3) return;
+  Lane ln;
+  lane_init(&ln, recs, mins6, cont6, seg, nl, l);
+  V3 a, b, c;
+  k2_seed(tails9, prev, fwd9, is_first, tails_ld, nl, l, &a, &b, &c);
+  StageRows out{sx, sy, sz, nl, i};
+  k2_lane(ln, a, b, c, ranc, sx, sy, sz, tat, nl, l, i, out);
 }
 
 // k2's copy-out: residue s (rows 3s .. 3s+2) of lane l, s < seg_m, from
@@ -457,85 +543,137 @@ k2_copy_out(const float* __restrict__ sx, const float* __restrict__ sy,
   }
 }
 
-// k2's bb-wire epilogue (the XLA epilogue of _run_backbone_only,
-// pallas_decode.py:561-570), reading k2_backbone's staged rows in place of
-// k2_copy_out: residue s < seg_m[l] of lane l < nl_out, rows 3s (N), 3s+1
-// (CA), 3s+2 (C) at the scratch column pos[l], becomes
+// The bb wire's Out (the XLA epilogue of _run_backbone_only,
+// pallas_decode.py:561-570): once residue s's C, CA and N are blended,
 //   off[l, s, 0:3] = clip(rint((N - CA) * 10000)), off[l, s, 3:6] the same
 //   for C, as int16 (0.1 mA offsets from CA), and ca[l, s, :] = CA,
-// 24 B a residue in [NL_out, SEG, 6] / [NL_out, SEG, 3]. Pad rows and
-// lanes are left unwritten, as k3 leaves them.
-//
-// A block takes KB_TL = 32 neighbouring lanes and walks their residues
-// KB_TS at a time, one thread per (lane, residue): a warp reads one row of
-// its 32 lanes at their staging columns (neighbouring lanes of one length
-// have neighbouring columns, lane_order being stable), stages the finished
-// rows in shared memory in the output's order, and the block then stores
-// each lane's run of up to KB_TS rows (KB_TS * 12 B of each output) as
-// whole words. Bound: bytes, 36 B in and 24 B out a residue; on an H100
-// at B=8192 it moves 254.8 MB in ~0.127 ms, 60% of that bound (PERF.md
-// §6).
-#define KB_TL 32
-#define KB_TS 8
-#define KB_W (3 * KB_TS + 1)  // words a lane in the stage; odd: no conflicts
+// 24 B a residue in [NL_out, SEG, 6] / [NL_out, SEG, 3]. The rows of a
+// lane are contiguous 12-byte rows of each output, so the thread gathers
+// its lane's residues in runs of KB_RUN = 8 (residues 8R .. 8R+7) in its
+// own slice of shared memory (3 words of off and 3 of ca a residue; the
+// slices KB_WORDS apart, an odd count, so that the threads of a warp hit
+// 32 different banks) and writes a run when its lowest residue is done
+// (the reverse walks down): 96 B of off and 96 B of ca. Where SEG % 4 ==
+// 0 the run starts 16-byte aligned (12 * (l * SEG + 8R) bytes) and goes
+// out as 16-byte stores; with the pack's 8-row bucket (SEG % 8 == 0) it
+// starts 32-byte aligned, so every sector is written whole. A lane's top
+// run (from 8 * floor((rows - 1) / 8)) may be partial: its whole 16-byte
+// chunks, then 4-byte words. Other SEG: 4-byte stores. Rows s >= rows =
+// min(seg_m[l], tat / 3) are left unwritten.
+#define KB_RUN 8
+#define KB_WORDS (6 * KB_RUN + 1)
 
-__global__ void __launch_bounds__(KB_TL * KB_TS)
-k2_bb_out(const float* __restrict__ sx, const float* __restrict__ sy,
-          const float* __restrict__ sz, const int* __restrict__ pos,
-          const int* __restrict__ seg_m, int16_t* __restrict__ off,
-          float* __restrict__ ca, int seg, int nl, int nl_out) {
-  __shared__ uint32_t s_off[KB_TL * KB_W];
-  __shared__ float s_ca[KB_TL * KB_W];
-  __shared__ int s_rows[KB_TL];
-  const int tl = threadIdx.x % KB_TL, ts = threadIdx.x / KB_TL;
-  const int l0 = blockIdx.x * KB_TL, l = l0 + tl;
-  const int rows = l < nl_out ? min(seg_m[l], seg) : 0;
-  if (ts == 0) s_rows[tl] = rows;
-  int most = rows;  // the most rows of the block's lanes, in every warp
-#pragma unroll
-  for (int o = KB_TL / 2; o > 0; o >>= 1)
-    most = max(most, __shfl_xor_sync(0xffffffffu, most, o));
-  const int p = rows > 0 ? pos[l] : 0;
-  for (int s0 = 0; s0 < most; s0 += KB_TS) {
-    const int s = s0 + ts;
-    __syncthreads();  // s_rows is set; the previous run's stores are done
-    if (s < rows) {
-      const V3 n = get_row(sx, sy, sz, 3 * s, nl, p);
-      const V3 a = get_row(sx, sy, sz, 3 * s + 1, nl, p);
-      const V3 c = get_row(sx, sy, sz, 3 * s + 2, nl, p);
-      const float d[6] = {n.x - a.x, n.y - a.y, n.z - a.z,
-                          c.x - a.x, c.y - a.y, c.z - a.z};
-      uint32_t q[3];
-#pragma unroll
-      for (int w = 0; w < 3; ++w) {
-        const float v0 =
-            fminf(fmaxf(rintf(d[2 * w] * 10000.0f), -32767.0f), 32767.0f);
-        const float v1 = fminf(
-            fmaxf(rintf(d[2 * w + 1] * 10000.0f), -32767.0f), 32767.0f);
-        q[w] = (uint32_t)(uint16_t)(int16_t)v0 |
-               ((uint32_t)(uint16_t)(int16_t)v1 << 16);
-      }
-      uint32_t* so = s_off + tl * KB_W + 3 * ts;
-      float* sc = s_ca + tl * KB_W + 3 * ts;
-      so[0] = q[0];
-      so[1] = q[1];
-      so[2] = q[2];
-      sc[0] = a.x;
-      sc[1] = a.y;
-      sc[2] = a.z;
-    }
-    __syncthreads();
-    // lane lc's rows s0 .. s0 + n - 1: 3n words of each output, one run
-    for (int i = threadIdx.x; i < KB_TL * 3 * KB_TS; i += blockDim.x) {
-      const int lc = i / (3 * KB_TS), j = i - lc * (3 * KB_TS);
-      const int n = min(max(s_rows[lc] - s0, 0), KB_TS);
-      if (j < 3 * n) {
-        const size_t dst = ((size_t)(l0 + lc) * seg + s0) * 3 + j;
-        reinterpret_cast<uint32_t*>(off)[dst] = s_off[lc * KB_W + j];
-        ca[dst] = s_ca[lc * KB_W + j];
-      }
+// Offsets a and b as int16 0.1 mA units, a in the low half.
+__device__ __forceinline__ uint32_t bb_pack(float a, float b) {
+  const float v0 = fminf(fmaxf(rintf(a * 10000.0f), -32767.0f), 32767.0f);
+  const float v1 = fminf(fmaxf(rintf(b * 10000.0f), -32767.0f), 32767.0f);
+  return (uint32_t)(uint16_t)(int16_t)v0 |
+         ((uint32_t)(uint16_t)(int16_t)v1 << 16);
+}
+
+struct BbRuns {
+  uint32_t* s;   // this thread's slice: off words [0, 3*KB_RUN), ca after
+  int16_t* off;  // [NL_out, SEG, 6]
+  float* ca;     // [NL_out, SEG, 3]
+  int seg, l, rows;
+
+  // The atoms of residue j = r / 3 come C, CA, N. Each goes to the slice
+  // at once, so that nothing is held in registers across the placements:
+  // C as it is, until CA gives its offsets (C.x - CA.x held in its word
+  // until N comes); then CA; then N's offsets, with CA read back.
+  __device__ __forceinline__ void atom(int k, int r, V3 v) {
+    const int j = r / 3;
+    if (j >= rows) return;
+    uint32_t* o = s + 3 * (j % KB_RUN);
+    uint32_t* a = o + 3 * KB_RUN;
+    if (k == 2) {
+      o[0] = __float_as_uint(v.x);
+      o[1] = __float_as_uint(v.y);
+      o[2] = __float_as_uint(v.z);
+    } else if (k == 1) {
+      const V3 c = v3(__uint_as_float(o[0]), __uint_as_float(o[1]),
+                      __uint_as_float(o[2]));
+      o[1] = __float_as_uint(c.x - v.x);
+      o[2] = bb_pack(c.y - v.y, c.z - v.z);
+      a[0] = __float_as_uint(v.x);
+      a[1] = __float_as_uint(v.y);
+      a[2] = __float_as_uint(v.z);
+    } else {
+      const V3 ca = v3(__uint_as_float(a[0]), __uint_as_float(a[1]),
+                       __uint_as_float(a[2]));
+      o[0] = bb_pack(v.x - ca.x, v.y - ca.y);
+      o[1] = bb_pack(v.z - ca.z, __uint_as_float(o[1]));
     }
   }
+  // a run is written when its lowest residue is staged
+  __device__ __forceinline__ void residue(int j) {
+    if (j < rows && j % KB_RUN == 0) flush(j, min(rows - j, KB_RUN));
+  }
+  // residues s0 .. s0 + m - 1 of the slice: 3m words of each output
+  __device__ __forceinline__ void flush(int s0, int m) {
+    const size_t base = ((size_t)l * seg + s0) * 3;
+    uint32_t* go = reinterpret_cast<uint32_t*>(off) + base;
+    uint32_t* gc = reinterpret_cast<uint32_t*>(ca) + base;
+    const uint32_t* sc = s + 3 * KB_RUN;
+    const int words = 3 * m;
+    const int chunks = (seg & 3) == 0 ? words / 4 : 0;
+#pragma unroll 1
+    for (int q = 0; q < chunks; ++q) {
+      const int w = 4 * q;
+      reinterpret_cast<uint4*>(go)[q] =
+          make_uint4(s[w], s[w + 1], s[w + 2], s[w + 3]);
+      reinterpret_cast<uint4*>(gc)[q] =
+          make_uint4(sc[w], sc[w + 1], sc[w + 2], sc[w + 3]);
+    }
+#pragma unroll 1
+    for (int w = 4 * chunks; w < words; ++w) {
+      go[w] = s[w];
+      gc[w] = sc[w];
+    }
+  }
+};
+
+// k2_backbone_bb, the bb wire in one kernel: the lane walk of k2_backbone
+// (the forward staged in scratch planes, since the reverse reads it back),
+// its blended rows turned into the wire's rows as they come (BbRuns), so
+// neither the 36 B blended rows nor a second pass over them reach device
+// memory; the blend stores 24 B a residue. Lanes l >= nl_out are pack
+// padding: nothing is computed or written for them.
+//
+// Bound: operations, as k2's (the same walk; ~0.097 ms at B=8192 on an
+// H100), with the forward's 36 B a residue written and read back once
+// through L2 and the wire's 24 B stored. It takes ~0.36 ms there, against
+// ~0.40 for k2_backbone and the second kernel this replaces, k2_bb_out
+// (which read the 36 B blended rows back and wrote the 24 B in ~0.127 ms):
+// the walk is latency-bound at 80 registers a thread (6 blocks an SM;
+// capped at 72 it spills and runs slower), and a run's 16-byte stores
+// reach 32 lines a warp store (PERF.md §6).
+__global__ void __launch_bounds__(128)
+k2_backbone_bb(const uint8_t* __restrict__ recs,
+               const float* __restrict__ tails9, const int* __restrict__ prev,
+               const float* __restrict__ fwd9,
+               const uint8_t* __restrict__ is_first,
+               const float* __restrict__ ranc, const int* __restrict__ tat_,
+               const float* __restrict__ mins6,
+               const float* __restrict__ cont6, const int* __restrict__ order,
+               const int* __restrict__ seg_m, int16_t* __restrict__ off,
+               float* __restrict__ ca, float* __restrict__ sx,
+               float* __restrict__ sy, float* __restrict__ sz, int tails_ld,
+               int seg, int nl, int nl_out) {
+  __shared__ uint32_t s_run[128 * KB_WORDS];
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= nl) return;
+  const int l = order[i];
+  if (l >= nl_out) return;
+  const int tat = min(tat_[l], 3 * seg);
+  if (tat < 3) return;
+  Lane ln;
+  lane_init(&ln, recs, mins6, cont6, seg, nl, l);
+  V3 a, b, c;
+  k2_seed(tails9, prev, fwd9, is_first, tails_ld, nl, l, &a, &b, &c);
+  BbRuns out{s_run + threadIdx.x * KB_WORDS, off, ca, seg, l,
+             min(seg_m[l], tat / 3)};
+  k2_lane(ln, a, b, c, ranc, sx, sy, sz, tat, nl, l, i, out);
 }
 
 // k3's tables, derived on the card from the __constant__ ones by
@@ -861,13 +999,36 @@ cudaError_t fd_set_tables(const int* pred32, const float* blen32,
   return e;
 }
 
-// k1 into out [9, NL] with row stride out_ld.
-cudaError_t fd_tails(const uint8_t* recs, const float* seed,
-                     const float* ranc, const int* tat, const float* mins6,
-                     const float* cont6, const int* order, float* out,
-                     int out_ld, int seg, int nl, cudaStream_t stream) {
-  k1_tails<<<blocks_for(nl, 128), 128, 0, stream>>>(
-      recs, seed, ranc, tat, mins6, cont6, order, out, out_ld, seg, nl);
+// k1 over n_cls width classes in one launch. ptrs: 7 a class (recs,
+// seed, ranc, tat, mins6, cont6, order); ints: 4 a class (seg, nl, col0,
+// block0), the classes by block0, which must follow one another with no
+// class empty (fused_decode.py k1_class_table); out [9, *] with row stride
+// out_ld. The table goes to the kernel by value.
+cudaError_t fd_tails(int n_cls, const void* const* ptrs, const int* ints,
+                     float* out, int out_ld, cudaStream_t stream) {
+  if (n_cls < 1 || n_cls > K1_MAX_CLASSES) return cudaErrorInvalidValue;
+  K1Table tab = {};
+  unsigned blocks = 0;
+  for (int k = 0; k < n_cls; ++k) {
+    const void* const* p = ptrs + 7 * k;
+    const int* v = ints + 4 * k;
+    K1Class& c = tab.c[k];
+    c.recs = static_cast<const uint8_t*>(p[0]);
+    c.seed = static_cast<const float*>(p[1]);
+    c.ranc = static_cast<const float*>(p[2]);
+    c.tat = static_cast<const int*>(p[3]);
+    c.mins6 = static_cast<const float*>(p[4]);
+    c.cont6 = static_cast<const float*>(p[5]);
+    c.order = static_cast<const int*>(p[6]);
+    c.seg = v[0];
+    c.nl = v[1];
+    c.col0 = v[2];
+    c.block0 = v[3];
+    if (c.nl < 1 || c.block0 != (int)blocks) return cudaErrorInvalidValue;
+    blocks += blocks_for(c.nl, K1_THREADS);
+  }
+  tab.n = n_cls;
+  k1_tails<<<blocks, K1_THREADS, 0, stream>>>(tab, out, out_ld);
   return cudaGetLastError();
 }
 
@@ -893,34 +1054,22 @@ cudaError_t fd_backbone(const uint8_t* recs, const float* tails9,
   return cudaGetLastError();
 }
 
-// k2_bb_out alone, on rows k2_backbone staged in sx, sy, sz at the columns
-// pos: off [NL_out, SEG, 6] int16, ca [NL_out, SEG, 3] float.
-cudaError_t fd_bb_out(const float* sx, const float* sy, const float* sz,
-                      const int* pos, const int* seg_m, int16_t* off,
-                      float* ca, int seg, int nl, int nl_out,
-                      cudaStream_t stream) {
-  k2_bb_out<<<blocks_for(nl_out, KB_TL), KB_TL * KB_TS, 0, stream>>>(
-      sx, sy, sz, pos, seg_m, off, ca, seg, nl, nl_out);
-  return cudaGetLastError();
-}
-
-// The bb wire: k2_backbone as fd_backbone runs it, then k2_bb_out in place
-// of k2_copy_out, on the stream.
+// The bb wire in one launch of k2_backbone_bb: off [NL_out, SEG, 6]
+// int16, ca [NL_out, SEG, 3] float; sx, sy, sz: [3*SEG, NL] float scratch
+// planes for the forward rows. tails9, prev and tails_ld as fd_backbone.
 cudaError_t fd_backbone_bb(const uint8_t* recs, const float* tails9,
                            const int* prev, const float* fwd9,
                            const uint8_t* is_first, const float* ranc,
                            const int* tat, const float* mins6,
                            const float* cont6, const int* order,
                            const int* seg_m, int16_t* off, float* ca,
-                           float* sx, float* sy, float* sz, int* pos,
-                           int tails_ld, int seg, int nl, int nl_out,
+                           float* sx, float* sy, float* sz, int tails_ld,
+                           int seg, int nl, int nl_out,
                            cudaStream_t stream) {
-  k2_backbone<<<blocks_for(nl, 128), 128, 0, stream>>>(
-      recs, tails9, prev, fwd9, is_first, ranc, tat, mins6, cont6, order, sx,
-      sy, sz, pos, tails_ld, seg, nl);
-  cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return e;
-  return fd_bb_out(sx, sy, sz, pos, seg_m, off, ca, seg, nl, nl_out, stream);
+  k2_backbone_bb<<<blocks_for(nl, 128), 128, 0, stream>>>(
+      recs, tails9, prev, fwd9, is_first, ranc, tat, mins6, cont6, order,
+      seg_m, off, ca, sx, sy, sz, tails_ld, seg, nl, nl_out);
+  return cudaGetLastError();
 }
 
 // k3 on a persistent grid: as many blocks as fit on the device at once,

@@ -1,5 +1,5 @@
 """Fused ragged-lane decode: k1 tails, k2 backbone (the seed roll
-inside), k3 side chains, or on the bb wire k2's 24-byte epilogue.
+inside), k3 side chains, or on the bb wire k2 with its 24-byte epilogue.
 
 Counterpart of foldcomp_tpu/kernels/pallas_decode.py `decode_seg_fused`
 (wire "full" and "bb") and `decode_seg_fused_classes` (width classes):
@@ -10,17 +10,23 @@ kernel has
 - a plain PyTorch version (`*_plain`), operation for operation the Pallas
   kernel's math (the bb epilogue: the XLA epilogue's): the CPU path and
   the CUDA kernel's oracle;
-- a wrapper (`tails`, `backbone`, `backbone_only`, `sidechain`) that runs
-  the plain version for CPU tensors, and for CUDA tensors checks its
-  inputs and launches the hand-written kernel of csrc/fused_decode.cu, or
-  raises. There is no fallback from a CUDA tensor to the plain version;
-- a launch counter (K1_LAUNCHES, K2_LAUNCHES, K2BB_LAUNCHES, K3_LAUNCHES),
-  raised by one where the wrapper launches its kernel and nowhere else.
+- a wrapper (`tails` and `tails_classes`, `backbone`, `backbone_only`,
+  `sidechain`) that runs the plain version for CPU tensors, and for CUDA
+  tensors checks its inputs and launches the hand-written kernel of
+  csrc/fused_decode.cu, or raises. There is no fallback from a CUDA
+  tensor to the plain version;
+- a launch counter, raised by one where the wrapper launches its kernel
+  and nowhere else: K1_LAUNCHES k1_tails (one launch over every width
+  class of a batch), K2_LAUNCHES k2_backbone (with its copy-out, the full
+  wire), K2BB_LAUNCHES k2_backbone_bb (the bb wire's one kernel),
+  K3_LAUNCHES k3_sidechain.
 
 Layouts are lane-minor ([rows, NL]) as in the pack. Nothing here needs
 autograd or randomness.
 """
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -31,7 +37,7 @@ F32 = torch.float32
 
 K1_LAUNCHES = 0
 K2_LAUNCHES = 0
-K2BB_LAUNCHES = 0
+K2BB_LAUNCHES = 0       # the bb call, one kernel: not counted in K2
 K3_LAUNCHES = 0
 
 _C_TO_N = float(T.C_TO_N)
@@ -356,35 +362,91 @@ def _check_out(name, t, dtype, shape, device):
                          f"{tuple(shape)} on {device}, unit stride in a row")
 
 
+# k1's launch (fused_decode.cu k1_tails): K1_THREADS lanes a block, at most
+# K1_MAX_CLASSES width classes in one launch's table
+K1_THREADS = 128
+K1_MAX_CLASSES = 4
+
+
+def k1_class_table(nls, segs):
+    """The class table of one k1 launch over width classes of nls[c] lanes
+    and SEG segs[c] (class c's columns of the shared tails buffer follow
+    the classes before it) -> (entries, blocks): entries (c, col0, block0)
+    for the classes that have lanes, the widest SEG first (ties in class
+    order), block0 the entry's first block, each entry's blocks
+    ceil(nls[c] / K1_THREADS) right after the last's; blocks the grid.
+    Block b belongs to the last entry whose block0 <= b, its thread t to
+    that class's lane order[(b - block0) * K1_THREADS + t] where that is <
+    nls[c], written at column col0 + lane (the kernel's rule)."""
+    cols = [0]
+    for n in nls:
+        cols.append(cols[-1] + int(n))
+    entries, blocks = [], 0
+    for c in sorted((c for c in range(len(nls)) if nls[c] > 0),
+                    key=lambda c: -int(segs[c])):
+        entries.append((c, cols[c], blocks))
+        blocks += -(-int(nls[c]) // K1_THREADS)
+    return entries, blocks
+
+
+def tails_classes(classes, out):
+    """k1 over width classes in one launch: classes, one tuple (recs, seed,
+    ranc, tat, mins6, cont6, order) a class, as `tails` takes them (order
+    None: lane_order(tat)); out, the tails of every class, a [9, NL_total]
+    f32 tensor (rows may be rows of a wider buffer) whose columns are the
+    classes' lanes one class after another. Each class's tails are those
+    `tails` gives for it alone. -> out."""
+    global K1_LAUNCHES
+    nls = [c[0].shape[-1] for c in classes]
+    dev = out.device
+    _check_out("out", out, F32, (9, sum(nls)), dev)
+    for c in classes:
+        if c[0].device != dev:
+            raise ValueError(f"recs: on {c[0].device}, out on {dev}")
+    if dev.type == "cpu":
+        base = 0
+        for (recs, seed, ranc, tat, mins6, cont6, _), nl in zip(classes, nls):
+            out[:, base:base + nl] = tails_plain(recs, n_ca_lengths(recs),
+                                                 seed, ranc, tat, mins6,
+                                                 cont6)
+            base += nl
+        return out
+    lib = _cuda_lib(out)
+    segs, ptrs = [], []
+    for recs, seed, ranc, tat, mins6, cont6, order in classes:
+        if order is None:
+            order = lane_order(tat)
+        seg, _ = _check_lane_inputs(recs, ranc, tat, mins6, cont6, order,
+                                    {"seed": seed})
+        segs.append(seg)
+        ptrs.append(_ptrs(recs, seed, ranc, tat, mins6, cont6, order.perm))
+    entries, _ = k1_class_table(nls, segs)
+    if len(entries) > K1_MAX_CLASSES:
+        raise ValueError(f"{len(entries)} width classes with lanes: k1 takes "
+                         f"at most {K1_MAX_CLASSES} in a launch")
+    if entries:
+        flat_p = [p for c, _, _ in entries for p in ptrs[c]]
+        flat_i = [v for c, col0, b0 in entries
+                  for v in (segs[c], nls[c], col0, b0)]
+        _launch(lib.fd_tails, "k1 tails", dev, len(entries),
+                (ctypes.c_void_p * len(flat_p))(*flat_p),
+                (ctypes.c_int * len(flat_i))(*flat_i), out.data_ptr(),
+                out.stride(0))
+        K1_LAUNCHES += 1
+    return out
+
+
 def tails(recs, seed, ranc, tat, mins6, cont6, order=None, out=None):
     """k1 -> [9, NL] blended tails of the forward scan from `seed` ([9,
     NL] rows atom*3 + comp). The N-CA lengths come from the records (the
     plain version on the CPU takes n_ca_lengths). order (a LaneOrder of
     these lanes): the order the threads walk the lanes in, lane_order(tat)
     when None; it changes no value. out: where to write them, a [9, NL]
-    f32 view whose rows may be rows of a wider buffer (a width class's
-    columns of the tails of every class); None allocates."""
-    global K1_LAUNCHES
-    nl = recs.shape[-1]
-    if out is not None:
-        _check_out("out", out, F32, (9, nl), recs.device)
-    if recs.device.type == "cpu":
-        got = tails_plain(recs, n_ca_lengths(recs), seed, ranc, tat, mins6,
-                          cont6)
-        return got if out is None else out.copy_(got)
-    lib = _cuda_lib(recs)
-    if order is None:
-        order = lane_order(tat)
-    seg, nl = _check_lane_inputs(recs, ranc, tat, mins6, cont6, order,
-                                 {"seed": seed})
+    f32 view whose rows may be rows of a wider buffer; None allocates. One
+    launch of tails_classes with one class."""
     if out is None:
-        out = torch.empty((9, nl), dtype=F32, device=recs.device)
-    if nl:
-        _launch(lib.fd_tails, "k1 tails", recs.device,
-                *_ptrs(recs, seed, ranc, tat, mins6, cont6, order.perm, out),
-                out.stride(0), seg, nl)
-        K1_LAUNCHES += 1
-    return out
+        out = torch.empty((9, recs.shape[-1]), dtype=F32, device=recs.device)
+    return tails_classes([(recs, seed, ranc, tat, mins6, cont6, order)], out)
 
 
 def _k2_inputs(recs, tails9, fwd9, is_first, ranc, tat, mins6, cont6,
@@ -411,22 +473,23 @@ def _k2_inputs(recs, tails9, fwd9, is_first, ranc, tat, mins6, cont6,
 
 
 def _launch_k2(fn, name, lane_args, order, outs, seg, nl, *sizes,
-               prev=None):
-    """Launch a k2 launcher (fd_backbone, fd_backbone_bb): k2_backbone
-    into staging planes at each thread's column, then its second kernel
-    from them into outs (the launcher's tensors between order and the
-    staging planes). The staging planes and each lane's staging column are
-    freed on return, when both kernels are queued: their memory is reused
-    only by work ordered after them on the stream."""
+               prev=None, pos=True):
+    """Launch a k2 launcher (fd_backbone, fd_backbone_bb) with outs (the
+    launcher's tensors between order and the scratch) and [3*SEG, NL] f32
+    scratch planes for the walk's rows, with each lane's scratch column
+    (pos, fd_backbone only) after them. The scratch is freed on return,
+    when the kernels are queued: its memory is reused only by work ordered
+    after them on the stream."""
     recs, tails9, fwd9, is_first, ranc, tat, mins6, cont6 = lane_args
     dev = recs.device
-    scratch = tuple(torch.empty((3 * seg, nl), dtype=F32, device=dev)
-                    for _ in range(3))
-    pos = torch.empty((nl,), dtype=torch.int32, device=dev)
+    scratch = [torch.empty((3 * seg, nl), dtype=F32, device=dev)
+               for _ in range(3)]
+    if pos:
+        scratch.append(torch.empty((nl,), dtype=torch.int32, device=dev))
     tails_ld = nl if tails9 is None else tails9.shape[1]
     _launch(fn, name, dev,
             *_ptrs(recs, tails9, prev, fwd9, is_first, ranc, tat, mins6,
-                   cont6, order.perm, *outs, *scratch, pos), tails_ld, seg,
+                   cont6, order.perm, *outs, *scratch), tails_ld, seg,
             nl, *sizes)
 
 
@@ -469,25 +532,24 @@ def backbone_only(recs, tails9, fwd9, is_first, ranc, tat, mins6, cont6,
     (_run_backbone_only, pallas_decode.py:529-571).
 
     Inputs and seeds as for `backbone`; seg_m (i32 [NL]) the lanes'
-    residue counts. On a CUDA device k2_backbone stages the rows and
-    k2_bb_out writes rows s < seg_m[l] of lanes l < nl_out from them; the
-    other rows of a CUDA result are unspecified. Counted as a launch of k2
-    and of k2_bb. The plain version on the CPU computes every row."""
-    global K2_LAUNCHES, K2BB_LAUNCHES
+    residue counts. On a CUDA device one kernel, k2_backbone_bb, walks the
+    lanes and writes rows s < seg_m[l] of lanes l < nl_out; the other rows
+    of a CUDA result are unspecified. Counted as one launch of k2_bb (not
+    of k2). The plain version on the CPU computes every row."""
+    global K2BB_LAUNCHES
+    _check("seg_m", seg_m, torch.int32, (recs.shape[-1],), recs.device)
     if recs.device.type == "cpu":
         return bb_epilogue_plain(*backbone_rolled_plain(
             recs, tails9, fwd9, is_first, ranc, tat, mins6, cont6), nl_out)
     lane_args = (recs, tails9, fwd9, is_first, ranc, tat, mins6, cont6)
     lib, order, seg, nl = _k2_inputs(*lane_args, order)
     dev = recs.device
-    _check("seg_m", seg_m, torch.int32, (nl,), dev)
     nlo = nl if nl_out is None else min(int(nl_out), nl)
     off = torch.empty((nlo, seg, 6), dtype=torch.int16, device=dev)
     ca = torch.empty((nlo, seg, 3), dtype=F32, device=dev)
     if nlo and seg:
         _launch_k2(lib.fd_backbone_bb, "k2 backbone bb", lane_args, order,
-                   (seg_m, off, ca), seg, nl, nlo)
-        K2_LAUNCHES += 1
+                   (seg_m, off, ca), seg, nl, nlo, pos=False)
         K2BB_LAUNCHES += 1
     return off, ca
 
@@ -602,12 +664,13 @@ def decode_seg_fused_classes(recs_t, mins_t, cont_t, sct_t, fwd_t, rev_t,
     decode_seg_fused_classes): the arrays of batch_host.split_lanes_classes,
     one tuple entry per class, each class at its own SEG.
 
-    k1 runs per class into its columns of one [9, NL_total] tails buffer;
-    then k2 per class seeds lane l from column prev_idx[base_c + l] of that
-    buffer unless isf_t[c][l] (a protein's lanes may lie in different
-    classes), or from its own fwd9 when refine_iters < 2; then k2's copy-out
-    and k3 per class. Per-lane math is that of decode_seg_fused, so the rows
-    are bit-equal lane for lane.
+    k1 runs once over every class (tails_classes) into one [9, NL_total]
+    tails buffer, class c at its columns; then k2 per class seeds lane l
+    from column prev_idx[base_c + l] of that buffer unless isf_t[c][l] (a
+    protein's lanes may lie in different classes), or from its own fwd9
+    when refine_iters < 2; then k2's copy-out and k3 per class. Per-lane
+    math is that of decode_seg_fused, so the rows are bit-equal lane for
+    lane.
 
     Returns JAX's tuple of per-class (off i16 [nl_out_c, SEG_c, 42], ca f32
     [nl_out_c, SEG_c, 3]); each is a view of one flat pair (off [rows, 42],
@@ -633,11 +696,10 @@ def decode_seg_fused_classes(recs_t, mins_t, cont_t, sct_t, fwd_t, rev_t,
         bases.append(bases[-1] + p["recs"].shape[2])
     tails_g = None
     if refine_iters >= 2:
-        tails_g = torch.empty((9, bases[-1]), dtype=F32, device=dev)
-        for i, p in enumerate(prs):
-            tails(p["recs"], p["fwd9"], p["rev9"], p["tat"], p["mins6"],
-                  p["cont6"], order=orders[i],
-                  out=tails_g[:, bases[i]:bases[i + 1]])
+        tails_g = tails_classes(
+            [(p["recs"], p["fwd9"], p["rev9"], p["tat"], p["mins6"],
+              p["cont6"], orders[i]) for i, p in enumerate(prs)],
+            torch.empty((9, bases[-1]), dtype=F32, device=dev))
     for i, p in enumerate(prs):
         prev = None if tails_g is None else \
             prev_idx[bases[i]:bases[i + 1]]

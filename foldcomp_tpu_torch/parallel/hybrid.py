@@ -21,7 +21,7 @@ and the mop-up). What differs:
 
 - the device streams run the port's pipeline on an explicit `device`
   (None: the CUDA card): `_device_decompress` on codec/batch.py
-  decode_fcz_stream (k1, k2, k3, or k1, k2 and k2_bb_out on the bb wire),
+  decode_fcz_stream (k1, k2, k3, or k1 and k2_backbone_bb on the bb wire),
   `_device_compress` on encode_submit/encode_finish (the fused encode
   kernel), whose flushes are not padded: the kernel takes any batch;
 - a device-stream failure is reported as an error: the mop-up still
