@@ -40,9 +40,11 @@ non-zero:
    which the bench's e2e databases share);
 6. main path: the same CLI entry point in this process with the kernel
    launch counters reset just before and read just after, and the decode
-   calls counted: at least one batch must have taken width classes, k1
-   must have launched once a batch, and k2 and k3 each once a
-   single-class batch and once a class of each classed batch;
+   calls counted: a batch must have taken width classes exactly where
+   the auto rule splits one of the batches the stream forms
+   (bench_routing.lane_batches replays them; at cli.FAST_BATCH none of
+   this corpus's), k1 must have launched once a batch, and k2 and k3 each
+   once a single-class batch and once a class of each classed batch;
 7. encode_kernels: the fused encode kernel (k4 with the epilogue) against
    its plain version, parity_tail(merged_plain(...)), on the same inputs:
    a mixed 256-entry batch of the 8 lengths by the compact wire and by the
@@ -80,8 +82,10 @@ non-zero:
    with the launch counters around it: k1 and k2_bb must have launched,
    k2 and k3 not;
 12. db_jobs, the database jobs through the hybrid CPU + GPU scheduler
-   (after phase 11's CLI parts, on phase 5's database, with -t T,
-   T = min(8, CPU count)): `warmup` in a subprocess with HOME in a scratch
+   (after phase 11's CLI parts, with -t T, T = min(8, CPU count), on a
+   database of cli.FAST_DEFAULT_MIN + 1 entries, phase 5's draw extended,
+   the least a no-flag db job routes to the scheduler): `warmup` in a
+   subprocess with HOME in a scratch
    directory (its estimate only in .cache/foldcomp_tpu_torch/); then
    `decompress <db> <out> --db` with no flag in a subprocess twice, the
    guard as shipped (reading the warmup's estimate) and with
@@ -122,9 +126,9 @@ non-zero:
    classes in one launch beside the same kernel launched once a class;
    each class's k1, k2 and k3 and the glue; the launches of a batch (k1
    once); then phase 5's
-   `decompress --fast` again with FOLDCOMP_TPU_WCLASS=0, 0 and auto (the
-   modes alternate with phase 5's auto run), every output byte-identical
-   to phase 5's;
+   `decompress --fast` again with FOLDCOMP_TPU_WCLASS=1, 0 and 1 (after
+   phase 5's auto run: the classed route through the CLI, which auto does
+   not take at cli.FAST_BATCH), every output byte-identical to phase 5's;
 15. bench, the port's bench and its single-device entry:
    `python3 -m foldcomp_tpu_torch.bench --quick` in a subprocess, its one
    line parsed, every key of bench.KEYS present, the parity check passed
@@ -132,7 +136,21 @@ non-zero:
    size); then dryrun.entry() on the card, bit-equal on the rows each lane
    owns to the same entry through the plain versions on the card, and
    within 1 i16 unit and 1e-3 A of them on the CPU (torch's CPU and CUDA
-   sin and cos differ by ulps, so the two devices are not bit-equal).
+   sin and cos differ by ulps, so the two devices are not bit-equal);
+16. routing, the routing constants on this card (cli.FAST_DEFAULT_MIN,
+   FAST_BATCH and fast_batch_size's steps, batch_host._WCLASS_MIN_LANES
+   and _WCLASS_MIN_SAVE, hybrid.COLD_HORIZON_S; `python3 -m
+   foldcomp_tpu_torch.bench --routing` measures them): with no
+   FOLDCOMP_TPU_* setting, fast_batch_size() under the link probe's real
+   answer is the step for its rate; a no-flag `decompress <dir> <out>
+   --db` of FAST_DEFAULT_MIN + 1 .fcz files in a subprocess takes the
+   device route on an ok link (its [Info] line; k1, and k2 and k3 or
+   k2_bb, launched in its process), 64 sampled outputs held to phase 5's
+   bound;
+   pack_decode_wire on one batch of FAST_BATCH entries takes width
+   classes only where the auto rule's lane count and savings say; and
+   EndgameGuard.cold_horizon() in a fresh process with no warmup file is
+   COLD_HORIZON_S.
 
 Then the kernel summary (each kernel's launches on the main path, its
 largest difference from its plain version, its time and its plain
@@ -151,6 +169,7 @@ device or outside a checkout of the repository.
     python3 chip_smoke.py --multi-device
                                         phases 1 and 13, no last line
     python3 chip_smoke.py --bench       phases 1 and 15, no last line
+    python3 chip_smoke.py --routing     phases 1 and 16, no last line
     python3 chip_smoke.py --ptxas F.cu  also the ptxas report of another
                                         source (an older k3, say) in phase 1
 """
@@ -265,7 +284,7 @@ K4_FLOPS_PER_RES = {"wire": 42 * 21, "cosines": 3 * 131 + 3 * 83 + 24,
                     "tails": 3 * 28 + 3 * 24, "side_chains": 11 * (61 + 25),
                     "sweeps": 6 * (8 + 6 + 29)}
 K4_OUT_BYTES_PER_SLOT = 8 + 1 + 2 + 11 + 2
-ENC_BATCH = 2048        # one CLI batch (cli.FAST_BATCH)
+ENC_BATCH = 2048        # the encode batch phases 9 and 13 time
 E2E_FILES = 4096
 
 
@@ -1575,16 +1594,17 @@ def class_device(dev, card, uniq, err, entries=8192):
 
 def wclass_cli(db, out_auto, names, card, auto_wall):
     """Phase 14, CLI: `decompress --fast` on phase 5's database in a
-    subprocess with FOLDCOMP_TPU_WCLASS=0, =0 again and =auto, so that with
-    phase 5's run (auto) the modes alternate auto, 0, 0, auto; every output
-    of every run byte-identical, by name, to phase 5's."""
+    subprocess with FOLDCOMP_TPU_WCLASS=1, =0 and =1 again, so that with
+    phase 5's run (auto, which at cli.FAST_BATCH splits no batch of this
+    corpus) the modes run auto, 1, 0, 1; every output of every run
+    byte-identical, by name, to phase 5's."""
     from foldcomp_tpu_torch.bench import read_entries
     want = {nm: data for nm, data in read_entries(out_auto).values()}
     if len(want) != len(names):
         raise AssertionError(f"phase 5 wrote {len(want)} of {len(names)}")
-    walls = {"auto": [auto_wall], "0": []}
-    differ = {"auto": 0, "0": 0}
-    for mode in ("0", "0", "auto"):
+    walls = {"auto": [auto_wall], "0": [], "1": []}
+    differ = {"auto": 0, "0": 0, "1": 0}
+    for mode in ("1", "0", "1"):
         env = dict(os.environ, PYTHONPATH=str(REPO),
                    FOLDCOMP_TPU_WCLASS=mode)
         env.pop("FOLDCOMP_TORCH_DEVICE", None)
@@ -1604,26 +1624,32 @@ def wclass_cli(db, out_auto, names, card, auto_wall):
         for p in out.parent.glob(out.name + "*"):
             p.unlink()
     emit("wclass", part="e2e", gpu=card, entries=len(names),
-         command="FOLDCOMP_TPU_WCLASS=0|auto python -m foldcomp_tpu_torch "
+         command="FOLDCOMP_TPU_WCLASS=0|1 python -m foldcomp_tpu_torch "
                  "decompress --fast <db> <out> --db",
-         order=["auto", "0", "0", "auto"], wall_seconds=walls,
+         order=["auto", "1", "0", "1"], wall_seconds=walls,
          outputs_compared=len(names), outputs_differing=differ)
     if any(differ.values()):
-        raise AssertionError(f"WCLASS=0 vs auto: outputs differ {differ}")
+        raise AssertionError(f"WCLASS=0|1 vs auto: outputs differ {differ}")
 
 
-def db_jobs(work, db, picks, uniq, card, fast_wall, pdb_gate):
+def db_jobs(work, uniq, card, pdb_gate):
     """Phase 12: warmup, then db -> db decompress and compress through the
     hybrid CPU + GPU scheduler (no flag) against the exact route (the
     decompressed entries held by phase 5's `pdb_gate`), then each mode in
-    this process with the launch counters around it.
+    this process with the launch counters around it, on a database of
+    cli.FAST_DEFAULT_MIN + 1 entries (phase 5's draw, extended): a no-flag
+    db job of fewer runs on native workers only.
     -> {"decompress": launch counts, "compress": launch counts}."""
     import torch
 
-    from foldcomp_tpu_torch import cli
+    from foldcomp_tpu_torch import bench, cli
     from foldcomp_tpu_torch.bench import read_entries
     from foldcomp_tpu_torch.kernels import fused_decode as FD
     from foldcomp_tpu_torch.kernels import fused_encode as FE
+
+    picks = bench.draw_lengths(cli.FAST_DEFAULT_MIN + 1, seed=1)
+    db = work / "fcz_db_hybrid"
+    bench.write_fcz_db(db, uniq, picks)
 
     threads = min(8, os.cpu_count() or 1)
     residues = sum(uniq[n].n_residue for n in picks)
@@ -1696,7 +1722,7 @@ def db_jobs(work, db, picks, uniq, card, fast_wall, pdb_gate):
              entries=len(got), device_entries=n_dev,
              not_identical_to_exact=len(differ),
              worst_dev_over_ref_A=worst, exact_route_wall_seconds=exact_wall,
-             fast_wall_seconds=fast_wall, threads=threads, gpu=card)
+             threads=threads, gpu=card)
         for q in work.glob(out.name + "*"):
             q.unlink()
 
@@ -1867,6 +1893,147 @@ def bench_phase(card):
                              f"plain version: {diffs}")
 
 
+# a no-flag decompress in a subprocess; then the launch counters of its
+# process (phase 16)
+_ROUTED_CHILD = """\
+import json, sys
+from foldcomp_tpu_torch import cli
+from foldcomp_tpu_torch.kernels import fused_decode as FD
+rc = cli.main(sys.argv[1:])
+print(json.dumps({"rc": rc, "launches": FD.launch_counts()}))
+"""
+
+
+def routing(card, uniq):
+    """Phase 16: the routing constants on this card, with no FOLDCOMP_TPU_*
+    setting. fast_batch_size() under the probe's real answer is its step
+    for that rate (cli.FAST_BATCH on a healthy link); a no-flag
+    `decompress <dir> <out> --db` of cli.FAST_DEFAULT_MIN + 1 .fcz files
+    (a directory in, so run_decompress routes it, and one database out)
+    in a subprocess takes the device route where the probe finds an ok link
+    (its [Info] line, k1, k2 and k3 or k2_bb launched), 64 sampled outputs
+    held to phase 5's bound; pack_decode_wire on the first batch of
+    cli.FAST_BATCH entries of phase 5's draw, as the stream sorts it,
+    takes classes only where the auto rule's lane count and savings say;
+    EndgameGuard.cold_horizon() in a fresh process with no warmup file is
+    hybrid.COLD_HORIZON_S."""
+    from foldcomp_tpu_torch import bench, cli
+    from foldcomp_tpu_torch.codec import batch as CB
+    from foldcomp_tpu_torch.codec import batch_host as BH
+    from foldcomp_tpu_torch.codec.decoder import decode as decode_exact
+    from foldcomp_tpu_torch.codec.fcz import serialize
+    from foldcomp_tpu_torch.parallel import hybrid
+
+    t_start = time.perf_counter()
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith("FOLDCOMP_TPU_")
+           and k != "FOLDCOMP_TORCH_DEVICE"}
+    env["PYTHONPATH"] = str(REPO)
+    saved = {k: os.environ.pop(k) for k in list(os.environ)
+             if k.startswith("FOLDCOMP_TPU_")}
+    try:
+        link, mbs = cli._probe_info()
+        bsz = cli.fast_batch_size()
+    finally:
+        os.environ.update(saved)
+    step = (cli.FAST_BATCH if mbs >= 1000.0 else 512 if mbs >= 300.0
+            else cli._SLOW_LINK_BATCH) if link == "ok" \
+        else cli._SLOW_LINK_BATCH
+    if bsz != step:
+        raise AssertionError(f"fast_batch_size() {bsz} at {link} {mbs} "
+                             f"MB/s, the table's step {step}")
+
+    work = pathlib.Path(tempfile.mkdtemp(prefix=".chip_smoke_", dir=REPO))
+    try:
+        n = cli.FAST_DEFAULT_MIN + 1
+        picks = bench.draw_lengths(n, seed=1)
+        src, out = work / "fczs", work / "pdb_db"
+        src.mkdir()
+        blobs = {x: serialize(f) for x, f in uniq.items()}
+        for i, x in enumerate(picks):
+            (src / f"e{i}_L{x}.fcz").write_bytes(blobs[x])
+        t0 = time.perf_counter()
+        r = subprocess.run([sys.executable, "-c", _ROUTED_CHILD,
+                            "decompress", str(src), str(out), "--db"],
+                           cwd=str(REPO), env=env, capture_output=True,
+                           text=True, timeout=600)
+        wall = time.perf_counter() - t0
+        try:
+            rec = json.loads(r.stdout.strip().splitlines()[-1])
+        except (IndexError, json.JSONDecodeError):
+            rec = {"rc": None, "launches": {}}
+        if r.returncode != 0 or rec["rc"] != 0:
+            raise AssertionError(f"no-flag decompress rc {r.returncode}: "
+                                 f"{r.stderr[-4000:]}")
+        info = [ln for ln in r.stderr.splitlines() if ln.startswith("[Info]")]
+        device = any("GPU detected (link ok)" in ln for ln in info)
+        # the count, then 64 entries drawn as PdbGate draws them, read
+        # alone (the whole output is ~2.7 GB)
+        from foldcomp_tpu_torch.io.db import DatabaseReader
+        reader = DatabaseReader(str(out))
+        try:
+            keys = [reader.get_key(p) for p in range(len(reader))]
+            got = {k: (reader.name_of_key(k), bytes(reader.get_data(p)))
+                   for p, k in sorted(random.Random(2).sample(
+                       list(enumerate(keys)), min(64, len(keys))))}
+        finally:
+            reader.close()
+        if len(keys) != n:
+            raise AssertionError(f"no-flag decompress wrote {len(keys)} of "
+                                 f"{n}")
+        gate = bench.PdbGate({x: decode_exact(f) for x, f in uniq.items()})
+        bad, worst = gate.check("no-flag decompress", got)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    lc = rec["launches"]
+    launched = lc.get("k1", 0) > 0 and (
+        lc.get("k2_bb", 0) > 0 or (lc.get("k2", 0) > 0 and lc.get("k3", 0) > 0))
+    if bad or device != (link == "ok") or device != launched:
+        raise AssertionError(f"no-flag decompress of {n}: probe {link}, "
+                             f"[Info] {info}, launches {lc}, {bad[:3]}")
+
+    batch = sorted((uniq[x] for x in bench.draw_lengths(E2E_FILES, seed=1)),
+                   key=BH.seg_sort_key)[:cli.FAST_BATCH]
+    lanes = sum(f.n_anchor - 1 for f in batch)
+    saved = os.environ.pop("FOLDCOMP_TPU_WCLASS", None)
+    try:
+        arrays, _ = CB.pack_decode_wire(batch, False)
+    finally:
+        if saved is not None:
+            os.environ["FOLDCOMP_TPU_WCLASS"] = saved
+    classed = "classes" in arrays
+    if lanes < BH._WCLASS_MIN_LANES and classed:
+        raise AssertionError(f"{lanes} lanes < {BH._WCLASS_MIN_LANES}: "
+                             "the auto rule took classes")
+    if lanes >= BH._WCLASS_MIN_LANES and classed != (
+            BH.split_lanes_classes(*BH.pack_decode_batch_lanes(batch),
+                                   min_save=BH._WCLASS_MIN_SAVE) is not None):
+        raise AssertionError("the auto rule against its savings gate")
+
+    with tempfile.TemporaryDirectory() as home:
+        h = subprocess.run(
+            [sys.executable, "-c", "from foldcomp_tpu_torch.parallel.hybrid "
+             "import EndgameGuard as G; print(G.cold_horizon())"],
+            cwd=str(REPO), env=dict(env, HOME=home), capture_output=True,
+            text=True, timeout=120)
+    horizon = float(h.stdout.strip().splitlines()[-1]) \
+        if h.returncode == 0 and h.stdout.strip() else None
+    emit("routing", gpu=card, probe={"link": link, "mbs": mbs},
+         fast_batch_size=bsz, fast_batch=cli.FAST_BATCH,
+         no_flag={"files": n, "fast_default_min": cli.FAST_DEFAULT_MIN,
+                  "route": "device" if device else "native", "info": info,
+                  "launches": lc, "wall_seconds": wall, "sampled": 64,
+                  "worst_dev_over_ref_A": worst},
+         pack={"entries": len(batch), "lanes": lanes,
+               "min_lanes": BH._WCLASS_MIN_LANES,
+               "min_save": BH._WCLASS_MIN_SAVE, "classes": classed},
+         cold_horizon={"got": horizon, "default": hybrid.COLD_HORIZON_S},
+         seconds=time.perf_counter() - t_start)
+    if horizon != hybrid.COLD_HORIZON_S:
+        raise AssertionError(f"cold_horizon() {horizon}, default "
+                             f"{hybrid.COLD_HORIZON_S}: {h.stderr[-2000:]}")
+
+
 def main(argv=None) -> int:
     import argparse
     ap = argparse.ArgumentParser(description="Smoke run of "
@@ -1885,6 +2052,9 @@ def main(argv=None) -> int:
                          "line")
     ap.add_argument("--bench", action="store_true",
                     help="phases 1 and 15 only; no kernel line, no last "
+                         "line")
+    ap.add_argument("--routing", action="store_true",
+                    help="phases 1 and 16 only; no kernel line, no last "
                          "line")
     ap.add_argument("--ptxas", metavar="SRC",
                     help="also report ptxas resource use of this CUDA "
@@ -1940,6 +2110,9 @@ def main(argv=None) -> int:
         return 0
     if args.bench:
         bench_phase(card)
+        return 0
+    if args.routing:
+        routing(card, bench.mixed_corpus(BENCH_LENGTHS))
         return 0
 
     t0 = time.perf_counter()
@@ -2017,14 +2190,13 @@ def main(argv=None) -> int:
              command="python -m foldcomp_tpu_torch decompress --fast "
                      "<db> <out> --db",
              sampled=64, worst_dev_over_ref_A=worst)
-        fast_wall = wall
         if not args.db_jobs:
             # ---- 14. width classes through the CLI ----
             wclass_cli(db, out, names, card, wall)
         for p in work.glob(out.name + "*"):     # data file + index files
             p.unlink()
         if args.db_jobs:
-            db_jobs(work, db, picks, uniq, card, fast_wall, pdb_gate)
+            db_jobs(work, uniq, card, pdb_gate)
             return 0
 
         # ---- 6. the main path, launch counters around it ----
@@ -2067,13 +2239,24 @@ def main(argv=None) -> int:
         expect = {"k1": calls["single"] + len(calls["classes"]),
                   "k2": calls["single"] + sum(calls["classes"])}
         expect["k3"] = expect["k2"]
+        # the batches the stream formed, replayed: which the auto rule
+        # splits (its lane count and savings share)
+        from foldcomp_tpu_torch import bench_routing
+        from foldcomp_tpu_torch.codec import batch_host as BH
+        replay = bench_routing.lane_batches([uniq[x] for x in picks],
+                                            cli.fast_batch_size())
+        split = sum(lanes >= BH._WCLASS_MIN_LANES
+                    and saved >= BH._WCLASS_MIN_SAVE
+                    for lanes, saved in replay)
         emit("main_path", rc=rc, launches=counts, wall_seconds=wall,
              residues_per_s=e2e_res / wall, gpu=card,
              batches={"single_class": calls["single"],
                       "classed": len(calls["classes"]),
-                      "classes": calls["classes"]},
+                      "classes": calls["classes"],
+                      "classed_by_the_rule": split,
+                      "lanes": [lanes for lanes, _ in replay]},
              launches_expected=expect)
-        if rc != 0 or not calls["classes"] or \
+        if rc != 0 or len(calls["classes"]) != split or \
                 not all(counts[k] == n for k, n in expect.items()):
             raise AssertionError(f"main path rc {rc}, launches {counts}, "
                                  f"decode calls {calls}")
@@ -2084,7 +2267,7 @@ def main(argv=None) -> int:
         counts["k2_bb"] = bb_cli(work, db, names, card, hold)["k2_bb"]
 
         # ---- 12. the database jobs through the hybrid scheduler ----
-        db_jobs(work, db, picks, uniq, card, fast_wall, pdb_gate)
+        db_jobs(work, uniq, card, pdb_gate)
         shutil.rmtree(work, ignore_errors=True)
         work.mkdir()
 
@@ -2105,6 +2288,9 @@ def main(argv=None) -> int:
     # ---- 15. the port's bench and its single-device entry ----
     torch.cuda.empty_cache()
     bench_phase(card)
+
+    # ---- 16. the routing constants on this card ----
+    routing(card, uniq)
 
     # no single PyTorch call computes any of these: library_ms is null
     print(json.dumps({"kernels": [

@@ -4,6 +4,7 @@ The counterpart of the repository's bench.py.
 
     python3 -m foldcomp_tpu_torch.bench [--quick] [--device cuda|cpu]
                                         [--out-dir DIR]
+    python3 -m foldcomp_tpu_torch.bench --routing ...   (bench_routing.py)
 
 Prints ONE JSON line (and nothing else on stdout). `--device cpu` runs the
 plain PyTorch versions on the CPU: the line names its device, and a CPU
@@ -1144,9 +1145,24 @@ def main(argv=None) -> int:
                          "CPU")
     ap.add_argument("--out-dir", help="where the e2e databases go (default: "
                                       "the temporary directory)")
+    ap.add_argument("--routing", action="store_true",
+                    help="the routing sweeps instead (bench_routing.py): a "
+                         "JSON line a sweep, then the decisions' line")
+    ap.add_argument("--sweeps", default="ahbcde",
+                    help="with --routing: the sweeps to run, letters of "
+                         "ahbcde (default all)")
+    ap.add_argument("--from", dest="from_files", nargs="+", metavar="FILE",
+                    help="with --routing: print the decisions from the "
+                         "sweep lines saved in these files, running nothing")
     args = ap.parse_args(argv)
     from .backend import DeviceUnavailable
     try:
+        if args.routing:
+            from . import bench_routing as R
+            if args.from_files:
+                return R.from_files(args.from_files)
+            return R.run(args.device, R.QUICK if args.quick else R.FULL,
+                         args.sweeps, args.out_dir)
         return run(args.device, QUICK if args.quick else FULL, args.out_dir,
                    quick=args.quick)
     except DeviceUnavailable as e:

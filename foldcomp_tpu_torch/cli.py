@@ -27,9 +27,12 @@ over files, directories, tars and databases. `compress --fast` and
 mirroring _run_compress_fast / _run_decompress_fast (:467-606, :675-716).
 `warmup` (:1110-1208) has another job here: the port has no compile
 cache, so it builds and loads the CUDA kernel library and runs one batch
-of each device path (run_warmup). The constants that the JAX package set
-on its TPU link (FAST_DEFAULT_MIN, _FAST_MIN_LINK_MBS, the probe's TTLs,
-fast_batch_size's steps) are carried unchanged.
+of each device path (run_warmup). The routing constants are the port's
+own: FAST_DEFAULT_MIN and FAST_BATCH were measured on an H100 by
+`python3 -m foldcomp_tpu_torch.bench --routing` (bench_routing.py), and
+each comment gives the figures and the JAX value it replaced; the probe's
+TTLs, _FAST_MIN_LINK_MBS and the steps for slower links are kept, each
+comment says why.
 """
 from __future__ import annotations
 
@@ -490,15 +493,42 @@ def _compress_write(sink, sink_kind, output, fname, blob, parts):
         sink.write(base_name(out_name), blob)
 
 
-# Device batch sizes by the link probe's D2H rate, the JAX package's steps
-# (foldcomp_tpu/cli.py:825-846, set on its TPU link): FAST_BATCH from
-# 1000 MB/s, 512 from 300 MB/s, else _SLOW_LINK_BATCH (the JAX package's
-# FAST_BATCH). FOLDCOMP_TPU_BATCH overrides.
-FAST_BATCH = 2048
+# Device batch sizes by the link probe's D2H rate, in the JAX package's
+# steps (foldcomp_tpu/cli.py:825-846): FAST_BATCH from 1000 MB/s, 512 from
+# 300 MB/s, else _SLOW_LINK_BATCH. FOLDCOMP_TPU_BATCH overrides.
+# FAST_BATCH is the batch with the best `decompress --fast` wall whose
+# peak RSS stays under 8 GB, where `compress --fast` is no slower than at
+# 2048 (`bench --routing` sweep b: bench.e2e's 4,096-entry databases,
+# medians of 3 rounds; NVIDIA H100 80GB HBM3, 700.00 W): decompress 15.91,
+# 16.73, 18.20, 17.42 and 16.90 s at B = 512, 1024, 2048, 4096 and 8192
+# (8192 is one batch of all 4,096), 14.31, 15.58, 17.08, 16.67 and 16.33 s
+# without width classes; compress 22.69, 22.53, 27.93, 28.37 and 28.62 s;
+# peak RSS 7.74 GB at every batch (compress 7.74-7.95 GB), peak device
+# memory 0.17 GB at 512 and 0.47 GB at 2048. The host stages set the wall,
+# and smaller batches overlap them better. The JAX value, 2048, came from
+# its TPU's fused decode, whose rate rose through B=4096 on that chip.
+# The 512 and _SLOW_LINK_BATCH steps serve links an H100 host does not
+# produce (it probes 1,063-2,323 MB/s): kept as the JAX package's, and
+# blocked on a slow link to measure (ROADMAP queue 1 item 7).
+FAST_BATCH = 512
 _SLOW_LINK_BATCH = 128
-# batch-decompress jobs larger than this default to the device path when
-# a card is present and its link is "ok" (foldcomp_tpu/cli.py:659)
-FAST_DEFAULT_MIN = 1024
+# A no-flag batch decompress of more than FAST_DEFAULT_MIN entries takes
+# the device route when the probe finds a card on an "ok" link
+# (run_decompress), and a no-flag db -> db job of more goes to the hybrid
+# scheduler (_hybrid_applicable). The rule: the smallest N at which the
+# device route, with the probe's cache cold, beats `--exact -t 1` (the
+# default -t), else the largest N measured. `bench --routing` sweep a, a
+# directory of N .fcz files of the mixed corpus, medians of 3 rounds
+# (NVIDIA H100 80GB HBM3, 700.00 W): `--exact -t 1` 5.17, 8.04, 14.59 and
+# 30.19 s at N = 1024, 2048, 4096 and 8192 against `--fast` cold 21.35,
+# 22.85, 33.06 and 45.86 s (warm 12.10, 16.30, 26.35, 29.30): no N
+# qualifies, so the no-flag route stays native up to the largest size
+# measured. `--exact -t 8` (3.55 s at 2048) beats both at every N; a rule
+# that reads -t is a new rule and not the JAX package's (ROADMAP). The
+# JAX value, 1024 (foldcomp_tpu/cli.py:657-659), amortized a JAX import
+# and first compile on its TPU; here a fresh device process pays the
+# ~6.5 s torch import and a cold probe another ~8.7 s.
+FAST_DEFAULT_MIN = 8192
 
 
 # The link probe (foldcomp_tpu/cli.py:719-818), measured with torch. A
@@ -507,6 +537,9 @@ FAST_DEFAULT_MIN = 1024
 # decode wire (codec/batch.py use_bb_wire), the device batch size
 # (fast_batch_size), whether a large batch decompress goes to the device
 # (run_decompress) and whether a db -> db job runs a device stream (main).
+# _FAST_MIN_LINK_MBS is the JAX package's (foldcomp_tpu/cli.py:723), kept
+# and blocked: an H100 host probes 1,063-2,323 MB/s, so a slow link to
+# measure on is needed to re-derive it (ROADMAP queue 1 item 7).
 _FAST_MIN_LINK_MBS = 100.0
 
 _PROBE_CODE = """\
@@ -533,6 +566,15 @@ except Exception:
     print("slow 0")
 """
 
+# How long the probe's answer is trusted: the JAX package's TTLs
+# (foldcomp_tpu/cli.py:760-761), kept, since they measure how fast a
+# link's state goes stale, not the card's speed. On an NVIDIA H100 80GB
+# HBM3 (700.00 W) a probe costs 7.55-9.74 s, median 8.73 s (`bench
+# --routing` sweep e), paid inside the wall of the job that finds the
+# cache stale: `--fast` on 1,024-8,192 files ran 6.55-16.56 s slower with
+# the cache cold (sweep a). Only at 8,192 files does that decide the
+# route's race with `--exact -t 1`, and by medians inside the spreads
+# (warm 29.30 s, spread 18.74, against 30.19 s).
 _PROBE_TTL_S = 600.0
 _PROBE_NONE_TTL_S = 120.0
 

@@ -74,7 +74,10 @@ DEVICE_WARMED = False
 
 # below ~this D2H rate the full-atom wire (96 B/res) bounds the e2e wall
 # and the host side-chain pass is cheaper than the saved transfer; above
-# it the full wire is effectively free (foldcomp_tpu/codec/batch.py:752-756)
+# it the full wire is effectively free (foldcomp_tpu/codec/batch.py:752-756,
+# the JAX package's band). Kept, and blocked: an H100 host probes
+# 1,063-2,323 MB/s, so re-deriving the band needs a slow link to measure
+# both wires on (ROADMAP queue 1 item 7).
 _BB_WIRE_MAX_MBS = 200.0
 _BB_WIRE_MIN_MBS = 5.0
 

@@ -475,19 +475,29 @@ def use_wclass() -> str:
     """Width-classed decode mode from FOLDCOMP_TPU_WCLASS: "1" always (at
     min_save 0.15), "0" never, "auto" (the default, any other value) for
     batches of at least _WCLASS_MIN_LANES real lanes whose classes save at
-    least _WCLASS_MIN_SAVE of the padded lane rows.
-
-    foldcomp_tpu/codec/batch.py:733-750. There "auto" guards against
-    compile storms (every class composition is its own jit signature); the
-    CUDA kernels take any shape and compile once, so that reason does not
-    hold here. The rule and its constants are carried unchanged so that
-    both packages route a batch the same way."""
+    least _WCLASS_MIN_SAVE of the padded lane rows. The modes and the
+    rule's form are foldcomp_tpu/codec/batch.py:733-750's; the lane count
+    is the port's own (below)."""
     import os
     v = os.environ.get("FOLDCOMP_TPU_WCLASS", "auto")
     return v if v in ("0", "1") else "auto"
 
 
-_WCLASS_MIN_LANES = 4096
+# The auto rule splits only batches measured faster split. `bench
+# --routing` sweep c (`decompress --fast` on bench.e2e's 4,096-entry
+# database, WCLASS 0 and 1, medians of 3 rounds; NVIDIA H100 80GB HBM3,
+# 700.00 W) found no batch size where the split was faster by more than
+# the spread: 14.31 against 14.31 s at B=512 (batches of 3,588-19,808
+# lanes), 15.10 against 15.58 at 1024 and 16.54 against 17.08 at 2048
+# (spreads 3.5-10.2 s), and slower at 4096 and 8192 (one batch of 84,225
+# lanes: 18.41 and 18.99 against 16.67 and 16.33 s; the split alone
+# 0.84-1.41 s). So the lane count sits above the largest batch measured,
+# 84,225 lanes, rounded up to 1,024: auto splits no batch the port forms
+# at FAST_BATCH (512 entries), and FOLDCOMP_TPU_WCLASS=1 still takes
+# classes. The JAX value, 4096, guarded against jit compile storms on its
+# TPU (every class composition is its own program); the CUDA kernels take
+# any shape. _WCLASS_MIN_SAVE stays the JAX package's 0.2.
+_WCLASS_MIN_LANES = 84992
 _WCLASS_MIN_SAVE = 0.2
 
 

@@ -108,6 +108,19 @@ class ChunkController:
             return struct.unpack(self._FMT, fh.read(16))
 
 
+# The guard's cold horizon with no warmup file and no setting (see
+# EndgameGuard.cold_horizon): the median of the guard's own time to its
+# first completion in fresh processes with no warmup file, rounded up to
+# 0.5 s. `bench --routing` sweep d, the no-flag db job at -t 1 on 16,385
+# entries of the mixed corpus (NVIDIA H100 80GB HBM3, 700.00 W): 8.43,
+# 9.10, 12.33 and 12.44 s in the four processes the device stream joined
+# (the fifth, its guard at 5.0 s, kept the device out), median 10.71 s.
+# The JAX value, 5.0 s (foldcomp_tpu/parallel/hybrid.py:176-180), was a
+# default for its TPU's first program; a fresh process here pays the
+# ~6.5 s torch import before its first batch.
+COLD_HORIZON_S = 11.0
+
+
 class EndgameGuard:
     """Paces the device stream's chunk claims.
 
@@ -129,8 +142,8 @@ class EndgameGuard:
       grace for the CPU workers to establish a rate, then claims cold
       only while the CPUs' remaining time exceeds the device's expected
       warm-up — a PERSISTED measurement of time-to-first-completion from
-      previous runs on this host (default 5 s, override/force with
-      FOLDCOMP_TPU_WARMUP_EST);
+      previous runs on this host (default COLD_HORIZON_S,
+      override/force with FOLDCOMP_TPU_WARMUP_EST);
     - endgame: claim another chunk only if the device can drain its
       current backlog PLUS that chunk before the CPU workers run out of
       other work. (Round 4: the previous rule compared one chunk's time
@@ -190,7 +203,7 @@ class EndgameGuard:
             with open(cls._warmup_path()) as fh:
                 return max(float(json.load(fh)["warmup_s"]), 0.0)
         except Exception:  # noqa: BLE001 — no cache yet / unreadable
-            return 5.0
+            return COLD_HORIZON_S
 
     def finalize(self):
         """Persist the measured time-to-first-completion so the NEXT

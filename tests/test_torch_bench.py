@@ -27,6 +27,7 @@ from foldcomp_tpu.codec import batch as tpu_batch
 from foldcomp_tpu.codec import fcz as tpu_fcz
 from foldcomp_tpu_torch import bench
 from foldcomp_tpu_torch.codec import fcz as port_fcz
+from foldcomp_tpu_torch.parallel.hybrid import COLD_HORIZON_S
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
 TINY = bench.Sizes(reps=1, bandwidth_mib=1, decode_batches=(16,),
@@ -110,8 +111,9 @@ def test_tiny_run_prints_every_key(monkeypatch, capsys, tmp_path):
     assert line["e2e_hybrid_device_entries"] == {
         "decompress": [], "compress": [], "of": 16}
     # the guard's default: neither the caller's file nor its setting
-    assert line["e2e_hybrid_warmup_est_s"] == {"decompress": [5.0, 5.0],
-                                               "compress": [5.0, 5.0]}
+    h = COLD_HORIZON_S
+    assert line["e2e_hybrid_warmup_est_s"] == {"decompress": [h, h],
+                                               "compress": [h, h]}
 
 
 def test_failed_decode_gate_nulls_its_rates(monkeypatch, capsys, tmp_path):
@@ -154,7 +156,8 @@ def test_paired_ratio_runs_both_routes(tmp_path):
     assert env["HOME"] == str(tmp_path / "home")
     r, horizons = bench.paired_ratio(env, "decompress", str(db),
                                      str(tmp_path / "o"), "2", 1)
-    assert math.isfinite(r) and r > 0 and horizons == [5.0, 5.0]
+    assert math.isfinite(r) and r > 0 and \
+        horizons == [COLD_HORIZON_S] * 2
     assert len(bench.read_entries(tmp_path / "o")) == 16
 
 

@@ -46,6 +46,9 @@ REPO = pathlib.Path(__file__).resolve().parents[1]
 LENGTHS = (120, 200)          # lengths of tests/data/torch_port_ref_dev.json
 N_ENTRIES = 48
 PRINT_SLACK_A = 5e-4          # 3-decimal PDB coordinates
+# the routing constants as measured on the H100 (cli.py, parallel/hybrid.py)
+ROUTING_RECORDED = {"FAST_DEFAULT_MIN": 8192, "FAST_BATCH": 512,
+                    "COLD_HORIZON_S": 11.0}
 
 
 # ---------------------------------------------------------------- fixtures
@@ -326,7 +329,7 @@ def test_guard_persists_its_own_warmup_file(tmp_path, monkeypatch):
     monkeypatch.setattr(port_batch, "DEVICE_WARMED", False)
     ctrl = ChunkController.create(str(tmp_path / "ctrl"), 100)
     g = EndgameGuard(ctrl, 64, 512, lambda: done["n"])
-    assert g.warmup_est == 5.0
+    assert g.warmup_est == hybrid.COLD_HORIZON_S
     assert EndgameGuard._warmup_path() == str(
         home / ".cache" / "foldcomp_tpu_torch" / "device_warmup.json")
     done["n"] = 512
@@ -751,9 +754,62 @@ def test_fast_default(case, fcz_dir, corpus, tmp_path, monkeypatch, capsys):
             ref[n] + verify.REF_DEV_SLACK_A + PRINT_SLACK_A
 
 
+@pytest.mark.parametrize("above", [False, True],
+                         ids=["fast_default_min", "fast_default_min_plus_1"])
+def test_fast_default_min_boundary(above, corpus, tmp_path, monkeypatch,
+                                   capsys):
+    """A no-flag batch decompress of FAST_DEFAULT_MIN entries stays on the
+    native path; one of FAST_DEFAULT_MIN + 1 takes the device route, with
+    the link probe's answer (_probe_info) an ok H100-like link. The
+    constant is set to 4 here to keep the job small."""
+    assert cli.FAST_DEFAULT_MIN == ROUTING_RECORDED["FAST_DEFAULT_MIN"]
+    monkeypatch.setenv("FOLDCOMP_TORCH_DEVICE", "cpu")
+    monkeypatch.setattr(cli, "_probe_info", lambda: ("ok", 2300.0))
+    monkeypatch.setattr(cli, "FAST_DEFAULT_MIN", 4)
+    src = tmp_path / "fczs"
+    src.mkdir()
+    n = 4 + above
+    for i in range(n):
+        (src / f"p{i}_L{_length_of(i)}.fcz").write_bytes(
+            serialize(corpus[_length_of(i)]))
+    streams = []
+    real_stream = port_batch.decode_fcz_stream
+    monkeypatch.setattr(port_batch, "decode_fcz_stream",
+                        lambda *a, **k: streams.append(k["batch_size"])
+                        or real_stream(*a, **k))
+    out = tmp_path / "out"
+    assert cli.main(["decompress", str(src), str(out)]) == 0
+    err = capsys.readouterr().err
+    assert streams == ([cli.FAST_BATCH] if above else [])
+    assert ("[Info] GPU detected (link ok)" in err) is above
+    assert len(list(out.iterdir())) == n
+    from foldcomp_tpu_torch.native import decode_fcz_pdb_native
+    for p in src.iterdir():
+        got = (out / (p.stem + ".pdb")).read_bytes()
+        want = decode_fcz_pdb_native(p.read_bytes(), as_bytes=True)
+        assert (got == want) or above
+
+
+def test_cold_horizon_default(tmp_path, monkeypatch):
+    """With no warmup file, no FOLDCOMP_TPU_WARMUP_EST and no device batch
+    completed in this process, the guard's cold horizon is
+    COLD_HORIZON_S, the H100's measured value."""
+    monkeypatch.setenv("HOME", str(tmp_path / "home"))
+    monkeypatch.delenv("FOLDCOMP_TPU_WARMUP_EST", raising=False)
+    monkeypatch.setattr(port_batch, "DEVICE_WARMED", False)
+    assert EndgameGuard.cold_horizon() == hybrid.COLD_HORIZON_S == \
+        ROUTING_RECORDED["COLD_HORIZON_S"]
+    ctrl = ChunkController.create(str(tmp_path / "ctrl"), 4)
+    assert EndgameGuard(ctrl, 64, 512, lambda: 0).warmup_est == \
+        hybrid.COLD_HORIZON_S
+
+
 def test_fast_batch_size_follows_the_probe(monkeypatch, tmp_path):
-    """FOLDCOMP_TPU_BATCH first; else 2048 from 1000 MB/s, 512 from 300,
-    128 below or on a link that is not ok (foldcomp_tpu/cli.py:825-846)."""
+    """FOLDCOMP_TPU_BATCH first; else FAST_BATCH (512, the H100's
+    measured batch) from 1000 MB/s, 512 from 300, 128 below or on a link
+    that is not ok: the JAX package's steps (foldcomp_tpu/cli.py:825-846)
+    with the port's own FAST_BATCH."""
+    assert cli.FAST_BATCH == ROUTING_RECORDED["FAST_BATCH"]
     monkeypatch.setenv("FOLDCOMP_TPU_BATCH", "77")
     assert cli.fast_batch_size() == 77
     monkeypatch.delenv("FOLDCOMP_TPU_BATCH")
@@ -766,7 +822,7 @@ def test_fast_batch_size_follows_the_probe(monkeypatch, tmp_path):
     monkeypatch.setenv("TMPDIR", str(tmp_path))
     monkeypatch.setattr(tempfile, "tempdir", None)
     cache = tmp_path / f"foldcomp_tpu_torch_probe_{os.getuid()}.json"
-    for result, mbs, want in (("ok", 2300.0, 2048), ("ok", 999.0, 512),
+    for result, mbs, want in (("ok", 2300.0, 512), ("ok", 999.0, 512),
                               ("ok", 300.0, 512), ("ok", 120.0, 128),
                               ("slow", 2300.0, 128)):
         cache.write_text(json.dumps(dict(ts=time.time(), result=result,

@@ -47,6 +47,7 @@ from foldcomp_tpu_torch.codec import encoder as port_encoder
 from foldcomp_tpu_torch.codec import fcz as port_fcz
 from foldcomp_tpu_torch.io import db as port_db
 from foldcomp_tpu_torch.io import pdb as port_pdb
+from foldcomp_tpu_torch.parallel.hybrid import COLD_HORIZON_S
 from foldcomp_tpu_torch.verify import on_milli_grid, synthesize
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
@@ -244,7 +245,7 @@ def test_process_workers_import_no_torch(tmp_path, corpus):
     r = subprocess.run([sys.executable, "-c", _WORKER_RUN, str(tmp_path)],
                        env=env, capture_output=True, text=True, timeout=600)
     assert r.returncode == 0, r.stdout + r.stderr
-    assert r.stdout.split() == ["[0,", "0]", "5.0", "[]"]
+    assert r.stdout.split() == ["[0,", "0]", str(COLD_HORIZON_S), "[]"]
     reader = port_db.DatabaseReader(str(tmp_path / "out_hybrid"))
     try:
         got = {k: bytes(d) for k, _, d in reader.entries()}

@@ -120,7 +120,13 @@ def test_split_matches_jax(case, mixed, bench128):
         assert gm.n_residue == wm.n_residue and gm.res_base == wm.res_base
 
 
+# the auto rule's constants as measured on the H100 (batch_host.py)
+WCLASS_RECORDED = (84992, 0.2)
+
+
 def test_use_wclass_modes(monkeypatch):
+    """The modes are the JAX package's; the auto rule's lane count and
+    savings share are the port's own, the values its comment records."""
     for v, want in (("0", "0"), ("1", "1"), ("auto", "auto"),
                     ("yes", "auto")):
         monkeypatch.setenv("FOLDCOMP_TPU_WCLASS", v)
@@ -128,7 +134,32 @@ def test_use_wclass_modes(monkeypatch):
     monkeypatch.delenv("FOLDCOMP_TPU_WCLASS")
     assert H.use_wclass() == "auto"
     assert (H._WCLASS_MIN_LANES, H._WCLASS_MIN_SAVE) == \
-        (tpu_batch._WCLASS_MIN_LANES, tpu_batch._WCLASS_MIN_SAVE)
+        (B._WCLASS_MIN_LANES, B._WCLASS_MIN_SAVE) == WCLASS_RECORDED
+
+
+@pytest.mark.parametrize("below", [False, True],
+                         ids=["at_min_lanes", "below_min_lanes"])
+def test_auto_rule_lane_threshold(below, monkeypatch, mixed):
+    """pack_decode_wire under auto splits a batch whose real lanes reach
+    _WCLASS_MIN_LANES and not one a lane short of it, and the PDB text is
+    the same bytes either way. The threshold is set to the batch's own
+    lane count (or one more), and the savings share off, to keep the
+    batch small."""
+    monkeypatch.delenv("FOLDCOMP_TPU_WCLASS", raising=False)
+    lanes = sum(f.n_anchor - 1 for f in mixed)
+    monkeypatch.setattr(B, "_WCLASS_MIN_SAVE", -100.0)
+    texts = {}
+    for thr in (lanes + below, 10 ** 9):
+        monkeypatch.setattr(B, "_WCLASS_MIN_LANES", thr)
+        arrays, metas = B.pack_decode_wire(mixed, False)
+        outs = B._outs_to_host(B._seg_decode_arrays(
+            B.arrays_to_torch(arrays, "cpu")))
+        texts[thr] = ("classes" in arrays,
+                      [t for _, t in H._format_batch(mixed, metas, outs,
+                                                     False)])
+    assert texts[lanes + below][0] is not below
+    assert texts[10 ** 9][0] is False
+    assert texts[lanes + below][1] == texts[10 ** 9][1]
 
 
 _JAX_CACHE = {}
