@@ -9,7 +9,9 @@ non-zero:
 
 1. setup: the card, the toolchain, and the build of the CUDA kernels
    (kernels/csrc/fused_decode.cu and fused_encode.cu, one nvcc each, then
-   one link) from this checkout, with each kernel's ptxas report and the
+   one link) from this checkout into the port's user cache
+   (<backend.cache_dir()>/kernels/; the path printed whole), with each
+   kernel's ptxas report and the
    float instructions of one step of k1's loop from its SASS (the count
    of a sincosf in every decode kernel's bound);
 2. kernels: k1, k2 and k3 against their plain PyTorch versions on the
@@ -86,7 +88,9 @@ non-zero:
    database of cli.FAST_DEFAULT_MIN + 1 entries, phase 5's draw extended,
    the least a no-flag db job routes to the scheduler): `warmup` in a
    subprocess with HOME in a scratch
-   directory (its estimate only in .cache/foldcomp_tpu_torch/); then
+   directory (its estimate only in .cache/foldcomp_tpu_torch/, beside the
+   kernel library this process built, linked in by build.seed_cache, as
+   phases 15 and 16 link it into their children's caches); then
    `decompress <db> <out> --db` with no flag in a subprocess twice, the
    guard as shipped (reading the warmup's estimate) and with
    FOLDCOMP_TPU_WARMUP_EST=0 (eager claims), beside `--exact -t T`: every
@@ -150,7 +154,22 @@ non-zero:
    pack_decode_wire on one batch of FAST_BATCH entries takes width
    classes only where the auto rule's lane count and savings say; and
    EndgameGuard.cold_horizon() in a fresh process with no warmup file is
-   COLD_HORIZON_S.
+   COLD_HORIZON_S;
+17. cache, the port's user cache (after phase 12, on phase 5's database):
+   a copy of foldcomp_tpu_torch/ and native/ in a scratch directory, its
+   libfcio.so pre-built there (the JAX package's rule), every step a
+   fresh process importing that copy with HOME and
+   FOLDCOMP_TPU_TORCH_CACHE in scratch directories: `decompress --fast`
+   on an empty cache (rc 0, k1, k2 and k3 launched, phase 5's hold, the
+   library in <cache>/kernels/) and again warm (no build, the same bytes);
+   four `warmup` commands at once on another empty cache, nvcc wrapped to
+   count its runs (one build: one nvcc a source and one link); that
+   library overwritten with 4 KiB of garbage (one rebuild, the same
+   bytes), then nvcc a stub that fails and garbage at its library's name
+   (exit 1, KernelBuildError, no output); FOLDCOMP_TPU_TORCH_CACHE=0 (a
+   temporary library, gone with the process, nothing kept under HOME);
+   the copy's package tree (names, sizes, mtimes) unchanged by every
+   step.
 
 Then the kernel summary (each kernel's launches on the main path, its
 largest difference from its plain version, its time and its plain
@@ -170,6 +189,7 @@ device or outside a checkout of the repository.
                                         phases 1 and 13, no last line
     python3 chip_smoke.py --bench       phases 1 and 15, no last line
     python3 chip_smoke.py --routing     phases 1 and 16, no last line
+    python3 chip_smoke.py --cache       phases 1, 5 and 17, no last line
     python3 chip_smoke.py --ptxas F.cu  also the ptxas report of another
                                         source (an older k3, say) in phase 1
 """
@@ -1643,7 +1663,9 @@ def db_jobs(work, uniq, card, pdb_gate):
     import torch
 
     from foldcomp_tpu_torch import bench, cli
+    from foldcomp_tpu_torch.backend import cache_dir
     from foldcomp_tpu_torch.bench import read_entries
+    from foldcomp_tpu_torch.kernels import build
     from foldcomp_tpu_torch.kernels import fused_decode as FD
     from foldcomp_tpu_torch.kernels import fused_encode as FE
 
@@ -1656,8 +1678,10 @@ def db_jobs(work, uniq, card, pdb_gate):
     home = work / "home"
     home.mkdir()
     env = dict(os.environ, PYTHONPATH=str(REPO), HOME=str(home))
-    for k in ("FOLDCOMP_TORCH_DEVICE", "FOLDCOMP_TPU_WARMUP_EST"):
+    for k in ("FOLDCOMP_TORCH_DEVICE", "FOLDCOMP_TPU_WARMUP_EST",
+              "FOLDCOMP_TPU_TORCH_CACHE"):
         env.pop(k, None)
+    seeded = pathlib.Path(build.seed_cache(env))
     link, mbs = cli._probe_info()
     emit("db_jobs", part="setup", threads=threads, cpu_count=os.cpu_count(),
          probe=link, probe_mbs=mbs, batch_size=cli.fast_batch_size(),
@@ -1684,17 +1708,19 @@ def db_jobs(work, uniq, card, pdb_gate):
             raise AssertionError(f"no device stream: {err[-2000:]}")
         return info[0], int(info[1].split("finished ")[1].split()[0])
 
-    # -- warmup, its estimate in the port's own file only
+    # -- warmup, its estimate in the port's own cache only (beside the
+    # kernel library seeded there)
     wall, r = run(["warmup", str(db)])
-    wfile = home / ".cache" / "foldcomp_tpu_torch" / "device_warmup.json"
+    wfile = pathlib.Path(cache_dir(env)) / "device_warmup.json"
     warmup_s = json.loads(wfile.read_text())["warmup_s"]
     strays = sorted(str(q.relative_to(home)) for q in home.rglob("*")
-                    if q.is_file() and q != wfile)
-    if (home / ".cache" / "foldcomp_tpu_jax").exists() or strays:
-        raise AssertionError(f"warmup wrote {strays}")
+                    if q.is_file() and q not in (wfile, seeded))
+    lines = r.stdout.strip().splitlines()
+    if (home / ".cache" / "foldcomp_tpu_jax").exists() or strays or \
+            "(built in " in lines[-2] or str(wfile) not in lines[-1]:
+        raise AssertionError(f"warmup wrote {strays}: {lines[-2:]}")
     emit("db_jobs", part="warmup", wall_seconds=wall, warmup_s=warmup_s,
-         file=str(wfile.relative_to(home)),
-         line=r.stdout.strip().splitlines()[-1], gpu=card)
+         file=str(wfile.relative_to(home)), lines=lines[-2:], gpu=card)
 
     # -- decompress: the exact route, then the hybrid as shipped and eager
     want_keys = {i: f"e{i}_L{n}" for i, n in enumerate(picks)}
@@ -1832,11 +1858,14 @@ def bench_phase(card):
 
     from foldcomp_tpu_torch import bench
     from foldcomp_tpu_torch.dryrun import entry
+    from foldcomp_tpu_torch.kernels import build
 
     work = pathlib.Path(tempfile.mkdtemp(prefix=".chip_smoke_", dir=REPO))
     try:
         env = dict(os.environ, PYTHONPATH=str(REPO), HOME=str(work))
         env.pop("FOLDCOMP_TORCH_DEVICE", None)
+        env.pop("FOLDCOMP_TPU_TORCH_CACHE", None)
+        build.seed_cache(env)
         t0 = time.perf_counter()
         r = subprocess.run(
             [sys.executable, "-m", "foldcomp_tpu_torch.bench", "--quick",
@@ -1922,6 +1951,7 @@ def routing(card, uniq):
     from foldcomp_tpu_torch.codec import batch_host as BH
     from foldcomp_tpu_torch.codec.decoder import decode as decode_exact
     from foldcomp_tpu_torch.codec.fcz import serialize
+    from foldcomp_tpu_torch.kernels import build
     from foldcomp_tpu_torch.parallel import hybrid
 
     t_start = time.perf_counter()
@@ -1929,6 +1959,7 @@ def routing(card, uniq):
            if not k.startswith("FOLDCOMP_TPU_")
            and k != "FOLDCOMP_TORCH_DEVICE"}
     env["PYTHONPATH"] = str(REPO)
+    build.seed_cache(env)
     saved = {k: os.environ.pop(k) for k in list(os.environ)
              if k.startswith("FOLDCOMP_TPU_")}
     try:
@@ -2034,6 +2065,260 @@ def routing(card, uniq):
                              f"{hybrid.COLD_HORIZON_S}: {h.stderr[-2000:]}")
 
 
+_CACHE_CHILD = """\
+import json, sys
+import foldcomp_tpu_torch
+from foldcomp_tpu_torch import cli
+from foldcomp_tpu_torch.kernels import build
+from foldcomp_tpu_torch.kernels import fused_decode as FD
+rc = cli.main(sys.argv[1:])
+print(json.dumps({"rc": rc, "launches": FD.launch_counts(),
+                  "build_seconds": build.BUILD_SECONDS,
+                  "library": build.library_path(),
+                  "package": foldcomp_tpu_torch.__file__}))
+"""
+
+
+def tree_listing(root):
+    """{path under root: (size, mtime_ns)} of every file under root."""
+    return {str(q.relative_to(root)): (q.stat().st_size, q.stat().st_mtime_ns)
+            for q in sorted(root.rglob("*")) if q.is_file()}
+
+
+def file_digest(*paths):
+    import hashlib
+    h = hashlib.sha256()
+    for p in paths:
+        with open(p, "rb") as fh:
+            while chunk := fh.read(1 << 24):
+                h.update(chunk)
+    return h.hexdigest()
+
+
+def cache_phase(work, db, names, card, hold):
+    """Phase 17: the port's user cache (kernels/build.py,
+    backend.cache_dir), from a copy of the package in a scratch "site"
+    directory (foldcomp_tpu_torch/ and native/, no kernels/build/; its
+    libfcio.so pre-built there by native.get_lib(), the JAX package's
+    rule), every step in fresh subprocesses that import that copy, with
+    HOME and FOLDCOMP_TPU_TORCH_CACHE in scratch directories and no other
+    FOLDCOMP_TPU_* setting. Each runs cli.main as `python -m
+    foldcomp_tpu_torch` does, on phase 5's database, and prints its launch
+    counts and build.BUILD_SECONDS. (2) `decompress --fast` on an empty
+    cache: rc 0, k1, k2 and k3 launched, phase 5's hold, the library in
+    <cache>/kernels/; (3) the same on the warm cache: no build, the same
+    library file, the same output bytes; (4) four `warmup` commands
+    started together on another empty cache, nvcc a wrapper that counts
+    its runs: one process built, nvcc ran once a source and once to link;
+    (5) that library overwritten with 4 KiB of garbage, then `decompress
+    --fast`: one rebuild (nvcc's runs again), the same output bytes; then
+    nvcc a stub that exits 1 and a garbage library at its name: exit 1,
+    KernelBuildError's text, no output; (6) FOLDCOMP_TPU_TORCH_CACHE=0:
+    the library builds in a temporary directory that is gone after the
+    process, nothing under HOME, the same output bytes. After every step
+    the site's package tree (names, sizes, mtimes) is as listed before
+    the first."""
+    from foldcomp_tpu_torch import cli
+    from foldcomp_tpu_torch.backend import nvcc_path
+    from foldcomp_tpu_torch.kernels import build
+
+    t_start = time.perf_counter()
+    work = work / "cache_phase"          # apart from phase 12's files
+    work.mkdir()
+    site = work / "site"
+    skip = shutil.ignore_patterns("build", "__pycache__")
+    shutil.copytree(REPO / "foldcomp_tpu_torch", site / "foldcomp_tpu_torch",
+                    ignore=skip)
+    shutil.copytree(REPO / "native", site / "native", ignore=skip)
+    base = {k: v for k, v in os.environ.items()
+            if not k.startswith("FOLDCOMP_TPU_")
+            and k != "FOLDCOMP_TORCH_DEVICE"}
+    base.update(PYTHONPATH=str(site), PYTHONDONTWRITEBYTECODE="1")
+    pkg = site / "foldcomp_tpu_torch"
+    r = subprocess.run(
+        [sys.executable, "-c", "import foldcomp_tpu_torch as p; "
+         "from foldcomp_tpu_torch import native; "
+         "assert native.get_lib() is not None; print(p.__file__)"],
+        cwd=str(work), env=base, capture_output=True, text=True,
+        timeout=300)
+    if r.returncode != 0 or not r.stdout.strip().startswith(str(pkg)):
+        raise AssertionError(f"site copy: {r.stdout[-500:]} "
+                             f"{r.stderr[-2000:]}")
+    listing = tree_listing(pkg)
+    # the link probe's answer cached in TMPDIR, which the children share:
+    # no step pays a cold probe
+    saved = os.environ.pop("FOLDCOMP_TPU_LINK", None)
+    try:
+        probe = cli._probe_info()
+    finally:
+        if saved is not None:
+            os.environ["FOLDCOMP_TPU_LINK"] = saved
+    emit("cache", step="site", files=len(listing),
+         libfcio="kernels/build/libfcio.so" in listing, probe=probe,
+         gpu=card)
+
+    def scratch(name):
+        d = work / name
+        d.mkdir()
+        return d
+
+    def child(args, env, expect_rc=0):
+        """One fresh process through _CACHE_CHILD. -> (wall, its record,
+        its stderr)."""
+        t0 = time.perf_counter()
+        r = subprocess.run([sys.executable, "-c", _CACHE_CHILD, *args],
+                           cwd=str(work), env=env, capture_output=True,
+                           text=True, timeout=600)
+        wall = time.perf_counter() - t0
+        try:
+            rec = json.loads(r.stdout.strip().splitlines()[-1])
+        except (IndexError, json.JSONDecodeError):
+            rec = {"rc": None}
+        if r.returncode != 0 or rec["rc"] != expect_rc or \
+                not rec["package"].startswith(str(pkg)):
+            raise AssertionError(f"{args[:2]} rc {r.returncode}/{rec['rc']}"
+                                 f": {r.stderr[-4000:]}")
+        if tree_listing(pkg) != listing:
+            raise AssertionError(f"{args[:2]} changed the package tree")
+        return wall, rec, r.stderr
+
+    out = work / "pdb_db_cache"
+
+    def outputs_digest():
+        return file_digest(out, f"{out}.index", f"{out}.lookup")
+
+    def decompress(env, expect_rc=0):
+        for q in work.glob(out.name + "*"):
+            q.unlink()
+        return child(["decompress", "--fast", str(db), str(out), "--db"],
+                     env, expect_rc)
+
+    def launched(rec):
+        lc = rec["launches"]
+        if not all(lc.get(k, 0) > 0 for k in ("k1", "k2", "k3")):
+            raise AssertionError(f"launches {lc}")
+        return lc
+
+    # -- 2. a cold cache
+    cache = work / "cache"
+    env = dict(base, HOME=str(scratch("home")),
+               FOLDCOMP_TPU_TORCH_CACHE=str(cache))
+    cold, rec, _ = decompress(env)
+    lib = pathlib.Path(rec["library"])
+    if rec["build_seconds"] is None or lib.parent != cache / "kernels" or \
+            not lib.is_file():
+        raise AssertionError(f"cold: {rec}")
+    worst = hold(out, names)
+    digest = outputs_digest()
+    emit("cache", step="cold", wall_seconds=cold,
+         build_seconds=rec["build_seconds"], launches=launched(rec),
+         library=str(lib), library_bytes=lib.stat().st_size,
+         package_unchanged=True, worst_dev_over_ref_A=worst, gpu=card)
+
+    # -- 3. the same cache, warm
+    inode = lib.stat().st_ino
+    warm, rec, _ = decompress(env)
+    if rec["build_seconds"] is not None or rec["library"] != str(lib) or \
+            lib.stat().st_ino != inode or \
+            outputs_digest() != digest:
+        raise AssertionError(f"warm: {rec}")
+    emit("cache", step="warm", wall_seconds=warm, build_seconds=None,
+         launches=launched(rec), cold_less_warm_seconds=cold - warm,
+         outputs_identical=True, gpu=card)
+
+    # -- 4. four processes on a cold cache, nvcc counting its runs
+    runs = work / "nvcc_runs"
+    wrap = scratch("cuda_count") / "bin"
+    wrap.mkdir()
+    (wrap / "nvcc").write_text(f"#!/bin/sh\necho run >> {runs}\n"
+                               f"exec {os.path.realpath(nvcc_path())} "
+                               '"$@"\n')
+    (wrap / "nvcc").chmod(0o755)
+    cache4 = work / "cache4"
+    env4 = dict(base, HOME=str(scratch("home4")), CUDA_HOME=str(wrap.parent),
+                FOLDCOMP_TPU_TORCH_CACHE=str(cache4))
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "foldcomp_tpu_torch", "warmup", str(db)],
+        cwd=str(work), env=env4, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True) for _ in range(4)]
+    try:
+        outs = [p.communicate(timeout=600) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    contended = time.perf_counter() - t0
+    if any(p.returncode != 0 for p in procs) or \
+            tree_listing(pkg) != listing:
+        raise AssertionError(f"warmup x4: {[e[-2000:] for _, e in outs]}")
+    built = [o for o, _ in outs if "(built in " in o]
+    n_nvcc = runs.read_text().count("run")
+    libs4 = sorted((cache4 / "kernels").glob(build.PREFIX + "*.so"))
+    if len(built) != 1 or n_nvcc != len(build.SOURCES) + 1 or \
+            len(libs4) != 1:
+        raise AssertionError(f"warmup x4: {len(built)} built, nvcc ran "
+                             f"{n_nvcc} times, libraries {libs4}")
+    build_s = float(built[0].split("(built in ")[1].split("s)")[0])
+    emit("cache", step="contended", processes=4, how="warmup commands",
+         built_by=len(built), nvcc_runs=n_nvcc, build_seconds=build_s,
+         wall_seconds=contended,
+         lines=[o.strip().splitlines() for o, _ in outs], gpu=card)
+
+    # -- 5. a broken library: rebuilt once; a failing rebuild raises
+    libs4[0].write_bytes(bytes(range(256)) * 16)
+    broken, rec, _ = decompress(env4)
+    n_re = runs.read_text().count("run") - n_nvcc
+    if rec["build_seconds"] is None or n_re != len(build.SOURCES) + 1 or \
+            outputs_digest() != digest:
+        raise AssertionError(f"garbage library: {rec}, nvcc {n_re}")
+    emit("cache", step="broken", wall_seconds=broken,
+         build_seconds=rec["build_seconds"], nvcc_runs=n_re,
+         launches=launched(rec), outputs_identical=True, gpu=card)
+    stub = scratch("cuda_stub") / "bin"
+    stub.mkdir()
+    (stub / "nvcc").write_text("#!/bin/sh\necho stub nvcc: exit 1\n"
+                               "exit 1\n")
+    (stub / "nvcc").chmod(0o755)
+    env5 = dict(env4, CUDA_HOME=str(stub.parent))
+    r = subprocess.run(
+        [sys.executable, "-c", "from foldcomp_tpu_torch.kernels import "
+         "build; print(build.library_path())"], cwd=str(work), env=env5,
+        capture_output=True, text=True, timeout=120)
+    bad_lib = pathlib.Path(r.stdout.strip())
+    bad_lib.parent.mkdir(parents=True, exist_ok=True)
+    bad_lib.write_bytes(bytes(range(256)) * 16)
+    _, rec, err = decompress(env5, expect_rc=1)
+    error = [ln for ln in err.splitlines() if "KernelBuildError" in ln]
+    left = sorted(q.name for q in work.glob(out.name + "*"))
+    if not error or "did not load" not in err or \
+            "stub nvcc: exit 1" not in err or left:
+        raise AssertionError(f"failing rebuild: {err[-3000:]}, {left}")
+    emit("cache", step="rebuild_fails", rc=rec["rc"], error=error[0][:300],
+         outputs=left, gpu=card)
+
+    # -- 6. the cache off
+    home6 = scratch("home6")
+    env6 = dict(base, HOME=str(home6), FOLDCOMP_TPU_TORCH_CACHE="0")
+    off, rec, _ = decompress(env6)
+    tmp_lib = pathlib.Path(rec["library"])
+    under_home = sorted(str(q.relative_to(home6)) for q in home6.rglob("*"))
+    kept = [q for q in under_home if "foldcomp_tpu_torch" in q
+            or q.endswith("device_warmup.json") or build.PREFIX in q]
+    if rec["build_seconds"] is None or tmp_lib.parent.exists() or kept or \
+            outputs_digest() != digest:
+        raise AssertionError(f"cache off: {rec}, under HOME {under_home}")
+    for q in work.glob(out.name + "*"):
+        q.unlink()
+    emit("cache", step="off", wall_seconds=off,
+         build_seconds=rec["build_seconds"], launches=launched(rec),
+         temporary_library=str(tmp_lib), removed=True,
+         under_home=under_home,
+         outputs_identical=True, gpu=card,
+         phase_seconds=time.perf_counter() - t_start)
+
+
 def main(argv=None) -> int:
     import argparse
     ap = argparse.ArgumentParser(description="Smoke run of "
@@ -2056,6 +2341,9 @@ def main(argv=None) -> int:
     ap.add_argument("--routing", action="store_true",
                     help="phases 1 and 16 only; no kernel line, no last "
                          "line")
+    ap.add_argument("--cache", action="store_true",
+                    help="phases 1, 5 and 17 only; no kernel line, no last "
+                         "line")
     ap.add_argument("--ptxas", metavar="SRC",
                     help="also report ptxas resource use of this CUDA "
                          "source, compiled with the build's flags")
@@ -2070,7 +2358,7 @@ def main(argv=None) -> int:
         return 2
     sys.path.insert(0, str(REPO))
     from foldcomp_tpu_torch import bench, cli, verify
-    from foldcomp_tpu_torch.backend import describe
+    from foldcomp_tpu_torch.backend import cache_dir, describe
     from foldcomp_tpu_torch.codec.decoder import decode as decode_exact
     from foldcomp_tpu_torch.kernels import build
     from foldcomp_tpu_torch.kernels import fused_decode as FD
@@ -2090,7 +2378,7 @@ def main(argv=None) -> int:
     global SINCOS_OPS
     step = k1_step_sass(path)
     SINCOS_OPS = (step["float_instructions"] - K1_STEP_OTHER_OPS) / 6
-    emit("setup", describe=desc, library=os.path.relpath(path, REPO),
+    emit("setup", describe=desc, library=path, cache=cache_dir(),
          nvcc_seconds=build.BUILD_SECONDS,
          build_and_load_seconds=time.perf_counter() - t0,
          nvcc_flags=" ".join(build.NVCC_FLAGS),
@@ -2121,7 +2409,8 @@ def main(argv=None) -> int:
          encode_seconds=time.perf_counter() - t0)
 
     err = {"k1": 0.0, "k2": 0.0, "k2_bb": 0.0, "k3": 0.0}
-    if not args.db_jobs:
+    lean = args.db_jobs or args.cache       # phase 5, then 12 or 17
+    if not lean:
         # ---- 2. kernels against plain ----
         decode_kernels(dev, uniq, err)
         emit("kernels_per_device", devices=per_device_check(),
@@ -2190,13 +2479,16 @@ def main(argv=None) -> int:
              command="python -m foldcomp_tpu_torch decompress --fast "
                      "<db> <out> --db",
              sampled=64, worst_dev_over_ref_A=worst)
-        if not args.db_jobs:
+        if not lean:
             # ---- 14. width classes through the CLI ----
             wclass_cli(db, out, names, card, wall)
         for p in work.glob(out.name + "*"):     # data file + index files
             p.unlink()
         if args.db_jobs:
             db_jobs(work, uniq, card, pdb_gate)
+            return 0
+        if args.cache:
+            cache_phase(work, db, names, card, hold)
             return 0
 
         # ---- 6. the main path, launch counters around it ----
@@ -2268,6 +2560,9 @@ def main(argv=None) -> int:
 
         # ---- 12. the database jobs through the hybrid scheduler ----
         db_jobs(work, uniq, card, pdb_gate)
+
+        # ---- 17. the port's user cache, from a copy of the package ----
+        cache_phase(work, db, names, card, hold)
         shutil.rmtree(work, ignore_errors=True)
         work.mkdir()
 

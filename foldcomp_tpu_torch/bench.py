@@ -71,9 +71,10 @@ The keys, in order (KEYS; rates in residues/s unless named otherwise):
   alternating the two) and `hybrid_ge_native` their gate at 0.85
   (`hybrid_vs_native_cold_*` divide the `--exact` cold walls by the
   `--fast` ones, as bench.py:845-848). Every CLI child starts from the
-  product's defaults: a HOME of its own in the work directory (no
-  warmup file from earlier runs) and none of the FOLDCOMP_TPU_* settings
-  but FOLDCOMP_TPU_LINK;
+  product's defaults: a HOME of its own in the work directory, and with
+  it the port's cache (no warmup file from earlier runs; on a card the
+  kernel library this process built, linked in), and none of the
+  FOLDCOMP_TPU_* settings but FOLDCOMP_TPU_LINK;
   `e2e_fast_decompress_device_busy_share` the share of the wall of one
   in-process `decompress --fast` that CUDA kernels cover (torch.profiler,
   CUDA activity only), `..._copy_busy_share` the share memory copies
@@ -740,13 +741,17 @@ def cli_rounds(env, runs, out, rounds):
 # caller has no card to probe
 _CHILD_UNSET = ("FOLDCOMP_TPU_WIRE", "FOLDCOMP_TPU_WCLASS",
                 "FOLDCOMP_TPU_WARMUP_EST", "FOLDCOMP_TPU_BATCH",
-                "FOLDCOMP_TPU_PLANAR_WIRE", "FOLDCOMP_TPU_NO_NATIVE")
+                "FOLDCOMP_TPU_PLANAR_WIRE", "FOLDCOMP_TPU_NO_NATIVE",
+                "FOLDCOMP_TPU_TORCH_CACHE")
 
 
 def _child_env(dev, workdir):
     """The environment of a CLI subprocess: this checkout first on the
-    path, HOME in `workdir` (the hybrid's warmup file starts absent and
-    stays there), the product's defaults, the device named for the CPU."""
+    path, HOME in `workdir` and with it the port's cache (the hybrid's
+    warmup file starts absent and stays there; on a card the cache holds
+    this process's kernel library, build.seed_cache, so a cold child
+    measures a fresh process and not a build), the product's defaults,
+    the device named for the CPU."""
     env = dict(os.environ)
     env["PYTHONPATH"] = str(REPO) + os.pathsep + env.get("PYTHONPATH", "")
     home = pathlib.Path(workdir) / "home"
@@ -758,6 +763,8 @@ def _child_env(dev, workdir):
         env["FOLDCOMP_TORCH_DEVICE"] = "cpu"
     else:
         env.pop("FOLDCOMP_TORCH_DEVICE", None)
+        from .kernels import build
+        build.seed_cache(env)
     return env
 
 

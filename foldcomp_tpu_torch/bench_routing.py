@@ -61,6 +61,7 @@ import sys
 import time
 
 from . import bench
+from .backend import cache_dir
 
 # ROUTING_CHILD's instruments (argument `instrument`): each batch's wait
 # for the device apart from its D2H copies (decode: _outs_to_host; encode:
@@ -166,8 +167,9 @@ def summary(walls):
 
 class Runner:
     """CLI children in one work directory: HOME and TMPDIR of their own
-    (no warmup file, the link probe's cache where `probe_cache` says), the
-    product's defaults (bench._child_env)."""
+    (no warmup file, the kernel library linked into the port's cache, the
+    link probe's cache where `probe_cache` says), the product's defaults
+    (bench._child_env)."""
 
     def __init__(self, dev, wd):
         self.wd = pathlib.Path(wd)
@@ -176,8 +178,8 @@ class Runner:
         tmp.mkdir(exist_ok=True)
         self.env["TMPDIR"] = str(tmp)
         self.probe_cache = tmp / f"foldcomp_tpu_torch_probe_{os.getuid()}.json"
-        self.warmup_file = pathlib.Path(self.env["HOME"]) / ".cache" / \
-            "foldcomp_tpu_torch" / "device_warmup.json"
+        self.warmup_file = pathlib.Path(cache_dir(self.env)) / \
+            "device_warmup.json"
 
     def run(self, args, out, instrument=False, env=None):
         """ROUTING_CHILD over `args`, which write `out`; `out` (a

@@ -674,15 +674,23 @@ def _device_link_ok() -> bool:
 
 
 def _resolve_or_report(what: str):
-    """The device the device paths run on (backend.resolve_device), or
-    None after an [Error] line when it is a CUDA card that is not there
-    (FOLDCOMP_TPU_LINK can claim a card that torch does not find)."""
+    """The device the device paths run on (backend.resolve_device), its
+    kernel library loaded when it is a CUDA card; or None after an [Error]
+    line when that card is not there (FOLDCOMP_TPU_LINK can claim a card
+    that torch does not find) or the library cannot be built. Callers
+    resolve before any output is opened: no device, no output."""
     from .backend import DeviceUnavailable, resolve_device
     try:
-        return resolve_device(None)
+        dev = resolve_device(None)
+        if dev.type == "cuda":
+            from .kernels import build
+            build.load(dev)
+        return dev
     except DeviceUnavailable as e:
         print(f"[Error] {what}: {e}", file=sys.stderr)
-        return None
+    except RuntimeError as e:   # KernelBuildError, a CUDA error
+        print(f"[Error] {what}: {type(e).__name__}: {e}", file=sys.stderr)
+    return None
 
 
 def _device_name(dev) -> str:
@@ -1209,8 +1217,9 @@ def run_warmup(inp: str) -> int:
     `foldcomp_tpu_torch warmup <fcz-db|fcz-dir|fcz|pdb|cif>`. The JAX
     package's warmup (foldcomp_tpu/cli.py:1110-1208) fills its compile
     cache; the port's counterpart of that cache is the kernel library,
-    built by nvcc under kernels/build/ and named by a hash of the sources
-    and flags (kernels/build.py). So this builds the library, loads its
+    built by nvcc into the port's cache, <backend.cache_dir()>/kernels/,
+    and named by a hash of the sources, flags and toolkit
+    (kernels/build.py). So this builds the library, loads its
     tables on every visible card, then runs one decode batch of
     fast_batch_size() entries through the stages decode_fcz_stream runs
     (pack, device decode, the native formatter) and one encode batch of
@@ -1219,9 +1228,10 @@ def run_warmup(inp: str) -> int:
     the other entry points take (FOLDCOMP_TORCH_DEVICE=cpu runs the plain
     versions and builds nothing). The time to the decoded batch seeds the
     hybrid scheduler's cold horizon (parallel/hybrid.py EndgameGuard), in
-    the port's own file ~/.cache/foldcomp_tpu_torch/device_warmup.json.
-    That time counts from before torch is imported, as the scheduler's
-    device stream counts it."""
+    the same cache's device_warmup.json (none with
+    FOLDCOMP_TPU_TORCH_CACHE=0). That time counts from before torch is
+    imported, as the scheduler's device stream counts it. It prints where
+    it wrote each file."""
     bsz = fast_batch_size()
     t0 = time.perf_counter()
     dev = _resolve_or_report("warmup")
@@ -1237,6 +1247,8 @@ def run_warmup(inp: str) -> int:
 
         from .kernels import build
         built = f"; kernel library {build.build()}"
+        if build.BUILD_SECONDS is not None:
+            built += f" (built in {build.BUILD_SECONDS:.1f}s)"
         for idx in range(torch.cuda.device_count()):
             build.load(idx)
 
@@ -1314,7 +1326,10 @@ def run_warmup(inp: str) -> int:
     from .parallel.hybrid import EndgameGuard
     guard = EndgameGuard.__new__(EndgameGuard)
     guard._first_done_dt = t_dec - t0
-    guard.finalize()
+    written = guard.finalize()
+    print(f"Warmup estimate {written}" if written else
+          "Warmup estimate not written (FOLDCOMP_TPU_TORCH_CACHE=0, "
+          "FOLDCOMP_TPU_WARMUP_EST set, or the cache not writable)")
     return 0
 
 
@@ -1412,12 +1427,8 @@ def main(argv=None) -> int:
 
     device = None
     if opts.fast and mode in ("compress", "decompress"):
-        # resolved before any output is opened: no card, no output
-        from .backend import DeviceUnavailable, resolve_device
-        try:
-            device = resolve_device(None)
-        except DeviceUnavailable as e:
-            print(f"[Error] --fast: {e}", file=sys.stderr)
+        device = _resolve_or_report("--fast")
+        if device is None:
             return 1
 
     inputs = [inp]

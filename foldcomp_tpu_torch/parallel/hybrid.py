@@ -28,7 +28,9 @@ and the mop-up). What differs:
   finishes the claimed chunks, so the database is whole, but
   run_hybrid_db returns 1;
 - the guard keeps its time-to-first-completion in this package's own
-  file, ~/.cache/foldcomp_tpu_torch/device_warmup.json;
+  cache, <backend.cache_dir()>/device_warmup.json
+  (~/.cache/foldcomp_tpu_torch/ by default; FOLDCOMP_TPU_TORCH_CACHE=0
+  keeps none);
 - worker processes import this module by its own name, and torch is
   imported only inside the device functions, so native workers never
   load it or create a CUDA context;
@@ -45,6 +47,7 @@ import struct
 import subprocess
 import sys
 
+from ..backend import cache_dir
 from ..io.db import DatabaseReader, DatabaseWriter
 from .dist import merge_shard_dbs, shard_db_path
 
@@ -180,9 +183,12 @@ class EndgameGuard:
 
     @staticmethod
     def _warmup_path():
-        # this package's own file: the JAX package's holds a TPU's number
-        return os.path.join(os.path.expanduser("~"), ".cache",
-                            "foldcomp_tpu_torch", "device_warmup.json")
+        """The estimate's file in this package's cache (the JAX package's
+        holds a TPU's number); None with the cache off: nothing is read
+        or written (foldcomp_tpu/parallel/hybrid.py:149-157)."""
+        root = cache_dir()
+        return None if root is None else os.path.join(root,
+                                                      "device_warmup.json")
 
     @classmethod
     def cold_horizon(cls) -> float:
@@ -199,21 +205,25 @@ class EndgameGuard:
             # pipeline already compiled + dispatched in this process:
             # first completion is one dispatch away, not a cold start
             return 0.5
+        path = cls._warmup_path()
+        if path is None:
+            return COLD_HORIZON_S
         try:
-            with open(cls._warmup_path()) as fh:
+            with open(path) as fh:
                 return max(float(json.load(fh)["warmup_s"]), 0.0)
         except Exception:  # noqa: BLE001 — no cache yet / unreadable
             return COLD_HORIZON_S
 
     def finalize(self):
         """Persist the measured time-to-first-completion so the NEXT
-        run's cold horizon reflects this host/link, not the default."""
+        run's cold horizon reflects this host/link, not the default.
+        -> the file written, or None."""
         import json
         path = self._warmup_path()
-        if self._first_done_dt is None or \
+        if path is None or self._first_done_dt is None or \
                 getattr(self, "_in_process_warm", False) or \
                 os.environ.get("FOLDCOMP_TPU_WARMUP_EST") is not None:
-            return
+            return None
         try:
             os.makedirs(os.path.dirname(path), exist_ok=True)
             tmp = path + f".{os.getpid()}"
@@ -221,7 +231,8 @@ class EndgameGuard:
                 json.dump({"warmup_s": round(self._first_done_dt, 3)}, fh)
             os.replace(tmp, path)
         except OSError:
-            pass
+            return None
+        return path
 
     def note_claim(self, n_entries: int):
         self.claimed_entries += n_entries

@@ -3,7 +3,8 @@ versions (`--device cpu`), at a tiny size.
 
 (a) A run prints one JSON line whose keys are bench.KEYS in order, every
 rate finite and positive, no gate failed; its CLI children start from the
-product's defaults whatever the caller's HOME and FOLDCOMP_TPU_* hold.
+product's defaults whatever the caller's HOME, cache and FOLDCOMP_TPU_*
+hold.
 (b) With the decode deviation check forced to fail, the decode rates print
 as null, gates_failed names the gates and the exit code is 1. (c) Against the repository's bench.py and
 the JAX package: the mixed corpus is the same FCZ bytes, the drawn entries
@@ -62,6 +63,11 @@ def _bench_main(monkeypatch, capsys, tmp_path):
     warmup = home / ".cache" / "foldcomp_tpu_torch" / "device_warmup.json"
     warmup.parent.mkdir(parents=True)
     warmup.write_text(json.dumps({"warmup_s": 9.0}))
+    # and a cache the caller moved, with its own estimate
+    moved = tmp_path / "callers_cache"
+    moved.mkdir()
+    (moved / "device_warmup.json").write_text(json.dumps({"warmup_s": 8.0}))
+    monkeypatch.setenv("FOLDCOMP_TPU_TORCH_CACHE", str(moved))
     monkeypatch.setenv("FOLDCOMP_TPU_WARMUP_EST", "7")
     monkeypatch.setenv("FOLDCOMP_TPU_WCLASS", "1")
     monkeypatch.setenv("OMP_NUM_THREADS", "1")
@@ -154,6 +160,7 @@ def test_paired_ratio_runs_both_routes(tmp_path):
     bench.write_fcz_db(db, uniq, bench.draw_lengths(16, seed=1))
     env = bench._child_env(torch.device("cpu"), tmp_path)
     assert env["HOME"] == str(tmp_path / "home")
+    assert "FOLDCOMP_TPU_TORCH_CACHE" not in env
     r, horizons = bench.paired_ratio(env, "decompress", str(db),
                                      str(tmp_path / "o"), "2", 1)
     assert math.isfinite(r) and r > 0 and \

@@ -26,6 +26,7 @@ parity_tail(merged_plain(...)) there. Here the wrapper's CPU path, the
 values the kernel writes at padding slots, its float constants and its
 ctypes bindings are checked.
 """
+import os
 import re
 import sys
 
@@ -357,4 +358,6 @@ def test_build_steps_report_the_failing_command():
     with pytest.raises(build.KernelBuildError, match="boom"):
         build._run_all([ok, bad])
     assert len(build.SOURCES) == 2
-    assert build.library_path().startswith(build.BUILD_DIR)
+    from foldcomp_tpu_torch.backend import cache_dir
+    assert build.library_path().startswith(
+        os.path.join(cache_dir(), "kernels", build.PREFIX))
