@@ -1,0 +1,6 @@
+"""The process's peak resident set, set-up and window (getrusage
+ru_maxrss), in GB of 1e9 bytes, read when the window closes."""
+
+
+def read(run):
+    return run.rss_peak_bytes / 1e9 if run.rss_peak_bytes else None
