@@ -120,6 +120,7 @@ import numpy as np
 import torch
 
 from . import verify
+from .codec.batch_host import padded_slots
 from .verify import max_deviation
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
@@ -609,15 +610,6 @@ def encode_resident(dev, frag, sizes):
     fails = [f"resident entry {i}" for i, g in enumerate(got)
              if g is None or serialize(g) != want]
     return sustained, sync, fails
-
-
-def padded_slots(arrays):
-    """The residue slots a decode pack pads to (bench.py:374-382)."""
-    if "classes" in arrays:
-        return sum(r.shape[1] * r.shape[2]
-                   for r in arrays["classes"]["recs"])
-    seg_w, nl = arrays["seg_records"].shape[1:]
-    return seg_w * nl
 
 
 def width_groups(fczs):

@@ -63,58 +63,20 @@ import time
 from . import bench
 from .backend import cache_dir
 
-# ROUTING_CHILD's instruments (argument `instrument`): each batch's wait
-# for the device apart from its D2H copies (decode: _outs_to_host; encode:
-# encode_finish, whose parts this copy takes to the host first), the
-# width-class split's seconds, and each decode pack's real lanes, residues,
-# padded slots and whether it took classes
+# ROUTING_CHILD's instruments (argument `instrument`), read from the
+# program's own spans (tracing.enable for the whole run): each batch's
+# wait for the device apart from its D2H copies (stream.device_wait,
+# encode.device_wait), its D2H seconds (stream.d2h, encode.d2h), the
+# width-class split's seconds (pack.split), and each decode pack's real
+# lanes, residues, padded slots and whether it took classes (the
+# attributes of stream.pack)
 ROUTING_CHILD = """\
 import contextlib, json, resource, sys, time
 t_start = time.perf_counter()
 args, instrument = json.loads(sys.argv[1])
-stats = {}
+from foldcomp_tpu_torch import tracing
 if instrument:
-    import torch
-    from foldcomp_tpu_torch import bench
-    from foldcomp_tpu_torch.codec import batch as B
-    stats = {"wait_s": [], "d2h_s": [], "split_s": [], "packs": []}
-
-    def wait():
-        t0 = time.perf_counter()
-        if torch.cuda.is_initialized():
-            torch.cuda.synchronize()
-        stats["wait_s"].append(time.perf_counter() - t0)
-
-    def outs_to_host(outs, _real=B._outs_to_host):
-        wait()
-        t0 = time.perf_counter()
-        r = _real(outs)
-        stats["d2h_s"].append(time.perf_counter() - t0)
-        return r
-
-    def encode_finish(handle, _real=B.encode_finish):
-        wait()
-        t0 = time.perf_counter()
-        if handle["live"]:
-            handle["parts"] = {k: v.cpu() for k, v in handle["parts"].items()}
-        stats["d2h_s"].append(time.perf_counter() - t0)
-        return _real(handle)
-
-    def split(*a, _real=B.split_lanes_classes, **kw):
-        t0 = time.perf_counter()
-        r = _real(*a, **kw)
-        stats["split_s"].append(time.perf_counter() - t0)
-        return r
-
-    def pack(fczs, bb_wire, wclass=None, _real=B.pack_decode_wire):
-        r = _real(fczs, bb_wire, wclass)
-        stats["packs"].append([sum(f.n_anchor - 1 for f in fczs),
-                               sum(f.n_residue for f in fczs),
-                               bench.padded_slots(r[0]), "classes" in r[0]])
-        return r
-
-    B._outs_to_host, B.encode_finish = outs_to_host, encode_finish
-    B.split_lanes_classes, B.pack_decode_wire = split, pack
+    tracing.enable()
 from foldcomp_tpu_torch import cli
 with contextlib.redirect_stdout(sys.stderr):
     rc = cli.main(args)
@@ -124,6 +86,19 @@ if "torch" in sys.modules:
     import torch
     if torch.cuda.is_initialized():
         peak = torch.cuda.max_memory_allocated()
+stats = {}
+if instrument:
+    tracing.disable()
+    session = tracing.last() or tracing.Session(0, [], {}, {}, {}, False)
+
+    def secs(*names):
+        return [sp.seconds for sp in session.named(*names)]
+    stats = {"wait_s": secs("stream.device_wait", "encode.device_wait"),
+             "d2h_s": secs("stream.d2h", "encode.d2h"),
+             "split_s": secs("pack.split"),
+             "packs": [[a["lanes"], a["residues"], a["slots"], a["classed"]]
+                       for a in (sp.attrs for sp in
+                                 session.named("stream.pack"))]}
 print(json.dumps(dict(
     rc=rc, inner_s=inner, device_peak_bytes=peak,
     maxrss_bytes=resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024,

@@ -46,6 +46,7 @@ import time
 from concurrent.futures import ThreadPoolExecutor
 from threading import Lock
 
+from . import tracing
 from .codec import fcz
 from .codec.decoder import decode
 from .codec.encoder import EncodeError, encode
@@ -715,27 +716,36 @@ def _run_compress_fast(opts, entries, sink, sink_kind, output: str,
     bsz = fast_batch_size()
     native_wire = os.environ.get("FOLDCOMP_TPU_PLANAR_WIRE", "1") != "0"
     pending_t = []                    # (fname, parts, tensors, meta)
-    inflight = collections.deque()    # (entries, finish future)
+    inflight = collections.deque()    # (batch number, entries, future)
+    n_batches = 0                     # the number of the batch pending_t fills
     # one finisher thread: batch k's device wait and host finish overlap
     # batch k+1's parse and pack on this thread; one worker keeps the
     # output order
     fin_pool = ThreadPoolExecutor(max_workers=1)
 
     def finish_oldest():
-        batch, fut = inflight.popleft()
-        for (fname, parts, _, _), f in zip(batch, fut.result()):
-            if f is not None:
-                _compress_write(sink, sink_kind, output, fname,
-                                fcz.serialize(f), parts)
+        bi, batch, fut = inflight.popleft()
+        with tracing.span("compress.wait_finish", bi):
+            fczs = fut.result()
+        with tracing.span("compress.write", bi):
+            for (fname, parts, _, _), f in zip(batch, fczs):
+                if f is not None:
+                    _compress_write(sink, sink_kind, output, fname,
+                                    fcz.serialize(f), parts)
 
     def flush_tensors(drain: bool = False):
+        nonlocal n_batches
         if pending_t:
-            handle = encode_submit([t for _, _, t, _ in pending_t],
-                                   [m for _, _, _, m in pending_t],
-                                   anchor_threshold=opts.anchor_threshold,
-                                   device=device, native_wire=native_wire)
-            inflight.append((list(pending_t),
+            with tracing.span("compress.submit", n_batches):
+                handle = encode_submit(
+                    [t for _, _, t, _ in pending_t],
+                    [m for _, _, _, m in pending_t],
+                    anchor_threshold=opts.anchor_threshold, device=device,
+                    native_wire=native_wire)
+            handle["batch"] = n_batches
+            inflight.append((n_batches, list(pending_t),
                              fin_pool.submit(encode_finish, handle)))
+            n_batches += 1
             pending_t.clear()
         while len(inflight) > (0 if drain else 1):
             finish_oldest()
@@ -752,8 +762,12 @@ def _run_compress_fast(opts, entries, sink, sink_kind, output: str,
         fallback = get_file_parts(output)[0] if sink_kind == "file" \
             else parts[0]
         try:
-            res = encode_pdb_device(raw, opts.anchor_threshold, title=None,
-                                    fallback_title=fallback)
+            with tracing.span("compress.parse", n_batches, True) as sp:
+                res = encode_pdb_device(raw, opts.anchor_threshold,
+                                        title=None, fallback_title=fallback)
+                if sp and res is not None:
+                    tracing.count("parse_residues", sum(
+                        len(t[1]) for t in res[0] if t is not None))
         except Exception:  # noqa: BLE001 — the fragment path reports it
             return False
         if res is None:
@@ -1385,6 +1399,21 @@ def run_subdb(id_file: str, db_in: str, db_out: str,
 
 
 def main(argv=None) -> int:
+    """The CLI. With FOLDCOMP_TPU_TORCH_TRACE=<path> set, the run is
+    recorded (tracing.enable) and its spans written to <path> at exit as
+    trace-event JSON (tracing.write_chrome)."""
+    path = os.environ.get("FOLDCOMP_TPU_TORCH_TRACE")
+    if not path:
+        return _main(argv)
+    tracing.enable()
+    try:
+        return _main(argv)
+    finally:
+        tracing.disable()
+        tracing.write_chrome(path)
+
+
+def _main(argv=None) -> int:
     argv = list(sys.argv[1:] if argv is None else argv)
     if not argv:
         print(USAGE, end="")

@@ -42,6 +42,7 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 import torch
 
+from .. import tracing
 from ..backend import resolve_device
 from ..kernels import fused_decode, fused_encode
 from ..native import get_lib
@@ -49,8 +50,8 @@ from .batch_host import (_POOL, _WCLASS_MIN_LANES, _WCLASS_MIN_SAVE,
                          _assemble_protein, _compact_coord_batch,
                          _format_batch, _gather_a14, _round_up,
                          finish_encode, fragment_to_tensors,
-                         pack_decode_batch_lanes, seg_sort_key,
-                         split_lanes_classes, use_wclass)
+                         pack_decode_batch_lanes, padded_slots,
+                         seg_sort_key, split_lanes_classes, use_wclass)
 
 # pack keys -> tensor dtype on the device
 _ARRAY_DTYPES = {
@@ -122,9 +123,10 @@ def pack_decode_wire(fczs, bb_wire: bool, wclass: str | None = None):
     if mode != "0":
         nl_est = sum(f.n_anchor - 1 for f in fczs)
         if mode == "1" or nl_est >= _WCLASS_MIN_LANES:
-            split = split_lanes_classes(
-                arrays, metas,
-                min_save=(0.15 if mode == "1" else _WCLASS_MIN_SAVE))
+            with tracing.span("pack.split"):
+                split = split_lanes_classes(
+                    arrays, metas,
+                    min_save=(0.15 if mode == "1" else _WCLASS_MIN_SAVE))
             if split is not None:
                 return split
     return arrays, metas
@@ -186,25 +188,53 @@ def _seg_decode_arrays(arrays, refine_iters=2):
     ("bb", off, ca) for a bb-wire pack. A width-classed dict goes through
     decode_seg_fused_classes into one flat buffer, returned as (off [rows,
     1, 42], ca [rows, 1, 3]): the form the flat-row metas index with SEG
-    1, which one copy per tensor takes to the host."""
+    1, which one copy per tensor takes to the host. The call is one
+    `decode.dispatch` span (attributes `classes`, `lanes`), whose
+    children are the kernels' calls (decode.k1, k2, k3): the rest of it is
+    the host's glue."""
+    with tracing.span("decode.dispatch") as sp:
+        if "classes" in arrays:
+            c = arrays["classes"]
+            if sp:
+                sp.set(classes=len(c["recs"]),
+                       lanes=sum(r.shape[2] for r in c["recs"]))
+            nl_outs = arrays["nl_outs"]
+            rows = sum(fused_decode.class_rows(c["recs"], nl_outs))
+            dev = c["recs"][0].device
+            off = torch.empty((rows, 42), dtype=torch.int16, device=dev)
+            ca = torch.empty((rows, 3), dtype=torch.float32, device=dev)
+            fused_decode.decode_seg_fused_classes(
+                *(c[k] for k in _CLASS_DTYPES), arrays["prev_idx"],
+                refine_iters=refine_iters, nl_outs=nl_outs, out=(off, ca))
+            return off[:, None], ca[:, None]
+        if sp:
+            sp.set(classes=1, lanes=arrays["seg_records"].shape[2])
+        wire = "bb" if arrays.get("bb_wire") else "full"
+        out = fused_decode.decode_seg_fused(
+            arrays["seg_records"], arrays["mins_lane"], arrays["cont_lane"],
+            arrays["sc_codes_seg"], arrays["fwd9"], arrays["rev9"],
+            arrays["is_first"], arrays["seg_m"], refine_iters=refine_iters,
+            nl_out=arrays["nl_out"], wire=wire)
+        return ("bb",) + out if wire == "bb" else out
+
+
+def _host_bytes(arrays) -> int:
+    """Bytes of the host arrays arrays_to_torch ships for a pack."""
     if "classes" in arrays:
         c = arrays["classes"]
-        nl_outs = arrays["nl_outs"]
-        rows = sum(fused_decode.class_rows(c["recs"], nl_outs))
-        dev = c["recs"][0].device
-        off = torch.empty((rows, 42), dtype=torch.int16, device=dev)
-        ca = torch.empty((rows, 3), dtype=torch.float32, device=dev)
-        fused_decode.decode_seg_fused_classes(
-            *(c[k] for k in _CLASS_DTYPES), arrays["prev_idx"],
-            refine_iters=refine_iters, nl_outs=nl_outs, out=(off, ca))
-        return off[:, None], ca[:, None]
-    wire = "bb" if arrays.get("bb_wire") else "full"
-    out = fused_decode.decode_seg_fused(
-        arrays["seg_records"], arrays["mins_lane"], arrays["cont_lane"],
-        arrays["sc_codes_seg"], arrays["fwd9"], arrays["rev9"],
-        arrays["is_first"], arrays["seg_m"], refine_iters=refine_iters,
-        nl_out=arrays["nl_out"], wire=wire)
-    return ("bb",) + out if wire == "bb" else out
+        return sum(np.asarray(a).nbytes for k in _CLASS_DTYPES
+                   for a in c[k]) + 4 * np.asarray(arrays["prev_idx"]).size
+    return sum(np.asarray(arrays[k]).nbytes for k in _ARRAY_DTYPES)
+
+
+def _done_event(dev):
+    """A CUDA event recorded after the work queued so far on dev's
+    current stream; None off CUDA."""
+    if dev.type != "cuda":
+        return None
+    ev = torch.cuda.Event()
+    ev.record(torch.cuda.current_stream(dev))
+    return ev
 
 
 def _outs_to_host(outs):
@@ -266,7 +296,16 @@ def decode_fcz_stream(payload_iter, batch_size: int = 2048,
     bucket_window=1. Everything runs on the default CUDA stream. A short
     tail batch stays short: the kernels take any lane count, so there is
     no per-shape compile to avoid by padding. The wire (use_bb_wire) is
-    chosen once, before the first batch."""
+    chosen once, before the first batch.
+
+    Spans (tracing), each carrying the batch's number: `stream.pack` on
+    the pool worker (thread CPU; attributes lanes, residues, slots,
+    classed), `stream.wait_pack` and `stream.wait_d2h` where the consuming
+    thread waits, `stream.launch` (`stream.h2d` and `decode.dispatch`),
+    then on the transfer thread `stream.device_wait` (an event recorded
+    after the launches, while recording) and `stream.d2h`, and
+    `stream.format` an entry (batch_host._format_batch); counters
+    h2d_bytes, d2h_bytes, format_residues."""
     dev = resolve_device(device)
     bb_wire = use_bb_wire()
     n_workers = max(2, (os.cpu_count() or 4) - 1)
@@ -285,14 +324,40 @@ def decode_fcz_stream(payload_iter, batch_size: int = 2048,
                 pass
         return False
 
+    def pack(bi, batch):
+        with tracing.span("stream.pack", bi, True) as sp:
+            packed = pack_decode_wire(batch, bb_wire)
+            if sp:
+                sp.set(lanes=sum(f.n_anchor - 1 for f in batch),
+                       residues=sum(f.n_residue for f in batch),
+                       slots=padded_slots(packed[0]),
+                       classed="classes" in packed[0])
+            return packed
+
+    def to_host(outs, bi, done):
+        with tracing.span("stream.device_wait", bi):
+            if done is not None:
+                done.synchronize()
+        with tracing.span("stream.d2h", bi) as sp:
+            res = _outs_to_host(outs)
+            if sp:
+                tracing.count("d2h_bytes", sum(
+                    a.nbytes for a in res if not isinstance(a, str)))
+        return res
+
+    n_batches = 0
+
     def emit_window(window, base):
+        nonlocal n_batches
         order = range(len(window)) if bucket_window == 0 else \
             sorted(range(len(window)), key=lambda i: seg_sort_key(window[i]))
         for i0 in range(0, len(window), batch_size):
             sel = order[i0:i0 + batch_size]
             batch = [window[j] for j in sel]
-            if not put(([base + j for j in sel], batch,
-                        pool.submit(pack_decode_wire, batch, bb_wire))):
+            bi = n_batches
+            n_batches += 1
+            if not put(([base + j for j in sel], batch, bi,
+                        pool.submit(pack, bi, batch))):
                 return
 
     def producer():
@@ -321,9 +386,12 @@ def decode_fcz_stream(payload_iter, batch_size: int = 2048,
 
     def drain(pend):
         nonlocal next_out
-        idxs, fczs, metas, fut = pend
-        for gi, item in zip(idxs, _format_batch(fczs, metas, fut.result(),
-                                                use_alt_order, pool=pool)):
+        idxs, fczs, metas, fut, bi = pend
+        with tracing.span("stream.wait_d2h", bi):
+            outs = fut.result()
+        for gi, item in zip(idxs, _format_batch(fczs, metas, outs,
+                                                use_alt_order, pool=pool,
+                                                batch=bi)):
             resbuf[gi] = item
         while next_out in resbuf:
             yield resbuf.pop(next_out)
@@ -332,19 +400,28 @@ def decode_fcz_stream(payload_iter, batch_size: int = 2048,
     try:
         pending = None
         while True:
-            item = q_packed.get()
+            with tracing.span("stream.wait_pack") as sp:
+                item = q_packed.get()
+                if type(item) is tuple:
+                    idxs, fczs, bi, packed = item
+                    if sp:
+                        sp.batch = bi
+                    arrays, metas = packed.result()
             if item is None:
                 break
             if isinstance(item, Exception):
                 raise item
-            idxs, fczs, packed = item
-            arrays, metas = packed.result()
-            outs = _seg_decode_arrays(arrays_to_torch(arrays, dev),
-                                      refine_iters)
-            fut = xfer.submit(_outs_to_host, outs)
+            with tracing.span("stream.launch", bi) as sp:
+                with tracing.span("stream.h2d") as h2d:
+                    dev_arrays = arrays_to_torch(arrays, dev)
+                    if h2d:
+                        tracing.count("h2d_bytes", _host_bytes(arrays))
+                outs = _seg_decode_arrays(dev_arrays, refine_iters)
+                done = _done_event(dev) if sp else None
+            fut = xfer.submit(to_host, outs, bi, done)
             if pending is not None:
                 yield from drain(pending)
-            pending = (idxs, fczs, metas, fut)
+            pending = (idxs, fczs, metas, fut, bi)
         if pending is not None:
             yield from drain(pending)
         if resbuf:
@@ -408,6 +485,8 @@ def _pack_encode_wire(live, atom14, native: bool = True):
 
 
 def _h2d(a, dev):
+    if tracing.recording():
+        tracing.count("h2d_bytes", a.nbytes)
     return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
 
 
@@ -486,7 +565,8 @@ def encode_submit(frag_tensors, frag_meta, anchor_threshold: int = 25,
                 anchor_threshold=anchor_threshold, atom14=atom14,
                 res_code=res_code, tf_ca=tf_ca, res_mask=res_mask,
                 parts=parts, delta_buf=delta_buf,
-                wire_bufs=wire_bufs, wire=route)
+                wire_bufs=wire_bufs, wire=route,
+                done=_done_event(dev) if tracing.recording() else None)
 
 
 def encode_finish(handle):
@@ -494,13 +574,26 @@ def encode_finish(handle):
     then the host finish (batch_host.finish_encode): exact quantizer
     extremes, rescue of the flagged values, temperature factors and the
     FczData assembly. Returns List[FczData | None] in the order of the
-    submitted tensors."""
+    submitted tensors. Spans (tracing), with the batch number
+    handle["batch"] where the caller set one: `encode.device_wait` (the
+    event encode_submit recorded while recording), `encode.d2h` (counter
+    d2h_bytes) and `encode.finish` (thread CPU)."""
     global DEVICE_WARMED
+    bi = handle.get("batch")
     if handle["live"]:
-        handle["parts"] = {k: v.cpu().numpy()
-                           for k, v in handle["parts"].items()}
+        with tracing.span("encode.device_wait", bi):
+            done = handle.pop("done", None)
+            if done is not None:
+                done.synchronize()
+        with tracing.span("encode.d2h", bi) as sp:
+            handle["parts"] = {k: v.cpu().numpy()
+                               for k, v in handle["parts"].items()}
+            if sp:
+                tracing.count("d2h_bytes", sum(
+                    v.nbytes for v in handle["parts"].values()))
         DEVICE_WARMED = True
-    return finish_encode(handle)
+    with tracing.span("encode.finish", bi, True):
+        return finish_encode(handle)
 
 
 def encode_tensor_batch(frag_tensors, frag_meta, anchor_threshold: int = 25,

@@ -38,6 +38,7 @@ from dataclasses import dataclass
 
 import numpy as np
 
+from .. import tracing
 from ..core.aatable import (ALT_PERM, ATOM_NAMES, MAX_ATOM,
                             N_ATOMS, N_SC_TORSION)
 from ..core.codes import (NUM_AA, THREE_LETTER, three_letter_from_one)
@@ -471,6 +472,16 @@ def split_lanes_classes(arrays, metas, seg_bucket: int = 8,
     return class_arrays, new_metas
 
 
+def padded_slots(arrays) -> int:
+    """The residue slots a decode pack pads to: SEG x NL, summed over the
+    width classes of a classed pack (bench.py:374-382)."""
+    if "classes" in arrays:
+        return sum(r.shape[1] * r.shape[2]
+                   for r in arrays["classes"]["recs"])
+    seg_w, nl = arrays["seg_records"].shape[1:]
+    return seg_w * nl
+
+
 def use_wclass() -> str:
     """Width-classed decode mode from FOLDCOMP_TPU_WCLASS: "1" always (at
     min_save 0.15), "0" never, "auto" (the default, any other value) for
@@ -581,10 +592,12 @@ def _assemble_protein(a14, meta, use_alt_order: bool = False):
         np.ones(n_total, F32), np.asarray(temps, F32), meta.title)
 
 
-def _format_batch(fczs, metas, outs_np, use_alt_order, pool=None):
+def _format_batch(fczs, metas, outs_np, use_alt_order, pool=None,
+                  batch=None):
     """Yields (payload, PDB text) per protein from the host decode output
     (either wire's, see _gather_a14), through the native formatter when
-    the library is present."""
+    the library is present. Each entry's format is a `stream.format` span
+    (thread CPU, batch number `batch`) on the thread that formats it."""
     try:
         from ..native import format_atom14_native, get_lib
         have_native = get_lib() is not None
@@ -592,11 +605,15 @@ def _format_batch(fczs, metas, outs_np, use_alt_order, pool=None):
         have_native = False
     if have_native:
         def fmt(m):
-            a14 = _gather_a14(outs_np, m)
-            return format_atom14_native(
-                a14, m.temp, m.res_code, m.n_residue, m.idx_residue,
-                m.idx_atom, m.chain, m.first_residue, m.last_residue,
-                m.has_oxt, m.oxt_coords, use_alt_order, m.title)
+            with tracing.span("stream.format", batch, True) as sp:
+                a14 = _gather_a14(outs_np, m)
+                text = format_atom14_native(
+                    a14, m.temp, m.res_code, m.n_residue, m.idx_residue,
+                    m.idx_atom, m.chain, m.first_residue, m.last_residue,
+                    m.has_oxt, m.oxt_coords, use_alt_order, m.title)
+                if sp:
+                    tracing.count("format_residues", m.n_residue)
+                return text
 
         if pool is not None:
             # the native formatter releases the GIL: fan the batch out
@@ -608,9 +625,13 @@ def _format_batch(fczs, metas, outs_np, use_alt_order, pool=None):
     else:
         from ..io.pdb import format_pdb
         for f, m in zip(fczs, metas):
-            atoms = _assemble_protein(_gather_a14(outs_np, m), m,
-                                      use_alt_order)
-            yield f, format_pdb(atoms, m.title)
+            with tracing.span("stream.format", batch, True) as sp:
+                atoms = _assemble_protein(_gather_a14(outs_np, m), m,
+                                          use_alt_order)
+                text = format_pdb(atoms, m.title)
+                if sp:
+                    tracing.count("format_residues", m.n_residue)
+            yield f, text
 
 
 # ---------------------------------------------------------------------------

@@ -21,6 +21,9 @@ kernel has
   wire), K2BB_LAUNCHES k2_backbone_bb (the bb wire's one kernel),
   K3_LAUNCHES k3_sidechain.
 
+The pipelines (`decode_seg_fused`, `decode_seg_fused_classes`) make each
+wrapper call a span (tracing): `decode.k1`, `decode.k2`, `decode.k3`.
+
 Layouts are lane-minor ([rows, NL]) as in the pack. Nothing here needs
 autograd or randomness.
 """
@@ -30,6 +33,7 @@ import ctypes
 
 import torch
 
+from .. import tracing
 from ..core import tables as T
 from .geometry import bond_angle_cs, place_atom_c, place_atom_cs
 
@@ -626,15 +630,21 @@ def decode_seg_fused(seg_records, mins_lane, cont_lane, sc_codes_seg,
                     fwd9, rev9, seg_m)
     order = lane_order(pr["tat"])
     rest = (pr["rev9"], pr["tat"], pr["mins6"], pr["cont6"])
-    tails9 = tails(pr["recs"], pr["fwd9"], *rest, order=order) \
-        if refine_iters >= 2 else None
+    tails9 = None
+    if refine_iters >= 2:
+        with tracing.span("decode.k1"):
+            tails9 = tails(pr["recs"], pr["fwd9"], *rest, order=order)
     seg_m = seg_m.to(torch.int32).contiguous()
     if wire == "bb":
-        return backbone_only(pr["recs"], tails9, pr["fwd9"], is_first, *rest,
-                             seg_m, nl_out, order=order)
-    bx, by, bz = backbone(pr["recs"], tails9, pr["fwd9"], is_first, *rest,
-                          order=order)
-    return sidechain(bx, by, bz, pr["code"], pr["sct"], nl_out, seg_m=seg_m)
+        with tracing.span("decode.k2"):
+            return backbone_only(pr["recs"], tails9, pr["fwd9"], is_first,
+                                 *rest, seg_m, nl_out, order=order)
+    with tracing.span("decode.k2"):
+        bx, by, bz = backbone(pr["recs"], tails9, pr["fwd9"], is_first,
+                              *rest, order=order)
+    with tracing.span("decode.k3"):
+        return sidechain(bx, by, bz, pr["code"], pr["sct"], nl_out,
+                         seg_m=seg_m)
 
 
 def class_rows(recs_t, nl_outs=()):
@@ -696,20 +706,23 @@ def decode_seg_fused_classes(recs_t, mins_t, cont_t, sct_t, fwd_t, rev_t,
         bases.append(bases[-1] + p["recs"].shape[2])
     tails_g = None
     if refine_iters >= 2:
-        tails_g = tails_classes(
-            [(p["recs"], p["fwd9"], p["rev9"], p["tat"], p["mins6"],
-              p["cont6"], orders[i]) for i, p in enumerate(prs)],
-            torch.empty((9, bases[-1]), dtype=F32, device=dev))
+        k1_in = [(p["recs"], p["fwd9"], p["rev9"], p["tat"], p["mins6"],
+                  p["cont6"], orders[i]) for i, p in enumerate(prs)]
+        tails_g = torch.empty((9, bases[-1]), dtype=F32, device=dev)
+        with tracing.span("decode.k1"):
+            tails_classes(k1_in, tails_g)
     for i, p in enumerate(prs):
         prev = None if tails_g is None else \
             prev_idx[bases[i]:bases[i + 1]]
-        bb = backbone(p["recs"], tails_g, p["fwd9"], isf_t[i], p["rev9"],
-                      p["tat"], p["mins6"], p["cont6"], order=orders[i],
-                      prev=prev)
-        sidechain(*bb, p["code"], p["sct"],
-                  nl_outs[i] if i < len(nl_outs) else None,
-                  seg_m=segm_t[i].to(torch.int32).contiguous(),
-                  out=views[i])
+        with tracing.span("decode.k2"):
+            bb = backbone(p["recs"], tails_g, p["fwd9"], isf_t[i],
+                          p["rev9"], p["tat"], p["mins6"], p["cont6"],
+                          order=orders[i], prev=prev)
+        seg_m = segm_t[i].to(torch.int32).contiguous()
+        with tracing.span("decode.k3"):
+            sidechain(*bb, p["code"], p["sct"],
+                      nl_outs[i] if i < len(nl_outs) else None,
+                      seg_m=seg_m, out=views[i])
     return tuple(views)
 
 

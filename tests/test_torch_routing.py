@@ -173,3 +173,29 @@ def test_runner_records_a_cli_child(small, tmp_path):
     assert rec["rc"] == 0 and rec["n_out"] == 3 and not out.exists()
     assert rec["maxrss_bytes"] > 0 and rec["device_peak_bytes"] is None
     assert rec["wall_s"] >= rec["inner_s"] > 0
+
+
+def test_runner_instruments_a_decompress_fast_child(small, tmp_path):
+    """Runner.run(instrument=True): a `decompress --fast` child reads its
+    batches' device waits, D2H seconds and packs from the program's own
+    spans (tracing), one of each a batch, the packs' lanes and residues
+    those of the entries."""
+    src = tmp_path / "fczs"
+    src.mkdir()
+    for i, f in enumerate(small):
+        (src / f"e{i}.fcz").write_bytes(serialize(f))
+    (tmp_path / "wd").mkdir()
+    run = R.Runner(torch.device("cpu"), tmp_path / "wd")
+    out = tmp_path / "wd" / "out"
+    rec = run.run(["decompress", "--fast", src, out], out, True,
+                  {"FOLDCOMP_TPU_BATCH": "3", "FOLDCOMP_TPU_WIRE": "full"})
+    assert rec["rc"] == 0 and rec["n_out"] == len(small)
+    n_batches = -(-len(small) // 3)
+    assert len(rec["wait_s"]) == len(rec["d2h_s"]) == len(rec["packs"]) \
+        == n_batches
+    assert all(x >= 0 for x in rec["wait_s"] + rec["d2h_s"])
+    assert sum(p[0] for p in rec["packs"]) == \
+        sum(f.n_anchor - 1 for f in small)
+    assert sum(p[1] for p in rec["packs"]) == sum(f.n_residue for f in small)
+    assert all(p[2] >= p[1] and p[3] is False for p in rec["packs"])
+    assert rec["split_s"] == []
