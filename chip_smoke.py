@@ -33,8 +33,14 @@ non-zero:
    (~4.1M residues) through the kernels and through the plain versions,
    timed with CUDA events, with each kernel's time beside its plain
    version's; k1 and k2 also with the lanes in pack order
-   (`pack_order_ms`), the lane order's own time (`k2.order_ms`), and the
-   torch glue (`glue_ms`: the device decode less the three kernels);
+   (`pack_order_ms`), the lane order's own time (`k2.order_ms`), k0 (the
+   kernels' inputs and the lane order in one launch, `prep`): its outputs
+   against its plain version's (class_prep and lane_order) bit for bit,
+   every field and the order, its device time (each run queued before
+   the first runs, `queued_ms`) against its bound, and its time a call as
+   the host issues it beside its plain version's (torch's operations,
+   which synchronize); and the glue (`glue_ms`: the device decode less
+   the three kernels, k0 included);
 5. e2e: `python -m foldcomp_tpu_torch decompress --fast <db> <out> --db`
    on a 4096-entry FCZ database in a subprocess (FOLDCOMP_TPU_WCLASS=auto,
    the default), timed; 64 sampled outputs held to the phase-3 bound (the
@@ -45,8 +51,9 @@ non-zero:
    calls counted: a batch must have taken width classes exactly where
    the auto rule splits one of the batches the stream forms
    (bench_routing.lane_batches replays them; at cli.FAST_BATCH none of
-   this corpus's), k1 must have launched once a batch, and k2 and k3 each
-   once a single-class batch and once a class of each classed batch;
+   this corpus's), k0 and k1 must have launched once a batch, and k2 and
+   k3 each once a single-class batch and once a class of each classed
+   batch;
 7. encode_kernels: the fused encode kernel (k4 with the epilogue) against
    its plain version, parity_tail(merged_plain(...)), on the same inputs:
    a mixed 256-entry batch of the 8 lengths by the compact wire and by the
@@ -128,8 +135,10 @@ non-zero:
    bit-equal on every row; each form's slots, output and D2H bytes, D2H
    seconds, device decode time and peak device memory; k1 over the
    classes in one launch beside the same kernel launched once a class;
-   each class's k1, k2 and k3 and the glue; the launches of a batch (k1
-   once); then phase 5's
+   k0 over the classes in one launch against class_prep and lane_order a
+   class, every field and the order bit for bit; each class's k1, k2 and
+   k3 and the glue; the launches of a batch (k0 and k1 once); then phase
+   5's
    `decompress --fast` again with FOLDCOMP_TPU_WCLASS=1, 0 and 1 (after
    phase 5's auto run: the classed route through the CLI, which auto does
    not take at cli.FAST_BATCH), every output byte-identical to phase 5's;
@@ -169,18 +178,27 @@ non-zero:
    (exit 1, KernelBuildError, no output); FOLDCOMP_TPU_TORCH_CACHE=0 (a
    temporary library, gone with the process, nothing kept under HOME);
    the copy's package tree (names, sizes, mtimes) unchanged by every
-   step.
+   step;
+18. prep, k0 (after phase 2): tests/test_torch_prep.py's card tests in a
+   subprocess (pytest, the suite's conftest skipped: it imports JAX): k0
+   against class_prep + lane_order bit for bit (ties in tat, a one-lane
+   and an empty class, SEG over several sort passes, unaligned records),
+   the decode's dispatch bit-equal on the rows each lane owns to the same
+   dispatch through torch's glue on the classed, single, bb and wide
+   packs, no synchronize in it under torch.cuda.set_sync_debug_mode
+   ("error") (and the glue's raising there), one prep launch a dispatch.
 
 Then the kernel summary (each kernel's launches on the main path, its
 largest difference from its plain version, its time and its plain
-version's, and its bound: the larger of the bytes it must move over the
-card's memory rate and its float operations over the float32 rate
-without FMA, from this run's inputs), the card's `nvidia-smi` name and
-power limit, and as the
-last line {"ok": true, "device": {...}}. Exits non-zero without a CUDA
+version's (k0's plain version synchronizes, so its time is the host's
+pace a call, phase 4's `plain_paced_by`), and its bound: the larger of
+the bytes it must move over the card's memory rate and its float
+operations over the float32 rate without FMA, from this run's inputs),
+the card's `nvidia-smi` name and power limit, and as the last line
+{"ok": true, "device": {...}}. Exits non-zero without a CUDA
 device or outside a checkout of the repository.
 
-    python3 chip_smoke.py --quick       phases 1-4 and the kernel
+    python3 chip_smoke.py --quick       phases 1-4, 18 and the kernel
                                         checks and device timings of
                                         phases 11 and 14, no last line
     python3 chip_smoke.py --encode      phases 1, 7 and 9, no last line
@@ -199,6 +217,7 @@ import json
 import os
 import pathlib
 import random
+import re
 import shutil
 import subprocess
 import sys
@@ -210,14 +229,19 @@ BENCH_LENGTHS = (120, 200, 280, 360, 480, 640, 840, 1080)
 TOL_A = 1e-3
 TOL_I16 = 1
 _DEC = "foldcomp_tpu_torch/kernels/csrc/fused_decode.cu"
-SOURCES = {"k1": _DEC, "k2": _DEC, "k2_bb": _DEC, "k3": _DEC,
+SOURCES = {"prep": _DEC, "k1": _DEC, "k2": _DEC, "k2_bb": _DEC, "k3": _DEC,
            "k4": "foldcomp_tpu_torch/kernels/csrc/fused_encode.cu"}
-REPLACES = {"k1": "foldcomp_tpu/kernels/pallas_decode.py:186",
+# k0 does _class_prep's work and the port's lane order (torch.argsort in
+# lane_order: the TPU kernels walk the lanes in pack order)
+REPLACES = {"prep": "foldcomp_tpu/kernels/pallas_decode.py:405-437 + "
+                    "lane_order's argsort",
+            "k1": "foldcomp_tpu/kernels/pallas_decode.py:186",
             "k2": "foldcomp_tpu/kernels/pallas_decode.py:227",
             "k2_bb": "foldcomp_tpu/kernels/pallas_decode.py:529",
             "k3": "foldcomp_tpu/kernels/pallas_decode.py:338",
             "k4": "foldcomp_tpu/kernels/pallas_encode.py:147 + :370-432"}
-NAMES = {"k1": "k1_tails", "k2": "k2_backbone", "k2_bb": "k2_backbone_bb",
+NAMES = {"prep": "k0_prep", "k1": "k1_tails", "k2": "k2_backbone",
+         "k2_bb": "k2_backbone_bb",
          "k3": "k3_sidechain", "k4": "k4_fused_encode"}
 # the bb wire's offsets: 0.1 mA units
 BB_UNIT_A = 1e-4
@@ -324,7 +348,7 @@ def ptxas_report(log):
         m = re.search(r"(?:Compiling entry function|Function properties "
                       r"for) '?(\w+)", line)
         if m:
-            cur = next((k for k in ("k1_tails", "k2_backbone_bb",
+            cur = next((k for k in ("k0_prep", "k1_tails", "k2_backbone_bb",
                                     "k2_backbone", "k2_copy_out",
                                     "k3_sidechain", "k3_tables",
                                     "k4_fused_encode", "k4_acos")
@@ -1122,6 +1146,7 @@ def device_decode(dev, card, uniq, err, entries=8192):
         times[k]["pack_order_ms"] = cuda_ms(torch,
                                             lambda: kern(pack_order), 10)
     times["k2"]["order_ms"] = cuda_ms(torch, lambda: FD.lane_order(tat), 10)
+    times["prep"] = prep_times(ta, nl_real, err)
     # k3 over every row, the padding's too: what skipping it saves
     times["k3"]["all_rows_ms"] = cuda_ms(
         torch, lambda: FD.sidechain(*bb, pr["code"], pr["sct"], nl_out), 10)
@@ -1137,6 +1162,7 @@ def device_decode(dev, card, uniq, err, entries=8192):
          kernel_decode_runs_ms=[ms_kern_a, ms_kern_b],
          plain_decode_runs_ms=[ms_plain_a, ms_plain_b],
          glue_ms=ms_kern - sum(times[k]["ms"] for k in ("k1", "k2", "k3")),
+         prep=times["prep"],
          kernel_residues_per_s=n_res / (ms_kern * 1e-3),
          plain_residues_per_s=n_res / (ms_plain * 1e-3),
          kernel_vs_plain={"off_units": d_off, "ca_A": d_ca,
@@ -1144,6 +1170,113 @@ def device_decode(dev, card, uniq, err, entries=8192):
                           diffs["k2"]},
          per_kernel=times)
     return times
+
+
+def queued_ms(torch, fn, reps):
+    """Mean device time of fn over reps runs, each queued before the first
+    runs (behind torch.cuda._sleep): the card's time alone, where a run's
+    host time exceeds its device time and cuda_ms would read the host's."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(200_000_000)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+PREP_FIELDS = ("recs", "code", "sct", "fwd9", "rev9", "tat", "mins6",
+               "cont6", "order")
+
+
+def prep_diff(label, got, want, err):
+    """k0's outputs (prep's dicts) against class_prep + lane_order's on the
+    same inputs, class by class: every field and the lane order's perm
+    bit for bit (shape, dtype, values). Raises on any difference.
+    -> {classes, lanes, differing fields, largest |difference|}."""
+    import torch
+    if len(got) != len(want):
+        raise AssertionError(f"{label}: k0 gave {len(got)} classes for "
+                             f"{len(want)}")
+    bad, worst = [], 0.0
+    for c, (g, w) in enumerate(zip(got, want)):
+        for k in PREP_FIELDS:
+            a, b = (g[k].perm, w[k].perm) if k == "order" else (g[k], w[k])
+            if a.shape != b.shape or a.dtype != b.dtype:
+                bad.append(f"class {c} {k}: {a.dtype}{tuple(a.shape)} for "
+                           f"{b.dtype}{tuple(b.shape)}")
+            elif not torch.equal(a, b):
+                worst = max(worst, (a.double() - b.double()).abs().max()
+                            .item())
+                bad.append(f"class {c} {k}")
+    if bad:
+        raise AssertionError(f"{label}: k0 vs class_prep + lane_order: "
+                             f"{bad}, largest |difference| {worst}")
+    err["prep"] = max(err["prep"], worst)
+    return {"classes": len(got), "lanes": [int(w["tat"].numel())
+                                           for w in want],
+            "fields": len(PREP_FIELDS), "differing": bad,
+            "max_abs_diff": worst}
+
+
+def prep_times(ta, nl_real, err):
+    """k0 on a single-class pack's tensors: its outputs against its plain
+    version's (class_prep and lane_order, prep_diff); its device time
+    (queued_ms, twice), and in turns with the plain version on the card
+    (torch's operations, which synchronize, so cannot be queued) the time
+    a call as the host issues it (cuda_ms; plain_ms is the plain
+    version's, host-paced); k0's bound: the bytes it must move, the code
+    plane's byte in and i32 out a slot, seg_m twice, tat, the 12
+    quantizer floats in and out and the order a lane (the pack's lanes,
+    pad lanes included: k0 fills every one), at the card's memory rate."""
+    import torch
+
+    from foldcomp_tpu_torch.kernels import fused_decode as FD
+    args = [tuple(ta[k] for k in DECODE_KEYS[:6]) + (ta["seg_m"],)]
+
+    def plain():
+        pr = FD.class_prep(*args[0])
+        pr["order"] = FD.lane_order(pr["tat"])
+        return [pr]
+
+    def k0():
+        return FD.prep(args)
+
+    check = prep_diff("B=8192 one class", k0(), plain(), err)
+    runs = [queued_ms(torch, k0, 20) for _ in range(2)]
+    host = [cuda_ms(torch, fn, 20) for fn in (plain, k0, k0, plain)]
+    _, seg, nl = ta["seg_records"].shape
+    n_bytes = 5 * seg * nl + (8 + 4 + 96 + 4) * nl
+    b_ms = n_bytes / PEAK_BYTES_S * 1e3
+    ms = min(runs)
+    return {"ms": ms, "runs_ms": runs, "host_paced_ms": min(host[1:3]),
+            "plain_ms": min(host[0], host[3]), "plain_paced_by": "host",
+            "host_paced_runs_ms": host, "bytes": n_bytes, "bound_ms": b_ms,
+            "bound_by": "bytes", "bound_share": b_ms / ms, "lanes": nl,
+            "lanes_real": nl_real, "seg": seg, "vs_plain": check}
+
+
+def prep_tests(card):
+    """Phase 18: tests/test_torch_prep.py's card tests in a subprocess
+    (module docstring); raises unless they ran and passed."""
+    t0 = time.perf_counter()
+    r = subprocess.run(
+        [sys.executable, "-m", "pytest", "--noconftest", "-p",
+         "no:cacheprovider", "-m", "card", "-q",
+         str(REPO / "tests" / "test_torch_prep.py")],
+        cwd=REPO, capture_output=True, text=True, timeout=900)
+    lines = r.stdout.strip().splitlines()
+    summary = lines[-1] if lines else ""
+    passed = sum(int(n) for n in re.findall(r"(\d+) passed", summary))
+    emit("prep", gpu=card, rc=r.returncode, passed=passed, summary=summary,
+         seconds=time.perf_counter() - t0)
+    if r.returncode != 0 or passed == 0:
+        print(r.stdout[-20000:], r.stderr[-4000:], file=sys.stderr)
+        raise AssertionError(f"k0 card tests: rc {r.returncode}, {summary}")
 
 
 def bb_owned_max(got, want, seg_m):
@@ -1553,6 +1686,12 @@ def class_device(dev, card, uniq, err, entries=8192):
     # and k3 alone
     args, prs, bases = class_inputs(forms["classed"])
     prev, nl_outs = forms["classed"]["prev_idx"], forms["classed"]["nl_outs"]
+    # k0 over the classed pack in one launch against class_prep +
+    # lane_order a class (class_inputs' prs)
+    segm = forms["classed"]["classes"]["segm"]
+    k0_check = prep_diff(f"B={entries} classed", FD.prep(
+        [tuple(a[i] for a in args[:6]) + (segm[i],)
+         for i in range(len(prs))]), prs, err)
     tails_g = k1_classed(prs, bases)
     tails_c = torch.empty_like(tails_g)
     k1_each = [lambda pr=pr, i=i: FD.tails(
@@ -1604,11 +1743,13 @@ def class_device(dev, card, uniq, err, entries=8192):
          out_bytes={f: 96 * n for f, n in slots.items()}, d2h=xfer,
          device_decode_ms=ms, device_decode_runs_ms=dec,
          k1_classed_ms=k1_ms, k1_classed_runs_ms=k1_runs,
-         per_class=per_class, classed_kernels_ms=kernels_ms,
+         per_class=per_class, k0_vs_plain=k0_check,
+         classed_kernels_ms=kernels_ms,
          classed_glue_ms=ms["classed"] - kernels_ms,
          peak_device_bytes=mem, launches=launches)
-    if launches["classed"]["k1"] != 1 or launches["single"]["k1"] != 1:
-        raise AssertionError(f"B={entries}: k1 launches {launches}")
+    if any(launches[f][k] != 1 for f in ("classed", "single")
+           for k in ("prep", "k1")):
+        raise AssertionError(f"B={entries}: k0 and k1 launches {launches}")
     return ms
 
 
@@ -2408,7 +2549,7 @@ def main(argv=None) -> int:
     emit("corpus", lengths=list(BENCH_LENGTHS),
          encode_seconds=time.perf_counter() - t0)
 
-    err = {"k1": 0.0, "k2": 0.0, "k2_bb": 0.0, "k3": 0.0}
+    err = {"prep": 0.0, "k1": 0.0, "k2": 0.0, "k2_bb": 0.0, "k3": 0.0}
     lean = args.db_jobs or args.cache       # phase 5, then 12 or 17
     if not lean:
         # ---- 2. kernels against plain ----
@@ -2416,6 +2557,9 @@ def main(argv=None) -> int:
         emit("kernels_per_device", devices=per_device_check(),
              tol={"f32_A": TOL_A, "i16_units": TOL_I16, "k4": K4_TOL})
         torch.cuda.set_device(dev)
+
+        # ---- 18. k0 on the card ----
+        prep_tests(card)
 
         # ---- 3. absolute parity against the exact decoder ----
         par = verify.device_parity_check(device=dev)
@@ -2530,6 +2674,7 @@ def main(argv=None) -> int:
         # k1 once a batch, k2 and k3 once a class
         expect = {"k1": calls["single"] + len(calls["classes"]),
                   "k2": calls["single"] + sum(calls["classes"])}
+        expect["prep"] = expect["k1"]
         expect["k3"] = expect["k2"]
         # the batches the stream formed, replayed: which the auto rule
         # splits (its lane count and savings share)

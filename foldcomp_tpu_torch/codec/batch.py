@@ -190,8 +190,11 @@ def _seg_decode_arrays(arrays, refine_iters=2):
     1, 42], ca [rows, 1, 3]): the form the flat-row metas index with SEG
     1, which one copy per tensor takes to the host. The call is one
     `decode.dispatch` span (attributes `classes`, `lanes`), whose
-    children are the kernels' calls (decode.k1, k2, k3): the rest of it is
-    the host's glue."""
+    children are k0's launch (decode.prep, the kernels' inputs of every
+    class in one workspace) and the kernels' calls (decode.k1, k2, k3):
+    the rest of it, and prep, is the host's glue. Nothing in it copies
+    from the host or waits for the stream, so the host queues batch after
+    batch ahead of the card."""
     with tracing.span("decode.dispatch") as sp:
         if "classes" in arrays:
             c = arrays["classes"]

@@ -2,7 +2,7 @@
 bound with ctypes.
 
 The library is compiled on first use from every csrc/*.cu source
-(fused_decode.cu: k1-k3 and the bb wire's backbone kernel,
+(fused_decode.cu: k0-k3 and the bb wire's backbone kernel,
 fused_encode.cu: k4 with the encode epilogue) into the port's user cache,
 <cache>/kernels/ (backend.cache_dir: FOLDCOMP_TPU_TORCH_CACHE, else
 ~/.cache/foldcomp_tpu_torch), never into the package, which may lie in an
@@ -230,15 +230,16 @@ def seed_cache(env) -> str | None:
 def _bind(lib):
     vp, ci = ctypes.c_void_p, ctypes.c_int
     lib.fd_set_tables.argtypes = [vp, vp, vp, vp, ci, ci]
+    lib.fd_prep.argtypes = [ci, vp, vp, vp]
     lib.fd_tails.argtypes = [ci, vp, vp, vp, ci, vp]
     lib.fd_backbone.argtypes = [vp] * 17 + [ci, ci, ci, vp]
     lib.fd_backbone_bb.argtypes = [vp] * 16 + [ci, ci, ci, ci, vp]
     lib.fd_sidechain.argtypes = [vp] * 8 + [ci, ci, ci, vp]
     lib.fe_encode.argtypes = [vp] * 8 + [ci] + [vp] * 6 + [ci, ci, vp]
     lib.fe_acos.argtypes = [vp, vp, ci, vp]
-    for fn in (lib.fd_set_tables, lib.fd_tails, lib.fd_backbone,
-               lib.fd_backbone_bb, lib.fd_sidechain, lib.fe_encode,
-               lib.fe_acos):
+    for fn in (lib.fd_set_tables, lib.fd_prep, lib.fd_tails,
+               lib.fd_backbone, lib.fd_backbone_bb, lib.fd_sidechain,
+               lib.fe_encode, lib.fe_acos):
         fn.restype = ci
     return lib
 

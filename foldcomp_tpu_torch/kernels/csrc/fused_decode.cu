@@ -1,8 +1,11 @@
-// Fused ragged-lane decode for Hopper (sm_90a): k1 tails, k2 backbone,
-// k3 side chains, and the bb wire's backbone kernel.
+// Fused ragged-lane decode for Hopper (sm_90a): k0 the kernel inputs,
+// k1 tails, k2 backbone, k3 side chains, and the bb wire's backbone kernel.
 //
 // Replaces the three Pallas TPU decode kernels and their bb-wire call site
-// in foldcomp_tpu/kernels/pallas_decode.py:
+// in foldcomp_tpu/kernels/pallas_decode.py, and the XLA glue before them:
+//   k0 fd_prep       <- _class_prep             (pallas_decode.py:405-437)
+//                       and the lane order, every width class of a batch
+//                       in one launch
 //   k1 fd_tails      <- _make_tails_kernel      (pallas_decode.py:186),
 //                       every width class of a batch in one launch
 //                       (_run_tails once a class, :654-656)
@@ -235,6 +238,286 @@ __device__ __forceinline__ V3 get_row(const float* __restrict__ ox,
                                       int nl, int l) {
   const size_t i = (size_t)r * nl + l;
   return v3(ox[i], oy[i], oz[i]);
+}
+
+// k0: the kernel inputs of every width class of a batch in one launch, what
+// fused_decode.py class_prep and lane_order give (the plain version and
+// the oracle), each class into its slots of one workspace the wrapper
+// allocates:
+//   code  = recs[0] >> 3 (the residue-code plane k3 reads), i32 [SEG, NL];
+//   tat   = 3 * seg_m, i32 [NL];
+//   mins6, cont6: the quantizer rows in kernel field order (K0_FIELD_COLS
+//         of the header's columns), f32 [6, NL];
+//   order: the lanes by tat, longest first, stable (a permutation equal to
+//         torch.argsort(tat, descending=True, stable=True)), i32 [NL].
+// On the TPU path these were XLA operations, and in the port torch's: some
+// ten launches a class, an argsort among them, and a column table copied
+// from the host, which waited for the stream. Here nothing is copied from
+// the host: the table of classes goes by value, the column order is a
+// constant of the kernel.
+//
+// Bound: bytes, the code plane's (1 B in, 4 B out a slot). The first
+// blocks sort, K0_SORT_LANES lanes of one class each; the blocks after
+// them fill the planes, a thread a unit: K0_CODE_UNIT code slots (a 4-byte
+// load where the plane allows, one 16-byte store, so that a warp's store
+// is 512 contiguous bytes), or one lane's tat, mins6 and cont6.
+//
+// The sort is a stable counting sort on key = SEG - seg_m (0 .. SEG-1;
+// seg_m outside 1 .. SEG, which the pack never gives, sorts as the nearest
+// end, and any order gives the kernels the same values). A block orders
+// the lanes [lo, hi) of its class into their places among all the class's
+// lanes, so it needs, for each key, the class's lanes of a smaller key and
+// those of the same key before lo: it counts every lane of the class
+// outside [lo, hi) itself (the blocks share nothing, so no block waits
+// for another; each reads the class's seg_m from L2): a thread takes
+// K0_RUN consecutive lanes and adds each run of one key with one shared
+// atomic (a protein's interior segments share one length, so runs are
+// long), with no warp-wide step.
+// Warp w owns a contiguous run of [lo, hi) and walks it 32 lanes at a time,
+// so its lanes come in pack order: it counts its lanes of each key, the
+// counts are scanned bucket-major and warp-minor (a bucket's lanes of warp
+// w follow those of warps < w), and it walks again, writing each lane at
+// its bucket's offset for the warp plus its rank among the lower lanes of
+// its group (a warp's lanes of one key: __match_any_sync, or the whole
+// warp where every lane has one key, as a protein's interior segments do).
+// Keys go in passes of K0_BUCKETS (one pass for SEG <= K0_BUCKETS, which
+// the default anchor interval gives; a wider SEG takes more passes, with
+// no limit).
+#define K0_THREADS 512
+#define K0_WARPS (K0_THREADS / 32)
+#define K0_SORT_LANES 8192  // lanes a sort block orders: 16 rows a warp
+#define K0_BUCKETS 256
+#define K0_UNROLL 4         // rows of 32 lanes loaded at once
+#define K0_RUN 16           // consecutive lanes a thread counts at once
+#define K0_CODE_UNIT 4
+#define K0_MAX_CLASSES 4  // as k1's table
+// decode field order (psi, omega, phi, n_ca_c, ca_c_n, c_n_ca) from the
+// header's column order (phi, psi, omega, ...): core/tables.py FIELD_COLS,
+// which a CPU test holds this to
+#define K0_FIELD_COLS {1, 2, 0, 3, 4, 5}
+__constant__ int c_field_cols[6] = K0_FIELD_COLS;
+
+struct K0Class {
+  const uint8_t* recs;       // [8, seg, nl]; plane 0 holds byte 0
+  const float* mins_lane;    // [nl, 6], the header's column order
+  const float* cont_lane;    // [nl, 6]
+  const int* seg_m;          // [nl]
+  int* code;                 // [seg, nl]
+  int* tat;                  // [nl]
+  float* mins6;              // [6, nl]
+  float* cont6;              // [6, nl]
+  int* order;                // [nl]
+  int seg, nl;
+  int sort0;                 // the class's first sort block
+  int unit0;                 // the class's first unit
+};
+struct K0Table {
+  K0Class c[K0_MAX_CLASSES];  // by sort0 and unit0, ascending; none empty
+  int n;
+  int sort_blocks;
+  int units;
+};
+
+// The bucket of seg_m value sm in the pass from key k0, or -1 outside it.
+__device__ __forceinline__ int k0_bucket(int sm, int seg, int k0) {
+  const int k = seg - min(max(sm, 1), seg) - k0;
+  return k >= 0 && k < K0_BUCKETS ? k : -1;
+}
+
+// The warp's lanes whose key is k (each lane's own k).
+__device__ __forceinline__ unsigned k0_peers(int k) {
+  if (__all_sync(0xffffffffu, k == __shfl_sync(0xffffffffu, k, 0)))
+    return 0xffffffffu;
+  return __match_any_sync(0xffffffffu, k);
+}
+
+// Adds the class's lanes [from, to) of each bucket of the pass to hist
+// (shared): thread t takes lanes [from + K0_RUN * i, + K0_RUN) for i = t,
+// t + K0_THREADS, ... (16-byte loads where seg_m + from is 16-byte
+// aligned) and adds each run of one bucket at once.
+__device__ __forceinline__ void k0_count(const K0Class& cl, int from, int to,
+                                         int k0, int* hist) {
+  const bool vec = (reinterpret_cast<uintptr_t>(cl.seg_m + from) & 15) == 0;
+  for (int l0 = from + K0_RUN * (int)threadIdx.x; l0 < to;
+       l0 += K0_RUN * K0_THREADS) {
+    int sm[K0_RUN];
+    if (vec && l0 + K0_RUN <= to) {
+#pragma unroll
+      for (int q = 0; q < K0_RUN / 4; ++q) {
+        const int4 v = __ldg(reinterpret_cast<const int4*>(cl.seg_m + l0) + q);
+        sm[4 * q] = v.x;
+        sm[4 * q + 1] = v.y;
+        sm[4 * q + 2] = v.z;
+        sm[4 * q + 3] = v.w;
+      }
+    } else {
+#pragma unroll
+      for (int q = 0; q < K0_RUN; ++q)
+        sm[q] = l0 + q < to ? __ldg(cl.seg_m + l0 + q) : 0;
+    }
+    int run_k = -1, run_n = 0;
+#pragma unroll
+    for (int q = 0; q < K0_RUN; ++q) {
+      const int k = l0 + q < to ? k0_bucket(sm[q], cl.seg, k0) : -1;
+      if (k != run_k) {
+        if (run_k >= 0) atomicAdd(hist + run_k, run_n);
+        run_k = k;
+        run_n = 0;
+      }
+      ++run_n;
+    }
+    if (run_k >= 0) atomicAdd(hist + run_k, run_n);
+  }
+}
+
+// Walks the warp's run [c0, c1) in pack order, K0_UNROLL rows of 32 at a
+// time: visit(bucket, lane, peers), every thread of the warp at every
+// step.
+template <class Visit>
+__device__ __forceinline__ void k0_walk(const K0Class& cl, int c0, int c1,
+                                        int k0, Visit visit) {
+  const int lane = threadIdx.x & 31;
+  for (int r0 = c0; r0 < c1; r0 += 32 * K0_UNROLL) {
+    int key[K0_UNROLL];
+#pragma unroll
+    for (int u = 0; u < K0_UNROLL; ++u) {
+      const int l = r0 + 32 * u + lane;
+      key[u] = l < c1 ? k0_bucket(__ldg(cl.seg_m + l), cl.seg, k0) : -1;
+    }
+#pragma unroll
+    for (int u = 0; u < K0_UNROLL; ++u)
+      visit(key[u], r0 + 32 * u + lane, k0_peers(key[u]));
+  }
+}
+
+// Block q of class cl's sort blocks: the places of lanes [lo, hi).
+__device__ __forceinline__ void k0_sort(const K0Class& cl, int q) {
+  __shared__ int s_cnt[K0_BUCKETS * K0_WARPS];  // [bucket][warp]
+  __shared__ int s_before[K0_BUCKETS], s_after[K0_BUCKETS];
+  __shared__ int s_part[32];
+  __shared__ int s_total;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const unsigned below = (1u << lane) - 1u;
+  const int lo = q * K0_SORT_LANES, hi = min(lo + K0_SORT_LANES, cl.nl);
+  const int per = (((hi - lo + 31) >> 5) + K0_WARPS - 1) / K0_WARPS;
+  const int c0 = min(lo + warp * per * 32, hi);  // the warp's run
+  const int c1 = min(c0 + per * 32, hi);
+  const int t = threadIdx.x;
+  int base = 0;  // the class's lanes of the passes before
+  for (int k0 = 0; k0 < cl.seg; k0 += K0_BUCKETS) {
+    for (int i = t; i < K0_BUCKETS * K0_WARPS; i += K0_THREADS) s_cnt[i] = 0;
+    for (int i = t; i < K0_BUCKETS; i += K0_THREADS)
+      s_before[i] = s_after[i] = 0;
+    __syncthreads();
+    k0_count(cl, 0, lo, k0, s_before);
+    k0_count(cl, hi, cl.nl, k0, s_after);
+    k0_walk(cl, c0, c1, k0, [&](int k, int, unsigned peers) {
+      if (k >= 0 && (peers & below) == 0)
+        s_cnt[k * K0_WARPS + warp] += __popc(peers);
+      __syncwarp();
+    });
+    __syncthreads();
+    // bucket t's first place for warp w: the class's lanes of smaller
+    // keys, its lanes of key t before lo, those of warps < w
+    int tot = 0, before = 0;
+    if (t < K0_BUCKETS) {
+      before = s_before[t];
+      tot = before + s_after[t];
+#pragma unroll
+      for (int w = 0; w < K0_WARPS; ++w) tot += s_cnt[t * K0_WARPS + w];
+    }
+    int incl = tot;
+    for (int o = 1; o < 32; o <<= 1) {
+      const int y = __shfl_up_sync(0xffffffffu, incl, o);
+      if (lane >= o) incl += y;
+    }
+    if (lane == 31) s_part[warp] = incl;
+    __syncthreads();
+    if (warp == 0) {
+      const int p = lane < K0_WARPS ? s_part[lane] : 0;
+      int x = p;
+      for (int o = 1; o < 32; o <<= 1) {
+        const int y = __shfl_up_sync(0xffffffffu, x, o);
+        if (lane >= o) x += y;
+      }
+      if (lane < K0_WARPS) s_part[lane] = x - p;
+      if (lane == 31) s_total = x;
+    }
+    __syncthreads();
+    if (t < K0_BUCKETS) {
+      int run = base + s_part[warp] + incl - tot + before;
+#pragma unroll
+      for (int w = 0; w < K0_WARPS; ++w) {
+        const int v = s_cnt[t * K0_WARPS + w];
+        s_cnt[t * K0_WARPS + w] = run;
+        run += v;
+      }
+    }
+    base += s_total;
+    __syncthreads();
+    k0_walk(cl, c0, c1, k0, [&](int k, int l, unsigned peers) {
+      if (k >= 0)
+        cl.order[s_cnt[k * K0_WARPS + warp] + __popc(peers & below)] = l;
+      __syncwarp();
+      if (k >= 0 && (peers & below) == 0)
+        s_cnt[k * K0_WARPS + warp] += __popc(peers);
+      __syncwarp();
+    });
+    __syncthreads();  // s_cnt and s_total are read before the next pass
+  }
+}
+
+// Unit j of a class: code slots K0_CODE_UNIT * j .. + K0_CODE_UNIT - 1, or
+// past the code units, lane j - code units.
+__device__ __forceinline__ void k0_unit(const K0Class& cl, int j) {
+  const long long n = (long long)cl.seg * cl.nl;
+  const long long quads = (n + K0_CODE_UNIT - 1) / K0_CODE_UNIT;
+  if (j < quads) {
+    const long long i = (long long)j * K0_CODE_UNIT;
+    const uint8_t* src = cl.recs + i;
+    int* dst = cl.code + i;  // 16-byte aligned (the workspace's slots)
+    if (i + K0_CODE_UNIT <= n &&
+        (reinterpret_cast<uintptr_t>(src) & 3) == 0) {
+      const uint32_t w = __ldg(reinterpret_cast<const unsigned int*>(src));
+      *reinterpret_cast<int4*>(dst) =
+          make_int4((w & 0xff) >> 3, ((w >> 8) & 0xff) >> 3,
+                    ((w >> 16) & 0xff) >> 3, (w >> 24) >> 3);
+    } else {
+      for (long long q = 0; q < K0_CODE_UNIT && i + q < n; ++q)
+        dst[q] = (int)__ldg(src + q) >> 3;
+    }
+    return;
+  }
+  const int l = (int)(j - quads);
+  const int nl = cl.nl;
+  cl.tat[l] = 3 * __ldg(cl.seg_m + l);
+  const float* m = cl.mins_lane + (size_t)l * 6;
+  const float* c = cl.cont_lane + (size_t)l * 6;
+#pragma unroll
+  for (int f = 0; f < 6; ++f) {
+    cl.mins6[(size_t)f * nl + l] = __ldg(m + c_field_cols[f]);
+    cl.cont6[(size_t)f * nl + l] = __ldg(c + c_field_cols[f]);
+  }
+}
+
+__global__ void __launch_bounds__(K0_THREADS)
+k0_prep(const __grid_constant__ K0Table tab) {
+  const int b = blockIdx.x;
+  if (b < tab.sort_blocks) {
+    int ci = 0;  // the last class whose sort blocks start at or before b
+    for (int k = 1; k < tab.n; ++k)
+      if (b >= tab.c[k].sort0) ci = k;
+    k0_sort(tab.c[ci], b - tab.c[ci].sort0);
+    return;
+  }
+  const int stride = ((int)gridDim.x - tab.sort_blocks) * K0_THREADS;
+  for (int u = (b - tab.sort_blocks) * K0_THREADS + (int)threadIdx.x;
+       u < tab.units; u += stride) {
+    int ci = 0;  // the last class whose units start at or before u
+    for (int k = 1; k < tab.n; ++k)
+      if (u >= tab.c[k].unit0) ci = k;
+    k0_unit(tab.c[ci], u - tab.c[ci].unit0);
+  }
 }
 
 // k1: forward scan from the anchor seed, blended 3-atom tail per lane,
@@ -997,6 +1280,50 @@ cudaError_t fd_set_tables(const int* pred32, const float* blen32,
   e = cudaGetLastError();
   if (e == cudaSuccess) e = cudaDeviceSynchronize();
   return e;
+}
+
+// k0 over n_cls width classes in one launch. ptrs: 9 a class (recs,
+// mins_lane, cont_lane, seg_m, then the outputs code, tat, mins6, cont6,
+// order); ints: 4 a class (seg, nl, sort0, unit0), the classes by sort0
+// and unit0, which must follow one another (ceil(nl / K0_SORT_LANES) sort
+// blocks a class; K0_CODE_UNIT code slots a unit, then one a lane) with no
+// class empty (fused_decode.py prep_class_table). The table goes to the
+// kernel by value.
+cudaError_t fd_prep(int n_cls, const void* const* ptrs, const int* ints,
+                    cudaStream_t stream) {
+  if (n_cls < 1 || n_cls > K0_MAX_CLASSES) return cudaErrorInvalidValue;
+  K0Table tab = {};
+  long long sorts = 0, units = 0;
+  for (int k = 0; k < n_cls; ++k) {
+    const void* const* p = ptrs + 9 * k;
+    const int* v = ints + 4 * k;
+    K0Class& c = tab.c[k];
+    c.recs = static_cast<const uint8_t*>(p[0]);
+    c.mins_lane = static_cast<const float*>(p[1]);
+    c.cont_lane = static_cast<const float*>(p[2]);
+    c.seg_m = static_cast<const int*>(p[3]);
+    c.code = static_cast<int*>(const_cast<void*>(p[4]));
+    c.tat = static_cast<int*>(const_cast<void*>(p[5]));
+    c.mins6 = static_cast<float*>(const_cast<void*>(p[6]));
+    c.cont6 = static_cast<float*>(const_cast<void*>(p[7]));
+    c.order = static_cast<int*>(const_cast<void*>(p[8]));
+    c.seg = v[0];
+    c.nl = v[1];
+    c.sort0 = v[2];
+    c.unit0 = v[3];
+    if (c.seg < 1 || c.nl < 1 || c.sort0 != sorts || c.unit0 != units)
+      return cudaErrorInvalidValue;
+    sorts += blocks_for(c.nl, K0_SORT_LANES);
+    units += ((long long)c.seg * c.nl + K0_CODE_UNIT - 1) / K0_CODE_UNIT +
+             c.nl;
+  }
+  if (units > 0x7fffffffLL) return cudaErrorInvalidValue;
+  tab.n = n_cls;
+  tab.sort_blocks = (int)sorts;
+  tab.units = (int)units;
+  k0_prep<<<(unsigned)sorts + blocks_for((size_t)units, K0_THREADS),
+            K0_THREADS, 0, stream>>>(tab);
+  return cudaGetLastError();
 }
 
 // k1 over n_cls width classes in one launch. ptrs: 7 a class (recs,

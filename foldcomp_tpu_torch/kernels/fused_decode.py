@@ -1,5 +1,6 @@
-"""Fused ragged-lane decode: k1 tails, k2 backbone (the seed roll
-inside), k3 side chains, or on the bb wire k2 with its 24-byte epilogue.
+"""Fused ragged-lane decode: k0 the kernel inputs, k1 tails, k2 backbone
+(the seed roll inside), k3 side chains, or on the bb wire k2 with its
+24-byte epilogue.
 
 Counterpart of foldcomp_tpu/kernels/pallas_decode.py `decode_seg_fused`
 (wire "full" and "bb") and `decode_seg_fused_classes` (width classes):
@@ -10,19 +11,20 @@ kernel has
 - a plain PyTorch version (`*_plain`), operation for operation the Pallas
   kernel's math (the bb epilogue: the XLA epilogue's): the CPU path and
   the CUDA kernel's oracle;
-- a wrapper (`tails` and `tails_classes`, `backbone`, `backbone_only`,
-  `sidechain`) that runs the plain version for CPU tensors, and for CUDA
-  tensors checks its inputs and launches the hand-written kernel of
-  csrc/fused_decode.cu, or raises. There is no fallback from a CUDA
-  tensor to the plain version;
+- a wrapper (`prep`, `tails` and `tails_classes`, `backbone`,
+  `backbone_only`, `sidechain`) that runs the plain version for CPU
+  tensors, and for CUDA tensors checks its inputs and launches the
+  hand-written kernel of csrc/fused_decode.cu, or raises. There is no
+  fallback from a CUDA tensor to the plain version;
 - a launch counter, raised by one where the wrapper launches its kernel
-  and nowhere else: K1_LAUNCHES k1_tails (one launch over every width
-  class of a batch), K2_LAUNCHES k2_backbone (with its copy-out, the full
-  wire), K2BB_LAUNCHES k2_backbone_bb (the bb wire's one kernel),
-  K3_LAUNCHES k3_sidechain.
+  and nowhere else: PREP_LAUNCHES k0_prep and K1_LAUNCHES k1_tails (each
+  one launch over every width class of a batch), K2_LAUNCHES k2_backbone
+  (with its copy-out, the full wire), K2BB_LAUNCHES k2_backbone_bb (the
+  bb wire's one kernel), K3_LAUNCHES k3_sidechain.
 
 The pipelines (`decode_seg_fused`, `decode_seg_fused_classes`) make each
-wrapper call a span (tracing): `decode.k1`, `decode.k2`, `decode.k3`.
+wrapper call a span (tracing): `decode.prep`, `decode.k1`, `decode.k2`,
+`decode.k3`.
 
 Layouts are lane-minor ([rows, NL]) as in the pack. Nothing here needs
 autograd or randomness.
@@ -30,6 +32,7 @@ autograd or randomness.
 from __future__ import annotations
 
 import ctypes
+import math
 
 import torch
 
@@ -39,6 +42,7 @@ from .geometry import bond_angle_cs, place_atom_c, place_atom_cs
 
 F32 = torch.float32
 
+PREP_LAUNCHES = 0
 K1_LAUNCHES = 0
 K2_LAUNCHES = 0
 K2BB_LAUNCHES = 0       # the bb call, one kernel: not counted in K2
@@ -52,13 +56,15 @@ _SC_MIN = float(T.SC_MIN)
 
 
 def reset_launch_counts() -> None:
-    global K1_LAUNCHES, K2_LAUNCHES, K2BB_LAUNCHES, K3_LAUNCHES
-    K1_LAUNCHES = K2_LAUNCHES = K2BB_LAUNCHES = K3_LAUNCHES = 0
+    global PREP_LAUNCHES, K1_LAUNCHES, K2_LAUNCHES, K2BB_LAUNCHES, \
+        K3_LAUNCHES
+    PREP_LAUNCHES = K1_LAUNCHES = K2_LAUNCHES = K2BB_LAUNCHES = \
+        K3_LAUNCHES = 0
 
 
 def launch_counts() -> dict:
-    return {"k1": K1_LAUNCHES, "k2": K2_LAUNCHES, "k2_bb": K2BB_LAUNCHES,
-            "k3": K3_LAUNCHES}
+    return {"prep": PREP_LAUNCHES, "k1": K1_LAUNCHES, "k2": K2_LAUNCHES,
+            "k2_bb": K2BB_LAUNCHES, "k3": K3_LAUNCHES}
 
 
 # ---------------------------------------------------------------------------
@@ -70,7 +76,8 @@ def class_prep(seg_records, mins_lane, cont_lane, sc_codes_seg, fwd9, rev9,
     (byte0 >> 3) that k3 reads, the quantizer rows in kernel field order,
     and tat = 3 * seg_m. Records and side-chain codes stay packed u8; the
     kernels unpack them, and k1 and k2 derive the N-CA length from the
-    records themselves (n_ca_lengths is its plain version)."""
+    records themselves (n_ca_lengths is its plain version). With
+    lane_order, the plain version of k0 (`prep`)."""
     dev = seg_records.device
     cols = torch.as_tensor(T.FIELD_COLS, device=dev)
     return dict(
@@ -96,7 +103,8 @@ def n_ca_lengths(recs):
 class LaneOrder:
     """The order k1 and k2 walk a batch's lanes in: perm, i32 [NL], a
     permutation of range(NL). The kernels index the lanes by it, so only
-    lane_order makes one, and the wrappers take no other order."""
+    lane_order and prep (k0, lane_order's order) make one, and the
+    wrappers take no other order."""
     __slots__ = ("perm",)
 
     def __init__(self, perm):
@@ -371,6 +379,144 @@ def _check_out(name, t, dtype, shape, device):
 K1_THREADS = 128
 K1_MAX_CLASSES = 4
 
+# k0's launch (fused_decode.cu k0_prep): K0_THREADS threads a block; a
+# block sorts K0_SORT_LANES lanes of a class, then a thread takes a unit:
+# K0_CODE_UNIT slots of a class's code plane, or one of its lanes
+K0_THREADS = 512
+K0_SORT_LANES = 8192
+K0_CODE_UNIT = 4
+_SLOT_ALIGN = 32        # elements: each k0 output starts 128-byte aligned
+
+
+def _prep_slots(seg, nl):
+    """Each k0 output's shape and offset in one class's part of the
+    workspace (i32 or f32 elements), {name: (shape, element)}: code [SEG,
+    NL], tat [NL], mins6 and cont6 [6, NL], order [NL]; and the part's
+    elements."""
+    slots, at = {}, 0
+    for name, shape in (("code", (seg, nl)), ("tat", (nl,)),
+                        ("mins6", (6, nl)), ("cont6", (6, nl)),
+                        ("order", (nl,))):
+        slots[name] = (shape, at)
+        at += -(-math.prod(shape) // _SLOT_ALIGN) * _SLOT_ALIGN
+    return slots, at
+
+
+def prep_views(ws, wsf, ws0, seg, nl):
+    """One class's k0 outputs as views of the workspace (ws, i32, and wsf,
+    the same memory as f32, both from its start), the class's part from
+    element ws0: {name: tensor} (_prep_slots; mins6 and cont6 f32)."""
+    v = {}
+    for name, (shape, off) in _prep_slots(seg, nl)[0].items():
+        t = wsf if name in ("mins6", "cont6") else ws
+        v[name] = t.as_strided(shape, (nl, 1)[-len(shape):], ws0 + off)
+    return v
+
+
+def _dense(t, dtype=None):
+    """t where it is contiguous and of dtype (None: its own), else a
+    contiguous copy in dtype: no operation on the hot path's tensors."""
+    if t.is_contiguous() and (dtype is None or t.dtype == dtype):
+        return t
+    return t.to(dtype or t.dtype).contiguous()
+
+
+def prep_class_table(nls, segs):
+    """The table of one k0 launch over width classes of nls[c] lanes and
+    SEG segs[c] -> (entries, size, sorts, units): entries (c, ws0, sort0,
+    unit0) for the classes that have lanes, in class order: ws0 the
+    class's first element of the workspace (its outputs at _prep_slots'
+    offsets after it), sort0 its first sort block, unit0 its first unit,
+    each right after the last class's (ceil(nls[c] / K0_SORT_LANES) sort
+    blocks a class; ceil(segs[c] * nls[c] / K0_CODE_UNIT) code units,
+    then nls[c] lane units); size the workspace's elements; sorts the sort
+    blocks; units the units. The kernel's rule: block b < sorts orders
+    lanes [q * K0_SORT_LANES, (q + 1) * K0_SORT_LANES) of the last entry
+    whose sort0 <= b, q = b - sort0; thread t of block b >= sorts takes
+    unit u = (b - sorts) * K0_THREADS + t and every grid-stride step after
+    it, for the last entry whose unit0 <= u: unit j = u - unit0 is code
+    slots [K0_CODE_UNIT * j, K0_CODE_UNIT * (j + 1)) where j < the class's
+    code units, else lane j - its code units."""
+    entries, size, sorts, units = [], 0, 0, 0
+    for c, (nl, seg) in enumerate(zip(nls, segs)):
+        nl, seg = int(nl), int(seg)
+        if nl <= 0:
+            continue
+        entries.append((c, size, sorts, units))
+        size += _prep_slots(seg, nl)[1]
+        sorts += -(-nl // K0_SORT_LANES)
+        units += -(-seg * nl // K0_CODE_UNIT) + nl
+    return entries, size, sorts, units
+
+
+def prep(classes):
+    """k0: class_prep and lane_order of every width class of a batch in
+    one launch. classes: one tuple (seg_records, mins_lane, cont_lane,
+    sc_codes_seg, fwd9, rev9, seg_m) a class, as class_prep takes them ->
+    one dict a class, class_prep's keys and "order" (a LaneOrder, lane
+    order's).
+
+    On the CPU class_prep and lane_order themselves (the plain version).
+    On a CUDA device one workspace holds every class's code, tat, mins6,
+    cont6 and order (_prep_slots), the dicts hold views of it, and k0
+    writes them; the records, side-chain codes and seeds are the caller's
+    tensors (made contiguous), as class_prep leaves them. Nothing is
+    copied from the host and nothing waits for the stream. Counted as one
+    launch of prep."""
+    global PREP_LAUNCHES
+    dev = classes[0][0].device
+    for c in classes:
+        if c[0].device != dev:
+            raise ValueError(f"recs: on {c[0].device}, expected {dev}")
+    if dev.type == "cpu":
+        out = []
+        for c in classes:
+            pr = class_prep(*c)
+            pr["order"] = lane_order(pr["tat"])
+            out.append(pr)
+        return out
+    lib = _cuda_lib(classes[0][0])
+    ins, segs, nls = [], [], []
+    for recs, mins, cont, sct, fwd9, rev9, seg_m in classes:
+        recs, mins, cont = _dense(recs), _dense(mins), _dense(cont)
+        if recs.dim() != 3 or recs.shape[0] != 8:
+            raise ValueError(f"recs: shape {tuple(recs.shape)}, expected "
+                             "[8, SEG, NL]")
+        _, seg, nl = recs.shape
+        seg_m = _dense(seg_m, torch.int32)
+        _check("recs", recs, torch.uint8, (8, seg, nl), dev)
+        _check("mins_lane", mins, F32, (nl, 6), dev)
+        _check("cont_lane", cont, F32, (nl, 6), dev)
+        _check("seg_m", seg_m, torch.int32, (nl,), dev)
+        ins.append((recs, mins, cont, seg_m, _dense(sct), _dense(fwd9),
+                    _dense(rev9)))
+        segs.append(seg)
+        nls.append(nl)
+    entries, size, _, _ = prep_class_table(nls, segs)
+    if len(entries) > K1_MAX_CLASSES:
+        raise ValueError(f"{len(entries)} width classes with lanes: k0 takes "
+                         f"at most {K1_MAX_CLASSES} in a launch")
+    ws = torch.empty((size,), dtype=torch.int32, device=dev)
+    wsf = ws.view(F32)
+    bases = dict((e[0], e[1]) for e in entries)
+    out, flat_p = [], []
+    for c, (recs, mins, cont, seg_m, sct, fwd9, rev9) in enumerate(ins):
+        v = prep_views(ws, wsf, bases.get(c, 0), segs[c], nls[c])
+        out.append(dict(recs=recs, code=v["code"], sct=sct, fwd9=fwd9,
+                        rev9=rev9, tat=v["tat"], mins6=v["mins6"],
+                        cont6=v["cont6"], order=LaneOrder(v["order"])))
+        if c in bases:
+            flat_p += _ptrs(recs, mins, cont, seg_m, v["code"], v["tat"],
+                            v["mins6"], v["cont6"], v["order"])
+    if entries:
+        flat_i = [v for c, _, s0, u0 in entries
+                  for v in (segs[c], nls[c], s0, u0)]
+        _launch(lib.fd_prep, "k0 prep", dev, len(entries),
+                (ctypes.c_void_p * len(flat_p))(*flat_p),
+                (ctypes.c_int * len(flat_i))(*flat_i))
+        PREP_LAUNCHES += 1
+    return out
+
 
 def k1_class_table(nls, segs):
     """The class table of one k1 launch over width classes of nls[c] lanes
@@ -622,19 +768,21 @@ def decode_seg_fused(seg_records, mins_lane, cont_lane, sc_codes_seg,
     [NL, SEG, 3]): N and C as 0.1 mA offsets from CA. Rows s >= seg_m[l]
     are pack padding; on a CUDA device they are left unspecified. The
     tensors' device picks the path: CUDA kernels on a CUDA device, the
-    plain versions on the CPU. k1 and k2 walk the lanes in lane_order; k2
-    takes k1's tails, fwd9 and is_first and rolls the seeds itself."""
+    plain versions on the CPU. k0 (`prep`) makes the kernels' inputs and
+    the lane order, which k1 and k2 walk the lanes in; k2 takes k1's
+    tails, fwd9 and is_first and rolls the seeds itself."""
     if wire not in ("full", "bb"):
         raise ValueError(f"wire {wire!r}: expected 'full' or 'bb'")
-    pr = class_prep(seg_records, mins_lane, cont_lane, sc_codes_seg,
-                    fwd9, rev9, seg_m)
-    order = lane_order(pr["tat"])
+    with tracing.span("decode.prep"):
+        (pr,) = prep([(seg_records, mins_lane, cont_lane, sc_codes_seg,
+                       fwd9, rev9, seg_m)])
+    order = pr["order"]
     rest = (pr["rev9"], pr["tat"], pr["mins6"], pr["cont6"])
     tails9 = None
     if refine_iters >= 2:
         with tracing.span("decode.k1"):
             tails9 = tails(pr["recs"], pr["fwd9"], *rest, order=order)
-    seg_m = seg_m.to(torch.int32).contiguous()
+    seg_m = _dense(seg_m, torch.int32)
     if wire == "bb":
         with tracing.span("decode.k2"):
             return backbone_only(pr["recs"], tails9, pr["fwd9"], is_first,
@@ -659,11 +807,12 @@ def class_rows(recs_t, nl_outs=()):
 def _class_views(flat, recs_t, nl_outs, width):
     """Each class's [nl_out_c, SEG_c, width] rows of the flat [rows,
     width] buffer, at the class's row base."""
-    views, base = [], 0
+    views, base = [], flat.storage_offset()
     for i, n in enumerate(class_rows(recs_t, nl_outs)):
-        views.append(flat[base:base + n].view(n // recs_t[i].shape[1],
-                                              recs_t[i].shape[1], width))
-        base += n
+        seg = recs_t[i].shape[1]
+        views.append(flat.as_strided((n // seg, seg, width),
+                                     (seg * width, width, 1), base))
+        base += n * width
     return views
 
 
@@ -674,13 +823,14 @@ def decode_seg_fused_classes(recs_t, mins_t, cont_t, sct_t, fwd_t, rev_t,
     decode_seg_fused_classes): the arrays of batch_host.split_lanes_classes,
     one tuple entry per class, each class at its own SEG.
 
-    k1 runs once over every class (tails_classes) into one [9, NL_total]
-    tails buffer, class c at its columns; then k2 per class seeds lane l
-    from column prev_idx[base_c + l] of that buffer unless isf_t[c][l] (a
-    protein's lanes may lie in different classes), or from its own fwd9
-    when refine_iters < 2; then k2's copy-out and k3 per class. Per-lane
-    math is that of decode_seg_fused, so the rows are bit-equal lane for
-    lane.
+    k0 makes every class's kernel inputs and lane order in one launch
+    (prep); k1 runs once over every class (tails_classes) into one [9,
+    NL_total] tails buffer, class c at its columns; then k2 per class
+    seeds lane l from column prev_idx[base_c + l] of that buffer unless
+    isf_t[c][l] (a protein's lanes may lie in different classes), or from
+    its own fwd9 when refine_iters < 2; then k2's copy-out and k3 per
+    class. Per-lane math is that of decode_seg_fused, so the rows are
+    bit-equal lane for lane.
 
     Returns JAX's tuple of per-class (off i16 [nl_out_c, SEG_c, 42], ca f32
     [nl_out_c, SEG_c, 3]); each is a view of one flat pair (off [rows, 42],
@@ -688,7 +838,6 @@ def decode_seg_fused_classes(recs_t, mins_t, cont_t, sct_t, fwd_t, rev_t,
     copy takes the batch to the host. out: that flat pair to write into;
     None allocates it. On a CUDA device rows past a lane's seg_m are left
     unspecified; on the CPU the wrappers run the plain versions."""
-    n_cls = len(recs_t)
     dev = recs_t[0].device
     rows = sum(class_rows(recs_t, nl_outs))
     if out is None:
@@ -698,16 +847,16 @@ def decode_seg_fused_classes(recs_t, mins_t, cont_t, sct_t, fwd_t, rev_t,
     _check("out ca", out[1], F32, (rows, 3), dev)
     views = list(zip(_class_views(out[0], recs_t, nl_outs, 42),
                      _class_views(out[1], recs_t, nl_outs, 3)))
-    prs = [class_prep(recs_t[i], mins_t[i], cont_t[i], sct_t[i], fwd_t[i],
-                      rev_t[i], segm_t[i]) for i in range(n_cls)]
-    orders = [lane_order(p["tat"]) for p in prs]
+    with tracing.span("decode.prep"):
+        prs = prep(list(zip(recs_t, mins_t, cont_t, sct_t, fwd_t, rev_t,
+                            segm_t)))
     bases = [0]
     for p in prs:
         bases.append(bases[-1] + p["recs"].shape[2])
     tails_g = None
     if refine_iters >= 2:
         k1_in = [(p["recs"], p["fwd9"], p["rev9"], p["tat"], p["mins6"],
-                  p["cont6"], orders[i]) for i, p in enumerate(prs)]
+                  p["cont6"], p["order"]) for p in prs]
         tails_g = torch.empty((9, bases[-1]), dtype=F32, device=dev)
         with tracing.span("decode.k1"):
             tails_classes(k1_in, tails_g)
@@ -717,8 +866,8 @@ def decode_seg_fused_classes(recs_t, mins_t, cont_t, sct_t, fwd_t, rev_t,
         with tracing.span("decode.k2"):
             bb = backbone(p["recs"], tails_g, p["fwd9"], isf_t[i],
                           p["rev9"], p["tat"], p["mins6"], p["cont6"],
-                          order=orders[i], prev=prev)
-        seg_m = segm_t[i].to(torch.int32).contiguous()
+                          order=p["order"], prev=prev)
+        seg_m = _dense(segm_t[i], torch.int32)
         with tracing.span("decode.k3"):
             sidechain(*bb, p["code"], p["sct"],
                       nl_outs[i] if i < len(nl_outs) else None,

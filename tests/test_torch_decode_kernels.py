@@ -256,7 +256,8 @@ def test_wrappers_run_plain_on_cpu_without_launching(corpus):
                                      512),
                     FD.bb_epilogue_plain(*bb, 512)):
         assert torch.equal(a, b)
-    assert FD.launch_counts() == {"k1": 0, "k2": 0, "k2_bb": 0, "k3": 0}
+    assert FD.launch_counts() == {"prep": 0, "k1": 0, "k2": 0, "k2_bb": 0,
+                                 "k3": 0}
 
 
 def test_wrappers_refuse_other_devices():

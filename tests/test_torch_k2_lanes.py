@@ -91,8 +91,8 @@ def test_lane_order_warps_walk_real_rows(mixed512):
 
 def test_wrappers_take_only_a_lane_order(small):
     """The kernels index the lanes by the order, so the wrappers' checks
-    take a LaneOrder of these lanes and refuse a bare tensor; the pack
-    order is the identity."""
+    take a LaneOrder of these lanes (lane_order's, or k0's from prep) and
+    refuse a bare tensor; the pack order is the identity."""
     _, ta = small["mixed"]
     prep = FD.class_prep(*(ta[k] for k in PACK_KEYS[:6]), ta["seg_m"])
     lane = (prep["rev9"], prep["tat"], prep["mins6"], prep["cont6"])
@@ -102,6 +102,10 @@ def test_wrappers_take_only_a_lane_order(small):
     seeds = {"fwd9": prep["fwd9"]}
     seg = prep["recs"].shape[1]
     assert FD._check_lane_inputs(prep["recs"], *lane, pack, seeds) \
+        == (seg, nl)
+    (k0,) = FD.prep([tuple(ta[k] for k in PACK_KEYS)])
+    assert isinstance(k0["order"], FD.LaneOrder)
+    assert FD._check_lane_inputs(prep["recs"], *lane, k0["order"], seeds) \
         == (seg, nl)
     with pytest.raises(TypeError):
         FD._check_lane_inputs(prep["recs"], *lane, pack.perm, seeds)
