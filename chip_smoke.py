@@ -82,14 +82,19 @@ non-zero:
    the bb call, one kernel (k2_backbone_bb, `fused_decode.backbone_only`),
    against its plain version on phase 2's corpora at refine_iters 1 and 2
    and at B=8192, bit-equal (0 i16 units, 0.0 A CA) on the rows each lane
-   owns; the bb call and the whole bb device decode timed with CUDA
-   events beside the full wire's, the call against its bound; the D2H
-   bytes and seconds of one B=8192 batch on each wire; the link probe's
-   MB/s and the wire it chooses; then `decompress --fast` on phase 5's
-   database with FOLDCOMP_TPU_WIRE=bb in a subprocess, 64 sampled outputs
-   held to phase 5's bound, and the same entry point in this process
-   with the launch counters around it: k1 and k2_bb must have launched,
-   k2 and k3 not;
+   owns; at B=8192 k0's bb mode against its full mode (tat, mins6, cont6
+   and the order bit for bit, no code plane; each mode's device time),
+   and the bb pack as arrays_to_torch holds it (no side-chain codes)
+   decoded bit-equal to the same dict with them held, three dispatches
+   launching k0 in bb mode three times and no k3; the bb call and the
+   whole bb device decode timed with CUDA events beside the full wire's,
+   the call against its bound; the D2H bytes and seconds of one B=8192
+   batch on each wire; the link probe's MB/s and the wire it chooses;
+   then `decompress --fast` on phase 5's database with
+   FOLDCOMP_TPU_WIRE=bb in a subprocess, 64 sampled outputs held to phase
+   5's bound, and the same entry point in this process with the launch
+   counters around it: k1 and k2_bb must have launched, k2 and k3 not,
+   and every k0 launch in bb mode;
 12. db_jobs, the database jobs through the hybrid CPU + GPU scheduler
    (after phase 11's CLI parts, with -t T, T = min(8, CPU count), on a
    database of cli.FAST_DEFAULT_MIN + 1 entries, phase 5's draw extended,
@@ -1279,6 +1284,81 @@ def prep_tests(card):
         raise AssertionError(f"k0 card tests: rc {r.returncode}, {summary}")
 
 
+# k0's outputs that its bb mode writes too (no code plane, no sct)
+PREP_BB_FIELDS = ("recs", "fwd9", "rev9", "tat", "mins6", "cont6", "order")
+
+
+def prep_bb_vs_full(ta):
+    """k0 in bb mode (fused_decode.prep(..., wire="bb"), the side-chain
+    codes not given) against k0 in full mode on one single-class pack's
+    tensors: every output the bb mode writes bit for bit, no code plane;
+    each mode's device time (queued_ms) and the workspace's bytes. Raises
+    on any difference."""
+    import torch
+
+    from foldcomp_tpu_torch.kernels import fused_decode as FD
+    full = [tuple(ta[k] for k in DECODE_KEYS[:6]) + (ta["seg_m"],)]
+    bb = [full[0][:3] + (None,) + full[0][4:]]
+    want, got = FD.prep(full)[0], FD.prep(bb, wire="bb")[0]
+    torch.cuda.synchronize()
+    bad = [k for k in ("code", "sct") if k in got]
+    for k in PREP_BB_FIELDS:
+        a, b = (got[k].perm, want[k].perm) if k == "order" \
+            else (got[k], want[k])
+        if a.dtype != b.dtype or a.shape != b.shape or not torch.equal(
+                a.view(torch.int32) if a.dtype == torch.float32 else a,
+                b.view(torch.int32) if b.dtype == torch.float32 else b):
+            bad.append(k)
+    if bad:
+        raise AssertionError(f"k0 bb mode vs full mode: {bad}")
+    _, seg, nl = ta["seg_records"].shape
+    ws = {m: FD.prep_class_table([nl], [seg], m == "bb")[1] * 4
+          for m in ("full", "bb")}
+    ms = {"full": min(queued_ms(torch, lambda: FD.prep(full), 20)
+                      for _ in range(2)),
+          "bb": min(queued_ms(torch, lambda: FD.prep(bb, wire="bb"), 20)
+                    for _ in range(2))}
+    return {"fields": list(PREP_BB_FIELDS), "differing": bad,
+            "queued_ms": ms, "workspace_bytes": ws, "lanes": nl, "seg": seg}
+
+
+def bb_resident_form(big, dev, err):
+    """The bb pack as arrays_to_torch holds it (no side-chain codes): its
+    dispatch (codec/batch._seg_decode_arrays) against the same dispatch
+    with the side-chain codes held, every row each lane owns bit for bit;
+    three dispatches launch k0 three times, all in bb mode, and no k3;
+    the bytes each form holds on the card. Raises on any difference."""
+    import torch
+
+    from foldcomp_tpu_torch.codec import batch as CB
+    from foldcomp_tpu_torch.kernels import fused_decode as FD
+    arrays, _ = CB.pack_decode_wire(big, True)
+    lean = CB.arrays_to_torch(arrays, dev)
+    if lean["sc_codes_seg"] is not None:
+        raise AssertionError("the bb form holds the side-chain codes")
+    fat = dict(lean, sc_codes_seg=torch.from_numpy(
+        arrays["sc_codes_seg"]).to(dev))
+    got, want = CB._seg_decode_arrays(lean), CB._seg_decode_arrays(fat)
+    torch.cuda.synchronize()
+    d = hold_bb("bb resident form", got[1:], want[1:], lean["seg_m"], err)
+    FD.reset_launch_counts()
+    for _ in range(3):
+        CB._seg_decode_arrays(lean)
+    torch.cuda.synchronize()
+    counts = FD.launch_counts()
+    if not (counts["prep"] == counts["prep_bb"] == counts["k1"]
+            == counts["k2_bb"] == 3 and counts["k2"] == counts["k3"] == 0):
+        raise AssertionError(f"bb dispatch launches {counts}")
+
+    def held(ta):
+        return sum(v.numel() * v.element_size() for v in ta.values()
+                   if torch.is_tensor(v))
+    return {"vs_sc_held": d, "launches_3_dispatches": counts,
+            "held_bytes": {"bb_form": held(lean), "with_sc": held(fat)},
+            "slots": int(arrays["seg_records"].shape[1]
+                         * arrays["seg_records"].shape[2])}
+
+
 def bb_owned_max(got, want, seg_m):
     """(offset units, CA A): the largest |difference| of two bb-wire
     outputs (off [NL_out, SEG, 6], ca [NL_out, SEG, 3]) on the rows each
@@ -1381,6 +1461,8 @@ def bb_device(dev, card, uniq, err, entries=8192):
             recs, t9, fwd9, first, *lane), nl_out)
 
     d = hold_bb(f"B={entries}", bb_call(), plain(), seg_m, err)
+    k0_bb = prep_bb_vs_full(ta)
+    form = bb_resident_form(big, dev, err)
     runs = {"bb_call": [], "full_k2": []}
     for name, fn in (("bb_call", bb_call), ("full_k2", full_k2),
                      ("full_k2", full_k2), ("bb_call", bb_call)):
@@ -1428,7 +1510,8 @@ def bb_device(dev, card, uniq, err, entries=8192):
          / min(x["seconds"] for x in xfer["full"]),
          probe=[{"result": r, "mb_per_s": m} for r, m in probes],
          probe_chooses_bb=in_band,
-         bb_band_mb_per_s=[CB._BB_WIRE_MIN_MBS, CB._BB_WIRE_MAX_MBS])
+         bb_band_mb_per_s=[CB._BB_WIRE_MIN_MBS, CB._BB_WIRE_MAX_MBS],
+         k0_bb_mode=k0_bb, resident_form=form)
     return {"ms": ms, "plain_ms": min(p1, p2), "bound_ms": b_ms,
             "bound_by": b_by}
 
@@ -1480,9 +1563,12 @@ def bb_cli(work, db, names, card, hold):
             os.environ["FOLDCOMP_TPU_WIRE"] = saved
     emit("bb_wire", part="main_path", rc=rc, launches=counts,
          wall_seconds=wall, gpu=card)
-    # the bb call is one kernel, counted as k2_bb and not as k2
+    # the bb call is one kernel, counted as k2_bb and not as k2; k0 runs
+    # in bb mode once a dispatch
     if rc != 0 or not (counts["k1"] > 0 and counts["k2"] == 0
-                       and counts["k2_bb"] > 0 and counts["k3"] == 0):
+                       and counts["k2_bb"] > 0 and counts["k3"] == 0
+                       and counts["prep"] == counts["prep_bb"]
+                       == counts["k1"]):
         raise AssertionError(f"bb main path rc {rc}, launches {counts}")
     return counts
 
@@ -2675,6 +2761,7 @@ def main(argv=None) -> int:
         expect = {"k1": calls["single"] + len(calls["classes"]),
                   "k2": calls["single"] + sum(calls["classes"])}
         expect["prep"] = expect["k1"]
+        expect["prep_bb"] = 0           # the full wire: k0 in full mode
         expect["k3"] = expect["k2"]
         # the batches the stream formed, replayed: which the auto rule
         # splits (its lane count and savings share)

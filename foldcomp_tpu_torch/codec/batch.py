@@ -53,7 +53,8 @@ from .batch_host import (_POOL, _WCLASS_MIN_LANES, _WCLASS_MIN_SAVE,
                          pack_decode_batch_lanes, padded_slots,
                          seg_sort_key, split_lanes_classes, use_wclass)
 
-# pack keys -> tensor dtype on the device
+# pack keys -> tensor dtype on the device (a bb pack ships all but
+# sc_codes_seg: _shipped_keys)
 _ARRAY_DTYPES = {
     "seg_records": torch.uint8, "mins_lane": torch.float32,
     "cont_lane": torch.float32, "sc_codes_seg": torch.uint8,
@@ -161,12 +162,23 @@ def _classes_to_torch(arrays, dev) -> dict:
             "nl_outs": tuple(int(n) for n in arrays["nl_outs"])}
 
 
+def _shipped_keys(arrays):
+    """The keys of a single-class pack that go to the device: every key of
+    _ARRAY_DTYPES, less sc_codes_seg on the bb wire, whose decode (k0 in bb
+    mode, k1, k2_backbone_bb) never reads it: the host places the side
+    chains from each meta's own code stream."""
+    if arrays.get("bb_wire"):
+        return [k for k in _ARRAY_DTYPES if k != "sc_codes_seg"]
+    return list(_ARRAY_DTYPES)
+
+
 def arrays_to_torch(arrays, device) -> dict:
     """The pack's numpy dict (the same one the JAX path takes) -> tensors
     on `device`; `nl_out` stays a host int and `bb_wire` a host bool; a
-    width-classed dict keeps its form (_classes_to_torch). Checks on the
-    host what the kernels take for granted: 1 <= seg_m <= SEG for every
-    lane."""
+    width-classed dict keeps its form (_classes_to_torch). A bb pack's
+    dict holds only what its decode reads: `sc_codes_seg` is None there
+    (_shipped_keys). Checks on the host what the kernels take for
+    granted: 1 <= seg_m <= SEG for every lane."""
     dev = resolve_device(device)
     if "classes" in arrays:
         return _classes_to_torch(arrays, dev)
@@ -175,8 +187,9 @@ def arrays_to_torch(arrays, device) -> dict:
     if seg_m.size and (seg_m.min() < 1 or seg_m.max() > seg):
         raise ValueError(f"seg_m outside [1, {seg}]")
     out = {k: torch.from_numpy(np.ascontiguousarray(arrays[k]))
-           .to(device=dev, dtype=dt)
-           for k, dt in _ARRAY_DTYPES.items()}
+           .to(device=dev, dtype=_ARRAY_DTYPES[k])
+           for k in _shipped_keys(arrays)}
+    out.setdefault("sc_codes_seg", None)
     nl = arrays.get("nl_out")
     out["nl_out"] = int(nl) if nl is not None else None
     out["bb_wire"] = bool(arrays.get("bb_wire"))
@@ -189,7 +202,7 @@ def _seg_decode_arrays(arrays, refine_iters=2):
     decode_seg_fused_classes into one flat buffer, returned as (off [rows,
     1, 42], ca [rows, 1, 3]): the form the flat-row metas index with SEG
     1, which one copy per tensor takes to the host. The call is one
-    `decode.dispatch` span (attributes `classes`, `lanes`), whose
+    `decode.dispatch` span (attributes `classes`, `lanes`, `wire`), whose
     children are k0's launch (decode.prep, the kernels' inputs of every
     class in one workspace) and the kernels' calls (decode.k1, k2, k3):
     the rest of it, and prep, is the host's glue. Nothing in it copies
@@ -200,7 +213,7 @@ def _seg_decode_arrays(arrays, refine_iters=2):
             c = arrays["classes"]
             if sp:
                 sp.set(classes=len(c["recs"]),
-                       lanes=sum(r.shape[2] for r in c["recs"]))
+                       lanes=sum(r.shape[2] for r in c["recs"]), wire="full")
             nl_outs = arrays["nl_outs"]
             rows = sum(fused_decode.class_rows(c["recs"], nl_outs))
             dev = c["recs"][0].device
@@ -210,9 +223,10 @@ def _seg_decode_arrays(arrays, refine_iters=2):
                 *(c[k] for k in _CLASS_DTYPES), arrays["prev_idx"],
                 refine_iters=refine_iters, nl_outs=nl_outs, out=(off, ca))
             return off[:, None], ca[:, None]
-        if sp:
-            sp.set(classes=1, lanes=arrays["seg_records"].shape[2])
         wire = "bb" if arrays.get("bb_wire") else "full"
+        if sp:
+            sp.set(classes=1, lanes=arrays["seg_records"].shape[2],
+                   wire=wire)
         out = fused_decode.decode_seg_fused(
             arrays["seg_records"], arrays["mins_lane"], arrays["cont_lane"],
             arrays["sc_codes_seg"], arrays["fwd9"], arrays["rev9"],
@@ -227,7 +241,7 @@ def _host_bytes(arrays) -> int:
         c = arrays["classes"]
         return sum(np.asarray(a).nbytes for k in _CLASS_DTYPES
                    for a in c[k]) + 4 * np.asarray(arrays["prev_idx"]).size
-    return sum(np.asarray(arrays[k]).nbytes for k in _ARRAY_DTYPES)
+    return sum(np.asarray(arrays[k]).nbytes for k in _shipped_keys(arrays))
 
 
 def _done_event(dev):

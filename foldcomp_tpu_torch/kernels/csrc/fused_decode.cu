@@ -250,6 +250,9 @@ __device__ __forceinline__ V3 get_row(const float* __restrict__ ox,
 //         of the header's columns), f32 [6, NL];
 //   order: the lanes by tat, longest first, stable (a permutation equal to
 //         torch.argsort(tat, descending=True, stable=True)), i32 [NL].
+// In bb mode (the table's `bb`: the backbone-only wire, where no k3 runs
+// to read it) there is no code plane: a class's units are its lanes alone,
+// and the other outputs are those of the full mode, bit for bit.
 // On the TPU path these were XLA operations, and in the port torch's: some
 // ten launches a class, an argsort among them, and a column table copied
 // from the host, which waited for the stream. Here nothing is copied from
@@ -316,6 +319,7 @@ struct K0Table {
   int n;
   int sort_blocks;
   int units;
+  int bb;                     // 1: no code plane (code is null)
 };
 
 // The bucket of seg_m value sm in the pass from key k0, or -1 outside it.
@@ -468,10 +472,10 @@ __device__ __forceinline__ void k0_sort(const K0Class& cl, int q) {
 }
 
 // Unit j of a class: code slots K0_CODE_UNIT * j .. + K0_CODE_UNIT - 1, or
-// past the code units, lane j - code units.
-__device__ __forceinline__ void k0_unit(const K0Class& cl, int j) {
+// past the code units (none in bb mode), lane j - code units.
+__device__ __forceinline__ void k0_unit(const K0Class& cl, int j, int bb) {
   const long long n = (long long)cl.seg * cl.nl;
-  const long long quads = (n + K0_CODE_UNIT - 1) / K0_CODE_UNIT;
+  const long long quads = bb ? 0 : (n + K0_CODE_UNIT - 1) / K0_CODE_UNIT;
   if (j < quads) {
     const long long i = (long long)j * K0_CODE_UNIT;
     const uint8_t* src = cl.recs + i;
@@ -516,7 +520,7 @@ k0_prep(const __grid_constant__ K0Table tab) {
     int ci = 0;  // the last class whose units start at or before u
     for (int k = 1; k < tab.n; ++k)
       if (u >= tab.c[k].unit0) ci = k;
-    k0_unit(tab.c[ci], u - tab.c[ci].unit0);
+    k0_unit(tab.c[ci], u - tab.c[ci].unit0, tab.bb);
   }
 }
 
@@ -1282,16 +1286,18 @@ cudaError_t fd_set_tables(const int* pred32, const float* blen32,
   return e;
 }
 
-// k0 over n_cls width classes in one launch. ptrs: 9 a class (recs,
+// k0 over n_cls width classes in one launch. bb: 1 for bb mode (no code
+// plane; each class's code pointer null). ptrs: 9 a class (recs,
 // mins_lane, cont_lane, seg_m, then the outputs code, tat, mins6, cont6,
 // order); ints: 4 a class (seg, nl, sort0, unit0), the classes by sort0
 // and unit0, which must follow one another (ceil(nl / K0_SORT_LANES) sort
-// blocks a class; K0_CODE_UNIT code slots a unit, then one a lane) with no
-// class empty (fused_decode.py prep_class_table). The table goes to the
-// kernel by value.
-cudaError_t fd_prep(int n_cls, const void* const* ptrs, const int* ints,
-                    cudaStream_t stream) {
-  if (n_cls < 1 || n_cls > K0_MAX_CLASSES) return cudaErrorInvalidValue;
+// blocks a class; K0_CODE_UNIT code slots a unit, none in bb mode, then
+// one a lane) with no class empty (fused_decode.py prep_class_table). The
+// table goes to the kernel by value.
+cudaError_t fd_prep(int n_cls, int bb, const void* const* ptrs,
+                    const int* ints, cudaStream_t stream) {
+  if (n_cls < 1 || n_cls > K0_MAX_CLASSES || (bb != 0 && bb != 1))
+    return cudaErrorInvalidValue;
   K0Table tab = {};
   long long sorts = 0, units = 0;
   for (int k = 0; k < n_cls; ++k) {
@@ -1314,11 +1320,14 @@ cudaError_t fd_prep(int n_cls, const void* const* ptrs, const int* ints,
     if (c.seg < 1 || c.nl < 1 || c.sort0 != sorts || c.unit0 != units)
       return cudaErrorInvalidValue;
     sorts += blocks_for(c.nl, K0_SORT_LANES);
-    units += ((long long)c.seg * c.nl + K0_CODE_UNIT - 1) / K0_CODE_UNIT +
+    units += (bb ? 0
+                 : ((long long)c.seg * c.nl + K0_CODE_UNIT - 1) /
+                       K0_CODE_UNIT) +
              c.nl;
   }
   if (units > 0x7fffffffLL) return cudaErrorInvalidValue;
   tab.n = n_cls;
+  tab.bb = bb;
   tab.sort_blocks = (int)sorts;
   tab.units = (int)units;
   k0_prep<<<(unsigned)sorts + blocks_for((size_t)units, K0_THREADS),

@@ -17,14 +17,16 @@ kernel has
   hand-written kernel of csrc/fused_decode.cu, or raises. There is no
   fallback from a CUDA tensor to the plain version;
 - a launch counter, raised by one where the wrapper launches its kernel
-  and nowhere else: PREP_LAUNCHES k0_prep and K1_LAUNCHES k1_tails (each
-  one launch over every width class of a batch), K2_LAUNCHES k2_backbone
-  (with its copy-out, the full wire), K2BB_LAUNCHES k2_backbone_bb (the
-  bb wire's one kernel), K3_LAUNCHES k3_sidechain.
+  and nowhere else: PREP_LAUNCHES k0_prep (PREP_BB_LAUNCHES those of its
+  launches in bb mode, counted in PREP_LAUNCHES too) and K1_LAUNCHES
+  k1_tails (each one launch over every width class of a batch),
+  K2_LAUNCHES k2_backbone (with its copy-out, the full wire),
+  K2BB_LAUNCHES k2_backbone_bb (the bb wire's one kernel), K3_LAUNCHES
+  k3_sidechain.
 
 The pipelines (`decode_seg_fused`, `decode_seg_fused_classes`) make each
-wrapper call a span (tracing): `decode.prep`, `decode.k1`, `decode.k2`,
-`decode.k3`.
+wrapper call a span (tracing): `decode.prep` (attribute `wire`, "full" or
+"bb"), `decode.k1`, `decode.k2`, `decode.k3`.
 
 Layouts are lane-minor ([rows, NL]) as in the pack. Nothing here needs
 autograd or randomness.
@@ -43,6 +45,7 @@ from .geometry import bond_angle_cs, place_atom_c, place_atom_cs
 F32 = torch.float32
 
 PREP_LAUNCHES = 0
+PREP_BB_LAUNCHES = 0    # k0 in bb mode: also counted in PREP
 K1_LAUNCHES = 0
 K2_LAUNCHES = 0
 K2BB_LAUNCHES = 0       # the bb call, one kernel: not counted in K2
@@ -56,38 +59,43 @@ _SC_MIN = float(T.SC_MIN)
 
 
 def reset_launch_counts() -> None:
-    global PREP_LAUNCHES, K1_LAUNCHES, K2_LAUNCHES, K2BB_LAUNCHES, \
-        K3_LAUNCHES
-    PREP_LAUNCHES = K1_LAUNCHES = K2_LAUNCHES = K2BB_LAUNCHES = \
-        K3_LAUNCHES = 0
+    global PREP_LAUNCHES, PREP_BB_LAUNCHES, K1_LAUNCHES, K2_LAUNCHES, \
+        K2BB_LAUNCHES, K3_LAUNCHES
+    PREP_LAUNCHES = PREP_BB_LAUNCHES = K1_LAUNCHES = K2_LAUNCHES = \
+        K2BB_LAUNCHES = K3_LAUNCHES = 0
 
 
 def launch_counts() -> dict:
-    return {"prep": PREP_LAUNCHES, "k1": K1_LAUNCHES, "k2": K2_LAUNCHES,
-            "k2_bb": K2BB_LAUNCHES, "k3": K3_LAUNCHES}
+    return {"prep": PREP_LAUNCHES, "prep_bb": PREP_BB_LAUNCHES,
+            "k1": K1_LAUNCHES, "k2": K2_LAUNCHES, "k2_bb": K2BB_LAUNCHES,
+            "k3": K3_LAUNCHES}
 
 
 # ---------------------------------------------------------------------------
 # _class_prep (pallas_decode.py:405-437)
 
 def class_prep(seg_records, mins_lane, cont_lane, sc_codes_seg, fwd9, rev9,
-               seg_m) -> dict:
+               seg_m, wire: str = "full") -> dict:
     """Kernel inputs from the pack's arrays: the residue-code plane
     (byte0 >> 3) that k3 reads, the quantizer rows in kernel field order,
     and tat = 3 * seg_m. Records and side-chain codes stay packed u8; the
     kernels unpack them, and k1 and k2 derive the N-CA length from the
-    records themselves (n_ca_lengths is its plain version). With
-    lane_order, the plain version of k0 (`prep`)."""
+    records themselves (n_ca_lengths is its plain version). wire "bb":
+    no k3 runs, so neither the code plane nor the side-chain codes
+    (sc_codes_seg may be None) are among the keys. With lane_order, the
+    plain version of k0 (`prep`)."""
     dev = seg_records.device
     cols = torch.as_tensor(T.FIELD_COLS, device=dev)
-    return dict(
+    out = dict(
         recs=seg_records.contiguous(),
-        code=(seg_records[0].to(torch.int32) >> 3).contiguous(),
-        sct=sc_codes_seg.contiguous(),
         fwd9=fwd9.contiguous(), rev9=rev9.contiguous(),
         tat=(3 * seg_m).to(torch.int32).contiguous(),
         mins6=mins_lane.t()[cols].contiguous(),
         cont6=cont_lane.t()[cols].contiguous())
+    if wire != "bb":
+        out.update(code=(seg_records[0].to(torch.int32) >> 3).contiguous(),
+                   sct=sc_codes_seg.contiguous())
+    return out
 
 
 def n_ca_lengths(recs):
@@ -388,26 +396,28 @@ K0_CODE_UNIT = 4
 _SLOT_ALIGN = 32        # elements: each k0 output starts 128-byte aligned
 
 
-def _prep_slots(seg, nl):
+def _prep_slots(seg, nl, bb=False):
     """Each k0 output's shape and offset in one class's part of the
     workspace (i32 or f32 elements), {name: (shape, element)}: code [SEG,
-    NL], tat [NL], mins6 and cont6 [6, NL], order [NL]; and the part's
-    elements."""
+    NL] (not in bb mode), tat [NL], mins6 and cont6 [6, NL], order [NL];
+    and the part's elements."""
     slots, at = {}, 0
     for name, shape in (("code", (seg, nl)), ("tat", (nl,)),
                         ("mins6", (6, nl)), ("cont6", (6, nl)),
                         ("order", (nl,))):
+        if bb and name == "code":
+            continue
         slots[name] = (shape, at)
         at += -(-math.prod(shape) // _SLOT_ALIGN) * _SLOT_ALIGN
     return slots, at
 
 
-def prep_views(ws, wsf, ws0, seg, nl):
+def prep_views(ws, wsf, ws0, seg, nl, bb=False):
     """One class's k0 outputs as views of the workspace (ws, i32, and wsf,
     the same memory as f32, both from its start), the class's part from
     element ws0: {name: tensor} (_prep_slots; mins6 and cont6 f32)."""
     v = {}
-    for name, (shape, off) in _prep_slots(seg, nl)[0].items():
+    for name, (shape, off) in _prep_slots(seg, nl, bb)[0].items():
         t = wsf if name in ("mins6", "cont6") else ws
         v[name] = t.as_strided(shape, (nl, 1)[-len(shape):], ws0 + off)
     return v
@@ -421,49 +431,54 @@ def _dense(t, dtype=None):
     return t.to(dtype or t.dtype).contiguous()
 
 
-def prep_class_table(nls, segs):
+def prep_class_table(nls, segs, bb=False):
     """The table of one k0 launch over width classes of nls[c] lanes and
     SEG segs[c] -> (entries, size, sorts, units): entries (c, ws0, sort0,
     unit0) for the classes that have lanes, in class order: ws0 the
     class's first element of the workspace (its outputs at _prep_slots'
     offsets after it), sort0 its first sort block, unit0 its first unit,
     each right after the last class's (ceil(nls[c] / K0_SORT_LANES) sort
-    blocks a class; ceil(segs[c] * nls[c] / K0_CODE_UNIT) code units,
-    then nls[c] lane units); size the workspace's elements; sorts the sort
-    blocks; units the units. The kernel's rule: block b < sorts orders
-    lanes [q * K0_SORT_LANES, (q + 1) * K0_SORT_LANES) of the last entry
-    whose sort0 <= b, q = b - sort0; thread t of block b >= sorts takes
-    unit u = (b - sorts) * K0_THREADS + t and every grid-stride step after
-    it, for the last entry whose unit0 <= u: unit j = u - unit0 is code
-    slots [K0_CODE_UNIT * j, K0_CODE_UNIT * (j + 1)) where j < the class's
-    code units, else lane j - its code units."""
+    blocks a class; ceil(segs[c] * nls[c] / K0_CODE_UNIT) code units, none
+    in bb mode, then nls[c] lane units); size the workspace's elements;
+    sorts the sort blocks; units the units. The kernel's rule: block b <
+    sorts orders lanes [q * K0_SORT_LANES, (q + 1) * K0_SORT_LANES) of the
+    last entry whose sort0 <= b, q = b - sort0; thread t of block b >=
+    sorts takes unit u = (b - sorts) * K0_THREADS + t and every
+    grid-stride step after it, for the last entry whose unit0 <= u: unit j
+    = u - unit0 is code slots [K0_CODE_UNIT * j, K0_CODE_UNIT * (j + 1))
+    where j < the class's code units, else lane j - its code units."""
     entries, size, sorts, units = [], 0, 0, 0
     for c, (nl, seg) in enumerate(zip(nls, segs)):
         nl, seg = int(nl), int(seg)
         if nl <= 0:
             continue
         entries.append((c, size, sorts, units))
-        size += _prep_slots(seg, nl)[1]
+        size += _prep_slots(seg, nl, bb)[1]
         sorts += -(-nl // K0_SORT_LANES)
-        units += -(-seg * nl // K0_CODE_UNIT) + nl
+        units += (0 if bb else -(-seg * nl // K0_CODE_UNIT)) + nl
     return entries, size, sorts, units
 
 
-def prep(classes):
+def prep(classes, wire: str = "full"):
     """k0: class_prep and lane_order of every width class of a batch in
     one launch. classes: one tuple (seg_records, mins_lane, cont_lane,
     sc_codes_seg, fwd9, rev9, seg_m) a class, as class_prep takes them ->
     one dict a class, class_prep's keys and "order" (a LaneOrder, lane
-    order's).
+    order's). wire "bb" is k0's bb mode: no code plane is written and the
+    side-chain codes are not taken (None will do), as class_prep leaves
+    them out on that wire.
 
     On the CPU class_prep and lane_order themselves (the plain version).
-    On a CUDA device one workspace holds every class's code, tat, mins6,
-    cont6 and order (_prep_slots), the dicts hold views of it, and k0
-    writes them; the records, side-chain codes and seeds are the caller's
-    tensors (made contiguous), as class_prep leaves them. Nothing is
-    copied from the host and nothing waits for the stream. Counted as one
-    launch of prep."""
-    global PREP_LAUNCHES
+    On a CUDA device one workspace holds every class's code (not in bb
+    mode), tat, mins6, cont6 and order (_prep_slots), the dicts hold views
+    of it, and k0 writes them; the records, side-chain codes and seeds are
+    the caller's tensors (made contiguous), as class_prep leaves them.
+    Nothing is copied from the host and nothing waits for the stream.
+    Counted as one launch of prep (and of prep_bb in bb mode)."""
+    global PREP_LAUNCHES, PREP_BB_LAUNCHES
+    if wire not in ("full", "bb"):
+        raise ValueError(f"wire {wire!r}: expected 'full' or 'bb'")
+    bb = wire == "bb"
     dev = classes[0][0].device
     for c in classes:
         if c[0].device != dev:
@@ -471,7 +486,7 @@ def prep(classes):
     if dev.type == "cpu":
         out = []
         for c in classes:
-            pr = class_prep(*c)
+            pr = class_prep(*c, wire=wire)
             pr["order"] = lane_order(pr["tat"])
             out.append(pr)
         return out
@@ -488,11 +503,11 @@ def prep(classes):
         _check("mins_lane", mins, F32, (nl, 6), dev)
         _check("cont_lane", cont, F32, (nl, 6), dev)
         _check("seg_m", seg_m, torch.int32, (nl,), dev)
-        ins.append((recs, mins, cont, seg_m, _dense(sct), _dense(fwd9),
-                    _dense(rev9)))
+        ins.append((recs, mins, cont, seg_m, None if bb else _dense(sct),
+                    _dense(fwd9), _dense(rev9)))
         segs.append(seg)
         nls.append(nl)
-    entries, size, _, _ = prep_class_table(nls, segs)
+    entries, size, _, _ = prep_class_table(nls, segs, bb)
     if len(entries) > K1_MAX_CLASSES:
         raise ValueError(f"{len(entries)} width classes with lanes: k0 takes "
                          f"at most {K1_MAX_CLASSES} in a launch")
@@ -501,20 +516,24 @@ def prep(classes):
     bases = dict((e[0], e[1]) for e in entries)
     out, flat_p = [], []
     for c, (recs, mins, cont, seg_m, sct, fwd9, rev9) in enumerate(ins):
-        v = prep_views(ws, wsf, bases.get(c, 0), segs[c], nls[c])
-        out.append(dict(recs=recs, code=v["code"], sct=sct, fwd9=fwd9,
-                        rev9=rev9, tat=v["tat"], mins6=v["mins6"],
-                        cont6=v["cont6"], order=LaneOrder(v["order"])))
+        v = prep_views(ws, wsf, bases.get(c, 0), segs[c], nls[c], bb)
+        d = dict(recs=recs, fwd9=fwd9, rev9=rev9, tat=v["tat"],
+                 mins6=v["mins6"], cont6=v["cont6"],
+                 order=LaneOrder(v["order"]))
+        if not bb:
+            d.update(code=v["code"], sct=sct)
+        out.append(d)
         if c in bases:
-            flat_p += _ptrs(recs, mins, cont, seg_m, v["code"], v["tat"],
+            flat_p += _ptrs(recs, mins, cont, seg_m, v.get("code"), v["tat"],
                             v["mins6"], v["cont6"], v["order"])
     if entries:
         flat_i = [v for c, _, s0, u0 in entries
                   for v in (segs[c], nls[c], s0, u0)]
-        _launch(lib.fd_prep, "k0 prep", dev, len(entries),
+        _launch(lib.fd_prep, "k0 prep", dev, len(entries), int(bb),
                 (ctypes.c_void_p * len(flat_p))(*flat_p),
                 (ctypes.c_int * len(flat_i))(*flat_i))
         PREP_LAUNCHES += 1
+        PREP_BB_LAUNCHES += bb
     return out
 
 
@@ -770,12 +789,18 @@ def decode_seg_fused(seg_records, mins_lane, cont_lane, sc_codes_seg,
     tensors' device picks the path: CUDA kernels on a CUDA device, the
     plain versions on the CPU. k0 (`prep`) makes the kernels' inputs and
     the lane order, which k1 and k2 walk the lanes in; k2 takes k1's
-    tails, fwd9 and is_first and rolls the seeds itself."""
+    tails, fwd9 and is_first and rolls the seeds itself. On the bb wire
+    k0 runs in bb mode and sc_codes_seg is not read (None will do)."""
     if wire not in ("full", "bb"):
         raise ValueError(f"wire {wire!r}: expected 'full' or 'bb'")
-    with tracing.span("decode.prep"):
+    if wire == "full" and sc_codes_seg is None:
+        raise ValueError("sc_codes_seg: None, but the full wire's k3 reads "
+                         "it")
+    with tracing.span("decode.prep") as sp:
+        if sp:
+            sp.set(wire=wire)
         (pr,) = prep([(seg_records, mins_lane, cont_lane, sc_codes_seg,
-                       fwd9, rev9, seg_m)])
+                       fwd9, rev9, seg_m)], wire=wire)
     order = pr["order"]
     rest = (pr["rev9"], pr["tat"], pr["mins6"], pr["cont6"])
     tails9 = None
@@ -847,7 +872,9 @@ def decode_seg_fused_classes(recs_t, mins_t, cont_t, sct_t, fwd_t, rev_t,
     _check("out ca", out[1], F32, (rows, 3), dev)
     views = list(zip(_class_views(out[0], recs_t, nl_outs, 42),
                      _class_views(out[1], recs_t, nl_outs, 3)))
-    with tracing.span("decode.prep"):
+    with tracing.span("decode.prep") as sp:
+        if sp:
+            sp.set(wire="full")
         prs = prep(list(zip(recs_t, mins_t, cont_t, sct_t, fwd_t, rev_t,
                             segm_t)))
     bases = [0]

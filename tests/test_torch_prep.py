@@ -40,6 +40,8 @@ PACK_KEYS = ("seg_records", "mins_lane", "cont_lane", "sc_codes_seg",
              "fwd9", "rev9", "seg_m")
 CLASS_KEYS = ("recs", "mins", "cont", "sct", "fwd", "rev", "segm")
 FIELDS = ("recs", "code", "sct", "fwd9", "rev9", "tat", "mins6", "cont6")
+# what k0 gives in bb mode: no code plane, no side-chain codes
+BB_FIELDS = ("recs", "fwd9", "rev9", "tat", "mins6", "cont6")
 
 
 @pytest.fixture(scope="module")
@@ -85,21 +87,30 @@ def _cu_define(name):
 
 
 def _classes(ta):
-    """arrays_to_torch's tensors -> prep's tuples, one a class."""
+    """arrays_to_torch's tensors -> prep's tuples, one a class (a bb
+    pack's side-chain codes None: its dict holds none)."""
     if "classes" in ta:
         c = ta["classes"]
         return list(zip(*(c[k] for k in CLASS_KEYS)))
     return [tuple(ta[k] for k in PACK_KEYS)]
 
 
-def _hold_prep(got, classes):
+def _wire(ta):
+    return "bb" if ta.get("bb_wire") else "full"
+
+
+def _hold_prep(got, classes, wire="full"):
     """Each class's prep dict equal, field for field and in the order, to
-    class_prep + lane_order of the class on the CPU."""
+    class_prep + lane_order of the class on the CPU; in bb mode without
+    the code plane and the side-chain codes."""
     assert len(got) == len(classes)
     for g, c in zip(got, classes):
-        want = FD.class_prep(*(t.cpu() for t in c))
+        want = FD.class_prep(*(None if t is None else t.cpu() for t in c),
+                             wire=wire)
         order = FD.lane_order(want["tat"])
-        for k in FIELDS:
+        if wire == "bb":
+            assert "code" not in g and "sct" not in g
+        for k in (BB_FIELDS if wire == "bb" else FIELDS):
             assert g[k].dtype == want[k].dtype, k
             assert torch.equal(g[k].cpu(), want[k]), k
         assert isinstance(g["order"], FD.LaneOrder)
@@ -114,18 +125,18 @@ def test_prep_cpu_is_class_prep_and_lane_order(form, packs):
     ta = B.arrays_to_torch(packs[form], "cpu")
     classes = _classes(ta)
     FD.reset_launch_counts()
-    got = FD.prep(classes)
+    got = FD.prep(classes, wire=_wire(ta))
     assert FD.launch_counts()["prep"] == 0
-    _hold_prep(got, classes)
+    _hold_prep(got, classes, _wire(ta))
 
 
-def _kernel_cover(nls, segs):
+def _kernel_cover(nls, segs, bb=False):
     """Run the kernel's rule over prep_class_table's table: the sort blocks
     (K0_SORT_LANES lanes of a class each), then every unit of the grid,
-    code slots or a lane. -> (per class: times each code slot is written,
-    times each lane's outputs are written, times each lane is sorted;
-    entries, size)."""
-    entries, size, sorts, units = FD.prep_class_table(nls, segs)
+    code slots (none in bb mode) or a lane. -> (per class: times each code
+    slot is written, times each lane's outputs are written, times each
+    lane is sorted; entries, size)."""
+    entries, size, sorts, units = FD.prep_class_table(nls, segs, bb)
     code = [np.zeros(s * n, int) for s, n in zip(segs, nls)]
     lanes = [np.zeros(n, int) for n in nls]
     sorted_ = [np.zeros(n, int) for n in nls]
@@ -142,7 +153,7 @@ def _kernel_cover(nls, segs):
         u = u[u < units]
         for i, (c, _, _, u0) in enumerate(entries):
             mine = u[np.searchsorted(unit0, u, side="right") - 1 == i] - u0
-            quads = -(-segs[c] * nls[c] // FD.K0_CODE_UNIT)
+            quads = 0 if bb else -(-segs[c] * nls[c] // FD.K0_CODE_UNIT)
             for j in mine[mine < quads]:
                 code[c][j * FD.K0_CODE_UNIT:(j + 1) * FD.K0_CODE_UNIT] += 1
             np.add.at(lanes[c], mine[mine >= quads] - quads, 1)
@@ -185,6 +196,38 @@ def test_prep_class_table_covers_every_lane_once(seed):
             "mins6": ((6, nl), torch.float32),
             "cont6": ((6, nl), torch.float32),
             "order": ((nl,), torch.int32)}
+        for t in v.values():
+            at = (t.data_ptr() - ws.data_ptr()) // 4
+            assert t.is_contiguous() and at % 32 == 0
+            used[at:at + t.numel()] += 1
+    assert used.max() <= 1
+
+
+@pytest.mark.parametrize("seed", range(3))
+def test_prep_class_table_bb_covers_every_lane_once(seed):
+    """k0's bb mode: no code units and no code slot in the workspace;
+    every lane of every class written and sorted once, each class's
+    outputs 128-byte aligned and disjoint; the workspace smaller by the
+    code planes alone."""
+    rng = np.random.default_rng(100 + seed)
+    n_cls = int(rng.integers(1, FD.K1_MAX_CLASSES + 1))
+    nls = [int(rng.integers(1, 3 * FD.K0_SORT_LANES)) for _ in range(n_cls)]
+    segs = [int(rng.integers(1, 50)) for _ in range(n_cls)]
+    code, lanes, sorted_, entries, size = _kernel_cover(nls, segs, bb=True)
+    for c in range(n_cls):
+        assert not code[c].any()
+        assert (lanes[c] == 1).all() and (sorted_[c] == 1).all(), c
+    full = FD.prep_class_table(nls, segs)
+    _, size_bb, sorts_bb, units_bb = FD.prep_class_table(nls, segs, True)
+    assert sorts_bb == full[2] and units_bb == sum(nls)
+    assert size_bb == full[1] - sum(
+        -(-s * n // 32) * 32 for s, n in zip(segs, nls))
+    ws = torch.zeros(size, dtype=torch.int32)
+    used = np.zeros(size, int)
+    for c, ws0, _, _ in entries:
+        v = FD.prep_views(ws, ws.view(torch.float32), ws0, segs[c], nls[c],
+                          bb=True)
+        assert set(v) == {"tat", "mins6", "cont6", "order"}
         for t in v.values():
             at = (t.data_ptr() - ws.data_ptr()) // 4
             assert t.is_contiguous() and at % 32 == 0
@@ -318,12 +361,12 @@ def test_k0_matches_plain_bit_for_bit(case, cuda):
             assert g[k].data_ptr() == t.data_ptr(), k
 
 
-def _torch_glue(classes):
+def _torch_glue(classes, wire="full"):
     """The kernels' inputs as the decode made them before k0: class_prep
     and lane_order of each class, by torch's operations on the card."""
     out = []
     for c in classes:
-        pr = FD.class_prep(*c)
+        pr = FD.class_prep(*c, wire=wire)
         pr["order"] = FD.lane_order(pr["tat"])
         out.append(pr)
     return out
@@ -407,3 +450,47 @@ def test_one_prep_launch_a_dispatch(form, packs, cuda):
     torch.cuda.synchronize()
     counts = FD.launch_counts()
     assert counts["prep"] == 3 and counts["k1"] == 3, counts
+    assert counts["prep_bb"] == (3 if form == "bb" else 0), counts
+    assert counts["k3"] == (0 if form == "bb" else counts["k2"]), counts
+
+
+@pytest.mark.card
+@pytest.mark.parametrize("case", ["ties", "one_lane_empty", "wide",
+                                  "unaligned", "bb_pack"])
+def test_k0_bb_mode_bit_equal_to_full_mode(case, packs, cuda):
+    """k0 in bb mode against k0 in full mode on the same inputs: tat,
+    mins6, cont6 and the order bit for bit, no code plane written, the
+    side-chain codes not taken (None), and the workspace smaller by the
+    code planes; one launch each, one of them counted as prep_bb. The
+    synthetic cases are those of test_k0_matches_plain_bit_for_bit;
+    bb_pack is the bb pack of the fixture, as arrays_to_torch holds it."""
+    if case == "bb_pack":
+        full = _classes(B.arrays_to_torch(packs["single"], cuda))
+        ta = B.arrays_to_torch(packs["bb"], cuda)
+        assert ta["sc_codes_seg"] is None
+        bb_in = _classes(ta)
+    else:
+        rng = np.random.default_rng(len(case))
+        specs = {
+            "ties": [(48, 70000, (48, 47, 25, 24, 3, 1)),
+                     (32, 9000, (32, 26, 25)), (24, 513, (24,)),
+                     (16, 2048, range(1, 17))],
+            "one_lane_empty": [(40, 1, (17,)), (24, 0, (1,)),
+                               (24, 3000, (24, 23, 1))],
+            "wide": [(777, 1500, range(1, 778))],
+            "unaligned": [(13, 1001, (13, 12, 5)), (7, 33, (7, 1))]}[case]
+        full = _synthetic(rng, specs, cuda,
+                          offset=1 if case == "unaligned" else 0)
+        bb_in = [c[:3] + (None,) + c[4:] for c in full]
+    FD.reset_launch_counts()
+    want = FD.prep(full)
+    got = FD.prep(bb_in, wire="bb")
+    torch.cuda.synchronize()
+    assert FD.launch_counts()["prep"] == 2
+    assert FD.launch_counts()["prep_bb"] == 1
+    _hold_prep(got, bb_in, "bb")
+    for g, w in zip(got, want):
+        assert "code" not in g and "sct" not in g
+        for k in ("tat", "mins6", "cont6"):
+            assert torch.equal(_bits(g[k]), _bits(w[k])), k
+        assert torch.equal(g["order"].perm, w["order"].perm)

@@ -160,14 +160,18 @@ def main(argv=None):
             B.pack_decode_wire(fczs, bb, wclass=wclass)[0], "cuda")
         classes = class_args(ta)
         res = host_walls(torch, tracing, B, ta, args.calls)
+        # a checkout whose k0 has a bb mode holds a bb pack without its
+        # side-chain codes, and prepares it in that mode
+        wire = {"wire": "bb" if bb else "full"} \
+            if "prep_bb" in FD.launch_counts() else {}
 
         def glue():
             for c in classes:
-                FD.lane_order(FD.class_prep(*c)["tat"])
+                FD.lane_order(FD.class_prep(*c, **wire)["tat"])
 
         timed = [("glue", glue)]
         if hasattr(FD, "prep"):
-            timed.append(("k0", lambda: FD.prep(classes)))
+            timed.append(("k0", lambda: FD.prep(classes, **wire)))
         runs = {}
         for k, fn in timed + timed[::-1]:
             runs.setdefault(k, []).append(cuda_ms(torch, fn))
