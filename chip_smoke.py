@@ -1611,13 +1611,29 @@ def k1_classed(prs, bases, out=None):
                               pr["order"]) for pr in prs], out)
 
 
+def k2_inputs(prs, bases, prev, tails_g):
+    """backbone_classes' classes of class_inputs' prs: each class's lanes
+    seeded through its slice of prev (none where tails_g is None)."""
+    return [(pr["recs"], pr["fwd9"], pr["isf"], *pr["lane"], pr["order"],
+             None if tails_g is None else prev[bases[i]:bases[i + 1]])
+            for i, pr in enumerate(prs)]
+
+
+def owned_rows(rows, tat):
+    """The rows r < tat[l] of each lane l of [3*SEG, NL] planes, as one
+    flat tensor of their bits a plane."""
+    import torch
+    own = torch.arange(rows[0].shape[0], device=tat.device)[:, None] < tat
+    return [r[own].view(torch.int32) for r in rows]
+
+
 def hold_classes(label, ta, refine_iters, err):
     """decode_seg_fused_classes through the kernels against
     decode_seg_fused_classes_plain on the same classed inputs, on the rows
     each lane of each class owns (s < seg_m), with k1 (one launch over
-    every class into the shared tails) and k2 (seeded through prev_idx)
-    against their plain versions too. Raises past TOL_CLASSES. -> the
-    differences."""
+    every class into the shared tails) and k2 (one launch over every
+    class, seeded through prev_idx) against their plain versions too.
+    Raises past TOL_CLASSES. -> the differences."""
     import torch
 
     from foldcomp_tpu_torch.kernels import fused_decode as FD
@@ -1641,13 +1657,10 @@ def hold_classes(label, ta, refine_iters, err):
         tp = torch.cat([FD.tails_plain(pr["recs"], FD.n_ca_lengths(
             pr["recs"]), pr["fwd9"], *pr["lane"]) for pr in prs], dim=1)
         d["k1"] = (tails_g - tp).abs().max().item()
-    for i, pr in enumerate(prs):
-        p_i = None if tails_g is None else prev[bases[i]:bases[i + 1]]
-        bk = FD.backbone(pr["recs"], tails_g, pr["fwd9"], pr["isf"],
-                         *pr["lane"], order=pr["order"], prev=p_i)
+    k2_in = k2_inputs(prs, bases, prev, tails_g)
+    for c, bk in zip(k2_in, FD.backbone_classes(k2_in, tails_g)):
         d["k2"] = max(d["k2"], owned_max(bk, FD.backbone_rolled_plain(
-            pr["recs"], tails_g, pr["fwd9"], pr["isf"], *pr["lane"], p_i),
-            pr["tat"]))
+            c[0], tails_g, c[1], c[2], *c[3:7], c[8]), c[4]))
     if not (d["k3_off_units"] <= TOL_CLASSES["i16_units"]
             and max(d["k1"], d["k2"], d["k3_ca"]) <= TOL_CLASSES["f32_A"]):
         raise AssertionError(f"{label} r={refine_iters}: classed kernels vs "
@@ -1693,12 +1706,13 @@ def class_device(dev, card, uniq, err, entries=8192):
     classed decode against the single-class one, gathered per protein
     through each pack's metas, bit-equal on every row; each form's slots,
     output bytes, D2H seconds (pageable, as the stream copies), device
-    decode time in turns and peak device memory; k1 over every class in
-    one launch beside the same kernel launched once a class (a one-entry
-    table each; bit-equal), in turns; each class's k1, k2 and k3 by CUDA
-    events and the glue; the launches of a batch (k1 once, classed or
-    not); the host seconds of the pack alone and of the pack with the
-    split."""
+    decode time in turns and peak device memory; k1, and k2 with its
+    copy-out, over every class in one launch beside the same kernel
+    launched once a class (a one-entry table each; bit-equal on every row
+    a lane owns), in turns; each class's k1, k2 and k3 by CUDA events and
+    the glue; the launches of a batch (k0, k1 and k2 once, classed or
+    not, k2 over every class); the host seconds of the pack alone and of
+    the pack with the split."""
     import numpy as np
     import torch
 
@@ -1798,6 +1812,29 @@ def class_device(dev, card, uniq, err, entries=8192):
                      ("per_class", k1_per_class),
                      ("one_launch", lambda: k1_classed(prs, bases, tails_g))):
         k1_runs[form].append(cuda_ms(torch, fn, 20))
+    # k2 the same way: one launch over every class, and once a class
+    k2_in = k2_inputs(prs, bases, prev, tails_g)
+    k2_one = FD.backbone_classes(k2_in, tails_g)
+    for c, one in zip(k2_in, k2_one):
+        each = FD.backbone_classes([c], tails_g)[0]
+        if not all(torch.equal(a, b) for a, b in zip(
+                owned_rows(one, c[4]), owned_rows(each, c[4]))):
+            raise AssertionError(f"B={entries}: k2 in one launch and once a "
+                                 f"class differ (SEG {c[0].shape[1]})")
+    del k2_one, each
+
+    def k2_per_class():
+        for c in k2_in:
+            FD.backbone_classes([c], tails_g)
+
+    k2_runs = {"one_launch": [], "per_class": []}
+    for form, fn in (("one_launch",
+                      lambda: FD.backbone_classes(k2_in, tails_g)),
+                     ("per_class", k2_per_class),
+                     ("per_class", k2_per_class),
+                     ("one_launch",
+                      lambda: FD.backbone_classes(k2_in, tails_g))):
+        k2_runs[form].append(cuda_ms(torch, fn, 20))
     per_class = []
     for i, pr in enumerate(prs):
         def k2(pr=pr, i=i):
@@ -1817,11 +1854,12 @@ def class_device(dev, card, uniq, err, entries=8192):
                               rows=int(pr["recs"].shape[1]) * nl_outs[i],
                               **{f"{k}_ms": v for k, v in t.items()}))
         del bb
-    del tails_g, tails_c, k1_each, args, prs
+    del tails_g, tails_c, k1_each, k2_in, args, prs
     ms = {f: min(v) for f, v in dec.items()}
     k1_ms = {f: min(v) for f, v in k1_runs.items()}
-    kernels_ms = k1_ms["one_launch"] + sum(
-        c[f"{k}_ms"] for c in per_class for k in ("k2", "k3"))
+    k2_ms = {f: min(v) for f, v in k2_runs.items()}
+    kernels_ms = k1_ms["one_launch"] + k2_ms["one_launch"] + sum(
+        c["k3_ms"] for c in per_class)
     emit("wclass", part="device", gpu=card, entries=len(big),
          classes=len(per_class), class_seg=[c["seg"] for c in per_class],
          host_seconds=host_s, kernel_vs_plain=d,
@@ -1829,14 +1867,42 @@ def class_device(dev, card, uniq, err, entries=8192):
          out_bytes={f: 96 * n for f, n in slots.items()}, d2h=xfer,
          device_decode_ms=ms, device_decode_runs_ms=dec,
          k1_classed_ms=k1_ms, k1_classed_runs_ms=k1_runs,
+         k2_classed_ms=k2_ms, k2_classed_runs_ms=k2_runs,
          per_class=per_class, k0_vs_plain=k0_check,
          classed_kernels_ms=kernels_ms,
          classed_glue_ms=ms["classed"] - kernels_ms,
-         peak_device_bytes=mem, launches=launches)
+         peak_device_bytes=mem, launches=launches,
+         k2_backbone_ptxas=k2_occupancy())
     if any(launches[f][k] != 1 for f in ("classed", "single")
-           for k in ("prep", "k1")):
-        raise AssertionError(f"B={entries}: k0 and k1 launches {launches}")
+           for k in ("prep", "k1", "k2")) or \
+            launches["classed"]["k2_classes"] != len(per_class) or \
+            launches["single"]["k2_classes"] != 1:
+        raise AssertionError(f"B={entries}: k0, k1 and k2 launches "
+                             f"{launches}")
     return ms
+
+
+# the registers of an SM, and its resident threads
+SM_REGISTERS = 65536
+SM_THREADS = 2048
+
+
+def k2_occupancy():
+    """k2_backbone's ptxas report from this run's build, with the blocks
+    of 128 threads an SM holds at its registers (allocated 8 a thread at
+    a time). Raises below 7 blocks, the occupancy its walk is tuned at,
+    or on a spill; None where the library was built before this
+    process."""
+    from foldcomp_tpu_torch.kernels import build
+    if build.BUILD_LOG is None:
+        return None
+    rep = ptxas_report(build.BUILD_LOG)["k2_backbone"]
+    regs = -(-rep["registers"] // 8) * 8
+    rep["blocks_per_sm"] = min(SM_REGISTERS // (regs * 128),
+                               SM_THREADS // 128)
+    if rep["blocks_per_sm"] < 7 or rep.get("spill_stores"):
+        raise AssertionError(f"k2_backbone: {rep}")
+    return rep
 
 
 def wclass_cli(db, out_auto, names, card, auto_wall):
@@ -2723,7 +2789,7 @@ def main(argv=None) -> int:
 
         # ---- 6. the main path, launch counters around it ----
         # (FOLDCOMP_TPU_WCLASS as phase 5 had it, auto; the batches that
-        # the rule splits launch k1 once and k2 and k3 once a class: the
+        # the rule splits launch k1 and k2 once and k3 once a class: the
         # decode calls are counted too, to know how many launches to
         # expect)
         out2 = work / "pdb_db_main"
@@ -2757,12 +2823,12 @@ def main(argv=None) -> int:
                 os.environ.pop("FOLDCOMP_TPU_WCLASS")
             else:
                 os.environ["FOLDCOMP_TPU_WCLASS"] = saved
-        # k1 once a batch, k2 and k3 once a class
+        # k1 and k2 once a batch, k2 over every class, k3 once a class
         expect = {"k1": calls["single"] + len(calls["classes"]),
-                  "k2": calls["single"] + sum(calls["classes"])}
-        expect["prep"] = expect["k1"]
+                  "k2_classes": calls["single"] + sum(calls["classes"])}
+        expect["prep"] = expect["k2"] = expect["k1"]
         expect["prep_bb"] = 0           # the full wire: k0 in full mode
-        expect["k3"] = expect["k2"]
+        expect["k3"] = expect["k2_classes"]
         # the batches the stream formed, replayed: which the auto rule
         # splits (its lane count and savings share)
         from foldcomp_tpu_torch import bench_routing

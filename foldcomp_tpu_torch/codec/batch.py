@@ -24,8 +24,8 @@ decode call chooses its wire once (`use_bb_wire`): the full wire ships
 k2 with its epilogue in one kernel, k2_backbone_bb), and the host then
 places O and the side chains with the native codec. A full-wire batch is
 split into width classes (`split_lanes_classes`) where `use_wclass` and
-the savings gate say so, as in foldcomp_tpu: then k1 runs once over every
-class, k2 and k3 once per class, their rows land in one flat buffer, and
+the savings gate say so, as in foldcomp_tpu: then k1 and k2 run once over
+every class, k3 once per class, their rows land in one flat buffer, and
 one copy brings it to the host. The encode
 takes any length and needs no protein block: every batch goes through k4,
 by its compact or its f32 loader.

@@ -12,7 +12,10 @@
 //   k2 fd_backbone   <- _make_backbone_kernel   (pallas_decode.py:227),
 //                       with the seed roll of :596-610 (or, for width
 //                       classes, the prev_idx gather of :654-670) and the
-//                       N-CA lengths of _class_prep (:405-437)
+//                       N-CA lengths of _class_prep (:405-437); every width
+//                       class of a batch in one launch of k2_backbone and
+//                       one of k2_copy_out (_run_backbone_sc once a class,
+//                       :675-677)
 //   k3 fd_sidechain  <- _make_sidechain_kernel  (pallas_decode.py:338)
 //   fd_backbone_bb   <- _run_backbone_only      (pallas_decode.py:529):
 //                       k2 with its XLA epilogue (:561-570) in one kernel,
@@ -766,8 +769,9 @@ struct StageRows {
   __device__ __forceinline__ void residue(int) {}
 };
 
-// k2_backbone, the full wire, in two launches: the lane walks into scratch
-// planes at its thread's column, then k2_copy_out to the lane's.
+// k2_backbone, the full wire, in two launches over every width class of a
+// batch: the lane walks into scratch planes at each thread's column, then
+// k2_copy_out to the lanes' columns.
 //
 // Bound (PERF.md §6): operations, the forward's as k1's (k1 is the same
 // loop without the stores) and the reverse's placements, its 3 sincosf a
@@ -776,43 +780,98 @@ struct StageRows {
 // columns of the output planes, ~0.04 ms in place at the thread's; so they
 // are staged, and the copy moves the 36 B a row at ~2 TB/s with every
 // store a whole line.
-__global__ void __launch_bounds__(128)
-k2_backbone(const uint8_t* __restrict__ recs, const float* __restrict__ tails9,
-            const int* __restrict__ prev, const float* __restrict__ fwd9,
-            const uint8_t* __restrict__ is_first,
-            const float* __restrict__ ranc, const int* __restrict__ tat_,
-            const float* __restrict__ mins6, const float* __restrict__ cont6,
-            const int* __restrict__ order, float* __restrict__ sx,
-            float* __restrict__ sy, float* __restrict__ sz,
-            int* __restrict__ pos, int tails_ld, int seg, int nl) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+//
+// Why one launch takes every class: a thread walks its lane's residues in
+// order, so a class's launch lasts as long as its longest walks however
+// few its lanes, and launches on one stream run one after another. Once a
+// class at B=8192 (4 classes, SEG 24/32/40/48: 23,552, 142,336, 2,048
+// and 2,048 lanes; the two small classes 16 blocks each on 132 SMs), k2
+// and its copy-out took 0.088-0.140, 0.321-0.333, 0.090-0.143 and
+// 0.105-0.110 ms: 0.60-0.73 ms summed, though the three small classes
+// hold 14% of the rows, against 0.417-0.428 ms for the same batch as one
+// class, whose walks are the same arithmetic. So, as k1 (K1Table), each
+// kernel takes a table of up to K1_MAX_CLASSES classes by value and gives
+// each class a range of blocks: k2_backbone the widest class first
+// (fused_decode.py k1_class_table's order and blocks), so that its long
+// walks start first and the bulk class fills the SMs behind them. A block
+// finds its class before the walk; the walk itself (k2_seed, k2_lane,
+// StageRows) is a class's launch's, so every row a lane owns is the same
+// float. The bound is unchanged: the same operations and bytes.
+#define K2_THREADS K1_THREADS  // k2_backbone's block: k1's table's blocks
+#define K2_COPY_THREADS 256
+
+struct K2Class {
+  const uint8_t* recs;       // [8, seg, nl]
+  const float* fwd9;         // [9, nl]
+  const uint8_t* is_first;   // [nl]
+  const float* ranc;         // [9, nl]
+  const int* tat;            // [nl]
+  const float* mins6;        // [6, nl]
+  const float* cont6;        // [6, nl]
+  const int* order;          // [nl], a permutation of the class's lanes
+  const int* prev;           // [nl] columns of tails9, or null: lane l-1
+  float *sx, *sy, *sz;       // [3*seg, nl] scratch, at the thread's column
+  int* pos;                  // [nl] scratch: the thread that walked lane l
+  float *ox, *oy, *oz;       // [3*seg, nl] output planes
+  int seg, nl;
+  int block0;                // the class's first block of k2_backbone
+  int copy0;                 // its first block of k2_copy_out
+};
+struct K2Table {
+  K2Class c[K1_MAX_CLASSES];  // by block0 and copy0, ascending; none empty
+  const float* tails9;        // [9, tails_ld], or null (refine_iters 1)
+  int tails_ld;
+  int n;
+};
+
+__global__ void __launch_bounds__(K2_THREADS)
+k2_backbone(const __grid_constant__ K2Table tab) {
+  int ci = 0;  // the last class whose blocks start at or before this one
+  for (int k = 1; k < tab.n; ++k)
+    if ((int)blockIdx.x >= tab.c[k].block0) ci = k;
+  const K2Class& cl = tab.c[ci];
+  const int nl = cl.nl, seg = cl.seg;
+  const int i = ((int)blockIdx.x - cl.block0) * K2_THREADS + threadIdx.x;
   if (i >= nl) return;
-  const int l = order[i];
-  pos[l] = i;
-  const int tat = min(tat_[l], 3 * seg);
+  const int l = cl.order[i];
+  cl.pos[l] = i;
+  const int tat = min(cl.tat[l], 3 * seg);
   if (tat < 3) return;
   Lane ln;
-  lane_init(&ln, recs, mins6, cont6, seg, nl, l);
+  lane_init(&ln, cl.recs, cl.mins6, cl.cont6, seg, nl, l);
   V3 a, b, c;
-  k2_seed(tails9, prev, fwd9, is_first, tails_ld, nl, l, &a, &b, &c);
+  k2_seed(tab.tails9, cl.prev, cl.fwd9, cl.is_first, tab.tails_ld, nl, l, &a,
+          &b, &c);
+  float* __restrict__ sx = cl.sx;
+  float* __restrict__ sy = cl.sy;
+  float* __restrict__ sz = cl.sz;
   StageRows out{sx, sy, sz, nl, i};
-  k2_lane(ln, a, b, c, ranc, sx, sy, sz, tat, nl, l, i, out);
+  k2_lane(ln, a, b, c, cl.ranc, sx, sy, sz, tat, nl, l, i, out);
 }
 
 // k2's copy-out: residue s (rows 3s .. 3s+2) of lane l, s < seg_m, from
 // the scratch column pos[l] (the thread that walked the lane) to the
-// lane's column of the output planes; one thread per (residue, lane), so a
-// warp stores 32 neighbouring lanes, and loads before it stores.
-__global__ void __launch_bounds__(256)
-k2_copy_out(const float* __restrict__ sx, const float* __restrict__ sy,
-            const float* __restrict__ sz, const int* __restrict__ pos,
-            const int* __restrict__ tat_, float* __restrict__ ox,
-            float* __restrict__ oy, float* __restrict__ oz, int seg,
-            int nl) {
-  const int l = blockIdx.x * blockDim.x + threadIdx.x;
-  const int r = 3 * blockIdx.y;
-  if (l >= nl || r >= min(tat_[l], 3 * seg)) return;
-  const int p = pos[l];
+// lane's column of the class's output planes; one thread per (residue,
+// lane), so a warp stores 32 neighbouring lanes, and loads before it
+// stores. A class's blocks are its ceil(nl / K2_COPY_THREADS) lane blocks
+// for each of its SEG residues, residue-major from copy0, so no block lies
+// past a class's SEG.
+__global__ void __launch_bounds__(K2_COPY_THREADS)
+k2_copy_out(const __grid_constant__ K2Table tab) {
+  int ci = 0;
+  for (int k = 1; k < tab.n; ++k)
+    if ((int)blockIdx.x >= tab.c[k].copy0) ci = k;
+  const K2Class& cl = tab.c[ci];
+  const int nl = cl.nl;
+  const int xb = (nl + K2_COPY_THREADS - 1) / K2_COPY_THREADS;
+  const int b = (int)blockIdx.x - cl.copy0;
+  const int l = (b % xb) * K2_COPY_THREADS + threadIdx.x;
+  const int r = 3 * (b / xb);
+  if (l >= nl || r >= min(cl.tat[l], 3 * cl.seg)) return;
+  const float* __restrict__ sx = cl.sx;
+  const float* __restrict__ sy = cl.sy;
+  const float* __restrict__ sz = cl.sz;
+  const int p = cl.pos[l];
   float v[9];
 #pragma unroll
   for (int k = 0; k < 3; ++k) {
@@ -821,6 +880,9 @@ k2_copy_out(const float* __restrict__ sx, const float* __restrict__ sy,
     v[3 * k + 1] = sy[src];
     v[3 * k + 2] = sz[src];
   }
+  float* __restrict__ ox = cl.ox;
+  float* __restrict__ oy = cl.oy;
+  float* __restrict__ oz = cl.oz;
 #pragma unroll
   for (int k = 0; k < 3; ++k) {
     const size_t dst = (size_t)(r + k) * nl + l;
@@ -1368,31 +1430,68 @@ cudaError_t fd_tails(int n_cls, const void* const* ptrs, const int* ints,
   return cudaGetLastError();
 }
 
-// k2: k2_backbone, then k2_copy_out, on the stream. sx, sy, sz: [3*SEG,
-// NL] float scratch planes, pos: [NL] int scratch. tails9 null: the seeds
-// are fwd9 (refine_iters 1); else [9, tails_ld], read at column prev[l]
-// (prev given) or l-1 (prev null, tails_ld = NL).
-cudaError_t fd_backbone(const uint8_t* recs, const float* tails9,
-                        const int* prev, const float* fwd9,
-                        const uint8_t* is_first, const float* ranc,
-                        const int* tat, const float* mins6,
-                        const float* cont6, const int* order, float* ox,
-                        float* oy, float* oz, float* sx, float* sy,
-                        float* sz, int* pos, int tails_ld, int seg, int nl,
+// k2 over n_cls width classes: k2_backbone, then k2_copy_out, each one
+// launch on the stream. ptrs: 16 a class (recs, fwd9, is_first, ranc, tat,
+// mins6, cont6, order, prev, then the scratch sx, sy, sz, pos and the
+// outputs ox, oy, oz; sx .. oz [3*SEG, NL] float, pos [NL] int); ints: 4 a
+// class (seg, nl, block0, copy0), the classes by block0 and copy0, which
+// must follow one another (ceil(nl / K2_THREADS) blocks a class;
+// ceil(nl / K2_COPY_THREADS) * seg copy blocks) with no class empty
+// (fused_decode.py backbone_classes). tails9 null: the seeds are fwd9
+// (refine_iters 1); else [9, tails_ld], read at column prev[l] (prev given)
+// or l-1 (prev null, one class, tails_ld = NL). The table goes to the
+// kernels by value.
+cudaError_t fd_backbone(int n_cls, const void* const* ptrs, const int* ints,
+                        const float* tails9, int tails_ld,
                         cudaStream_t stream) {
-  k2_backbone<<<blocks_for(nl, 128), 128, 0, stream>>>(
-      recs, tails9, prev, fwd9, is_first, ranc, tat, mins6, cont6, order, sx,
-      sy, sz, pos, tails_ld, seg, nl);
+  if (n_cls < 1 || n_cls > K1_MAX_CLASSES) return cudaErrorInvalidValue;
+  K2Table tab = {};
+  long long blocks = 0, copies = 0;
+  for (int k = 0; k < n_cls; ++k) {
+    const void* const* p = ptrs + 16 * k;
+    const int* v = ints + 4 * k;
+    K2Class& c = tab.c[k];
+    c.recs = static_cast<const uint8_t*>(p[0]);
+    c.fwd9 = static_cast<const float*>(p[1]);
+    c.is_first = static_cast<const uint8_t*>(p[2]);
+    c.ranc = static_cast<const float*>(p[3]);
+    c.tat = static_cast<const int*>(p[4]);
+    c.mins6 = static_cast<const float*>(p[5]);
+    c.cont6 = static_cast<const float*>(p[6]);
+    c.order = static_cast<const int*>(p[7]);
+    c.prev = static_cast<const int*>(p[8]);
+    c.sx = static_cast<float*>(const_cast<void*>(p[9]));
+    c.sy = static_cast<float*>(const_cast<void*>(p[10]));
+    c.sz = static_cast<float*>(const_cast<void*>(p[11]));
+    c.pos = static_cast<int*>(const_cast<void*>(p[12]));
+    c.ox = static_cast<float*>(const_cast<void*>(p[13]));
+    c.oy = static_cast<float*>(const_cast<void*>(p[14]));
+    c.oz = static_cast<float*>(const_cast<void*>(p[15]));
+    c.seg = v[0];
+    c.nl = v[1];
+    c.block0 = v[2];
+    c.copy0 = v[3];
+    if (c.seg < 1 || c.nl < 1 || c.block0 != blocks || c.copy0 != copies)
+      return cudaErrorInvalidValue;
+    blocks += blocks_for(c.nl, K2_THREADS);
+    copies += (long long)blocks_for(c.nl, K2_COPY_THREADS) * c.seg;
+  }
+  if (copies > 0x7fffffffLL) return cudaErrorInvalidValue;
+  tab.tails9 = tails9;
+  tab.tails_ld = tails_ld;
+  tab.n = n_cls;
+  k2_backbone<<<(unsigned)blocks, K2_THREADS, 0, stream>>>(tab);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return e;
-  k2_copy_out<<<dim3(blocks_for(nl, 256), seg), 256, 0, stream>>>(
-      sx, sy, sz, pos, tat, ox, oy, oz, seg, nl);
+  k2_copy_out<<<(unsigned)copies, K2_COPY_THREADS, 0, stream>>>(tab);
   return cudaGetLastError();
 }
 
 // The bb wire in one launch of k2_backbone_bb: off [NL_out, SEG, 6]
 // int16, ca [NL_out, SEG, 3] float; sx, sy, sz: [3*SEG, NL] float scratch
-// planes for the forward rows. tails9, prev and tails_ld as fd_backbone.
+// planes for the forward rows. tails9 null: the seeds are fwd9; else [9,
+// tails_ld], read at column prev[l] (prev given) or l-1 (prev null,
+// tails_ld = NL).
 cudaError_t fd_backbone_bb(const uint8_t* recs, const float* tails9,
                            const int* prev, const float* fwd9,
                            const uint8_t* is_first, const float* ranc,

@@ -11,22 +11,22 @@ kernel has
 - a plain PyTorch version (`*_plain`), operation for operation the Pallas
   kernel's math (the bb epilogue: the XLA epilogue's): the CPU path and
   the CUDA kernel's oracle;
-- a wrapper (`prep`, `tails` and `tails_classes`, `backbone`,
-  `backbone_only`, `sidechain`) that runs the plain version for CPU
+- a wrapper (`prep`, `tails` and `tails_classes`, `backbone` and
+  `backbone_classes`, `backbone_only`, `sidechain`) that runs the plain version for CPU
   tensors, and for CUDA tensors checks its inputs and launches the
   hand-written kernel of csrc/fused_decode.cu, or raises. There is no
   fallback from a CUDA tensor to the plain version;
 - a launch counter, raised by one where the wrapper launches its kernel
   and nowhere else: PREP_LAUNCHES k0_prep (PREP_BB_LAUNCHES those of its
   launches in bb mode, counted in PREP_LAUNCHES too) and K1_LAUNCHES
-  k1_tails (each one launch over every width class of a batch),
-  K2_LAUNCHES k2_backbone (with its copy-out, the full wire),
-  K2BB_LAUNCHES k2_backbone_bb (the bb wire's one kernel), K3_LAUNCHES
-  k3_sidechain.
+  k1_tails and K2_LAUNCHES k2_backbone with its copy-out, the full wire
+  (each one launch over every width class of a batch; K2_CLASSES adds up
+  the classes of k2's launches), K2BB_LAUNCHES k2_backbone_bb (the bb
+  wire's one kernel), K3_LAUNCHES k3_sidechain.
 
 The pipelines (`decode_seg_fused`, `decode_seg_fused_classes`) make each
 wrapper call a span (tracing): `decode.prep` (attribute `wire`, "full" or
-"bb"), `decode.k1`, `decode.k2`, `decode.k3`.
+"bb"), `decode.k1`, `decode.k2` (attribute `classes`), `decode.k3`.
 
 Layouts are lane-minor ([rows, NL]) as in the pack. Nothing here needs
 autograd or randomness.
@@ -48,6 +48,7 @@ PREP_LAUNCHES = 0
 PREP_BB_LAUNCHES = 0    # k0 in bb mode: also counted in PREP
 K1_LAUNCHES = 0
 K2_LAUNCHES = 0
+K2_CLASSES = 0          # the classes k2's launches took, one or more each
 K2BB_LAUNCHES = 0       # the bb call, one kernel: not counted in K2
 K3_LAUNCHES = 0
 
@@ -60,15 +61,15 @@ _SC_MIN = float(T.SC_MIN)
 
 def reset_launch_counts() -> None:
     global PREP_LAUNCHES, PREP_BB_LAUNCHES, K1_LAUNCHES, K2_LAUNCHES, \
-        K2BB_LAUNCHES, K3_LAUNCHES
+        K2_CLASSES, K2BB_LAUNCHES, K3_LAUNCHES
     PREP_LAUNCHES = PREP_BB_LAUNCHES = K1_LAUNCHES = K2_LAUNCHES = \
-        K2BB_LAUNCHES = K3_LAUNCHES = 0
+        K2_CLASSES = K2BB_LAUNCHES = K3_LAUNCHES = 0
 
 
 def launch_counts() -> dict:
     return {"prep": PREP_LAUNCHES, "prep_bb": PREP_BB_LAUNCHES,
-            "k1": K1_LAUNCHES, "k2": K2_LAUNCHES, "k2_bb": K2BB_LAUNCHES,
-            "k3": K3_LAUNCHES}
+            "k1": K1_LAUNCHES, "k2": K2_LAUNCHES, "k2_classes": K2_CLASSES,
+            "k2_bb": K2BB_LAUNCHES, "k3": K3_LAUNCHES}
 
 
 # ---------------------------------------------------------------------------
@@ -622,8 +623,7 @@ def _k2_inputs(recs, tails9, fwd9, is_first, ranc, tat, mins6, cont6,
                order, prev=None):
     """Check k2's lane inputs (tails9 None: refine_iters 1, k2 reads fwd9
     alone; prev given: tails9 is [9, NL_total] and prev i32 [NL]) ->
-    (library, order, SEG, NL); order None is lane_order(tat)."""
-    lib = _cuda_lib(recs)
+    (order, SEG, NL); order None is lane_order(tat)."""
     if order is None:
         order = lane_order(tat)
     if tails9 is None:
@@ -638,28 +638,133 @@ def _k2_inputs(recs, tails9, fwd9, is_first, ranc, tat, mins6, cont6,
                                      {"fwd9": fwd9}, is_first)
         _check("tails9", tails9, F32, (9, tails9.shape[-1]), recs.device)
         _check("prev", prev, torch.int32, (nl,), recs.device)
-    return lib, order, seg, nl
+    return order, seg, nl
 
 
-def _launch_k2(fn, name, lane_args, order, outs, seg, nl, *sizes,
-               prev=None, pos=True):
-    """Launch a k2 launcher (fd_backbone, fd_backbone_bb) with outs (the
-    launcher's tensors between order and the scratch) and [3*SEG, NL] f32
-    scratch planes for the walk's rows, with each lane's scratch column
-    (pos, fd_backbone only) after them. The scratch is freed on return,
-    when the kernels are queued: its memory is reused only by work ordered
-    after them on the stream."""
-    recs, tails9, fwd9, is_first, ranc, tat, mins6, cont6 = lane_args
-    dev = recs.device
-    scratch = [torch.empty((3 * seg, nl), dtype=F32, device=dev)
-               for _ in range(3)]
-    if pos:
-        scratch.append(torch.empty((nl,), dtype=torch.int32, device=dev))
-    tails_ld = nl if tails9 is None else tails9.shape[1]
-    _launch(fn, name, dev,
-            *_ptrs(recs, tails9, prev, fwd9, is_first, ranc, tat, mins6,
-                   cont6, order.perm, *outs, *scratch), tails_ld, seg,
-            nl, *sizes)
+# k2's launches (fused_decode.cu k2_backbone, k2_copy_out): k2_backbone's
+# blocks are k1's (K1_THREADS lanes, k1_class_table); a copy block takes
+# K2_COPY_THREADS lanes of one residue
+K2_COPY_THREADS = 256
+# a class's k2 buffers, in fd_backbone's order
+_K2_BUFFERS = ("sx", "sy", "sz", "pos", "ox", "oy", "oz")
+
+
+def k2_class_table(nls, segs):
+    """The class table of one k2 launch over width classes of nls[c] lanes
+    and SEG segs[c] -> (entries, blocks, copies): entries (c, block0,
+    copy0) for the classes that have lanes and rows, in k1_class_table's
+    order (the widest SEG first) and with its blocks (K1_THREADS lanes a
+    block of k2_backbone), copy0 the entry's first block of k2_copy_out,
+    each entry's ceil(nls[c] / K2_COPY_THREADS) * segs[c] copy blocks
+    right after the last's; blocks and copies the two grids. The copy's
+    rule: block b belongs to the last entry whose copy0 <= b; with xb =
+    ceil(nls[c] / K2_COPY_THREADS), its thread t copies residue (b -
+    copy0) // xb of lane ((b - copy0) % xb) * K2_COPY_THREADS + t where
+    that is < nls[c]."""
+    k1, blocks = k1_class_table(
+        [int(n) if int(s) else 0 for n, s in zip(nls, segs)], segs)
+    entries, copies = [], 0
+    for c, _, b0 in k1:
+        entries.append((c, b0, copies))
+        copies += -(-int(nls[c]) // K2_COPY_THREADS) * int(segs[c])
+    return entries, blocks, copies
+
+
+def k2_slots(nls, segs):
+    """Each width class's k2 buffers in one workspace: the output planes
+    ox, oy, oz and the scratch planes sx, sy, sz, f32 [3*SEG_c, NL_c], and
+    pos, i32 [NL_c], each from a 128-byte aligned element, the classes one
+    after another -> ([{name: (shape, element)}] a class, the workspace's
+    elements)."""
+    slots, at = [], 0
+    for nl, seg in zip(nls, segs):
+        d = {}
+        for name in _K2_BUFFERS:
+            shape = (int(nl),) if name == "pos" else (3 * int(seg), int(nl))
+            d[name] = (shape, at)
+            at += -(-math.prod(shape) // _SLOT_ALIGN) * _SLOT_ALIGN
+        slots.append(d)
+    return slots, at
+
+
+def k2_views(ws, slots, names=_K2_BUFFERS):
+    """One class's k2 buffers `names` as views of the f32 workspace ws
+    (pos through the same memory as i32), its entry of k2_slots ->
+    {name: tensor}."""
+    out = {}
+    for name in names:
+        shape, off = slots[name]
+        t = ws.view(torch.int32) if name == "pos" else ws
+        out[name] = t.as_strided(shape, (shape[-1], 1)[-len(shape):], off)
+    return out
+
+
+def backbone_classes(classes, tails9=None):
+    """k2 over width classes in one launch -> one (bx, by, bz) a class:
+    its blended backbone rows [3*SEG_c, NL_c], those `backbone` gives for
+    it alone.
+
+    classes: one tuple (recs, fwd9, is_first, ranc, tat, mins6, cont6,
+    order, prev) a class, as `backbone` takes them. tails9 None: every
+    lane starts from its own fwd9 (refine_iters 1). Otherwise the tails of
+    every class, [9, NL_total], and lane l of a class starts from column
+    prev[l] (the class's slice of prev_idx) unless is_first[l]; prev None
+    only with one class, as `backbone` has it.
+
+    The inputs are checked on either device. On the CPU
+    backbone_rolled_plain class by class, nothing launched. On a CUDA
+    device one allocation holds every class's output planes, scratch
+    planes and pos (k2_slots; the rows are views of it), and k2_backbone
+    and k2_copy_out each run once over every class with lanes (at most
+    K1_MAX_CLASSES), by k2_class_table: the widest SEG first. Counted as
+    one launch of k2, and its classes in k2_classes."""
+    global K2_LAUNCHES, K2_CLASSES
+    dev = classes[0][0].device
+    if tails9 is not None and len(classes) > 1 and \
+            any(c[8] is None for c in classes):
+        raise ValueError("prev: None with several width classes, whose "
+                         "lanes take their seeds by prev")
+    segs, nls, orders = [], [], []
+    for recs, fwd9, is_first, ranc, tat, mins6, cont6, order, prev \
+            in classes:
+        if recs.device != dev:
+            raise ValueError(f"recs: on {recs.device}, expected {dev}")
+        order, seg, nl = _k2_inputs(recs, tails9, fwd9, is_first, ranc,
+                                    tat, mins6, cont6, order, prev)
+        segs.append(seg)
+        nls.append(nl)
+        orders.append(order)
+    entries, _, _ = k2_class_table(nls, segs)
+    if len(entries) > K1_MAX_CLASSES:
+        raise ValueError(f"{len(entries)} width classes with lanes: k2 takes "
+                         f"at most {K1_MAX_CLASSES} in a launch")
+    if dev.type == "cpu":
+        return [backbone_rolled_plain(recs, tails9, fwd9, is_first, ranc,
+                                      tat, mins6, cont6, prev)
+                for recs, fwd9, is_first, ranc, tat, mins6, cont6, _, prev
+                in classes]
+    lib = _cuda_lib(classes[0][0])
+    slots, size = k2_slots(nls, segs)
+    ws = torch.empty((size,), dtype=F32, device=dev)
+    outs = [tuple(k2_views(ws, sl, ("ox", "oy", "oz")).values())
+            for sl in slots]
+    if entries:
+        flat_p, flat_i = [], []
+        for c, b0, copy0 in entries:
+            recs, fwd9, is_first, ranc, tat, mins6, cont6, _, prev = \
+                classes[c]
+            # the scratch and the outputs by address: 4-byte elements
+            flat_p += _ptrs(recs, fwd9, is_first, ranc, tat, mins6, cont6,
+                            orders[c].perm, prev) + [
+                ws.data_ptr() + 4 * slots[c][k][1] for k in _K2_BUFFERS]
+            flat_i += [segs[c], nls[c], b0, copy0]
+        _launch(lib.fd_backbone, "k2 backbone", dev, len(entries),
+                (ctypes.c_void_p * len(flat_p))(*flat_p),
+                (ctypes.c_int * len(flat_i))(*flat_i),
+                *_ptrs(tails9), 0 if tails9 is None else tails9.shape[1])
+        K2_LAUNCHES += 1
+        K2_CLASSES += len(entries)
+    return outs
 
 
 def backbone(recs, tails9, fwd9, is_first, ranc, tat, mins6, cont6,
@@ -678,20 +783,10 @@ def backbone(recs, tails9, fwd9, is_first, ranc, tat, mins6, cont6,
     unspecified. The plain version on the CPU computes every row. order:
     as for `tails`. The CUDA path is two launches, k2_backbone into
     scratch planes at each thread's column and k2_copy_out to the lanes'
-    columns, counted as one launch of k2."""
-    global K2_LAUNCHES
-    if recs.device.type == "cpu":
-        return backbone_rolled_plain(recs, tails9, fwd9, is_first, ranc,
-                                     tat, mins6, cont6, prev)
-    lane_args = (recs, tails9, fwd9, is_first, ranc, tat, mins6, cont6)
-    lib, order, seg, nl = _k2_inputs(*lane_args, order, prev)
-    outs = tuple(torch.empty((3 * seg, nl), dtype=F32, device=recs.device)
-                 for _ in range(3))
-    if nl and seg:
-        _launch_k2(lib.fd_backbone, "k2 backbone", lane_args, order, outs,
-                   seg, nl, prev=prev)
-        K2_LAUNCHES += 1
-    return outs
+    columns, counted as one launch of k2: backbone_classes with one
+    class."""
+    return backbone_classes([(recs, fwd9, is_first, ranc, tat, mins6, cont6,
+                              order, prev)], tails9)[0]
 
 
 def backbone_only(recs, tails9, fwd9, is_first, ranc, tat, mins6, cont6,
@@ -710,15 +805,23 @@ def backbone_only(recs, tails9, fwd9, is_first, ranc, tat, mins6, cont6,
     if recs.device.type == "cpu":
         return bb_epilogue_plain(*backbone_rolled_plain(
             recs, tails9, fwd9, is_first, ranc, tat, mins6, cont6), nl_out)
-    lane_args = (recs, tails9, fwd9, is_first, ranc, tat, mins6, cont6)
-    lib, order, seg, nl = _k2_inputs(*lane_args, order)
+    lib = _cuda_lib(recs)
+    order, seg, nl = _k2_inputs(recs, tails9, fwd9, is_first, ranc, tat,
+                                mins6, cont6, order)
     dev = recs.device
     nlo = nl if nl_out is None else min(int(nl_out), nl)
     off = torch.empty((nlo, seg, 6), dtype=torch.int16, device=dev)
     ca = torch.empty((nlo, seg, 3), dtype=F32, device=dev)
     if nlo and seg:
-        _launch_k2(lib.fd_backbone_bb, "k2 backbone bb", lane_args, order,
-                   (seg_m, off, ca), seg, nl, nlo, pos=False)
+        # the forward rows' scratch, freed on return when the kernel is
+        # queued: its memory is reused only by work ordered after it on
+        # the stream
+        scratch = [torch.empty((3 * seg, nl), dtype=F32, device=dev)
+                   for _ in range(3)]
+        _launch(lib.fd_backbone_bb, "k2 backbone bb", dev,
+                *_ptrs(recs, tails9, None, fwd9, is_first, ranc, tat, mins6,
+                       cont6, order.perm, seg_m, off, ca, *scratch),
+                nl if tails9 is None else tails9.shape[1], seg, nl, nlo)
         K2BB_LAUNCHES += 1
     return off, ca
 
@@ -809,10 +912,14 @@ def decode_seg_fused(seg_records, mins_lane, cont_lane, sc_codes_seg,
             tails9 = tails(pr["recs"], pr["fwd9"], *rest, order=order)
     seg_m = _dense(seg_m, torch.int32)
     if wire == "bb":
-        with tracing.span("decode.k2"):
+        with tracing.span("decode.k2") as sp:
+            if sp:
+                sp.set(classes=1)
             return backbone_only(pr["recs"], tails9, pr["fwd9"], is_first,
                                  *rest, seg_m, nl_out, order=order)
-    with tracing.span("decode.k2"):
+    with tracing.span("decode.k2") as sp:
+        if sp:
+            sp.set(classes=1)
         bx, by, bz = backbone(pr["recs"], tails9, pr["fwd9"], is_first,
                               *rest, order=order)
     with tracing.span("decode.k3"):
@@ -850,12 +957,12 @@ def decode_seg_fused_classes(recs_t, mins_t, cont_t, sct_t, fwd_t, rev_t,
 
     k0 makes every class's kernel inputs and lane order in one launch
     (prep); k1 runs once over every class (tails_classes) into one [9,
-    NL_total] tails buffer, class c at its columns; then k2 per class
-    seeds lane l from column prev_idx[base_c + l] of that buffer unless
-    isf_t[c][l] (a protein's lanes may lie in different classes), or from
-    its own fwd9 when refine_iters < 2; then k2's copy-out and k3 per
-    class. Per-lane math is that of decode_seg_fused, so the rows are
-    bit-equal lane for lane.
+    NL_total] tails buffer, class c at its columns; then k2 once over
+    every class (backbone_classes) seeds lane l of class c from column
+    prev_idx[base_c + l] of that buffer unless isf_t[c][l] (a protein's
+    lanes may lie in different classes), or from its own fwd9 when
+    refine_iters < 2; then k3 per class. Per-lane math is that of
+    decode_seg_fused, so the rows are bit-equal lane for lane.
 
     Returns JAX's tuple of per-class (off i16 [nl_out_c, SEG_c, 42], ca f32
     [nl_out_c, SEG_c, 3]); each is a view of one flat pair (off [rows, 42],
@@ -887,16 +994,18 @@ def decode_seg_fused_classes(recs_t, mins_t, cont_t, sct_t, fwd_t, rev_t,
         tails_g = torch.empty((9, bases[-1]), dtype=F32, device=dev)
         with tracing.span("decode.k1"):
             tails_classes(k1_in, tails_g)
+    k2_in = [(p["recs"], p["fwd9"], isf_t[i], p["rev9"], p["tat"],
+              p["mins6"], p["cont6"], p["order"],
+              None if tails_g is None else prev_idx[bases[i]:bases[i + 1]])
+             for i, p in enumerate(prs)]
+    with tracing.span("decode.k2") as sp:
+        if sp:
+            sp.set(classes=len(prs))
+        bbs = backbone_classes(k2_in, tails_g)
     for i, p in enumerate(prs):
-        prev = None if tails_g is None else \
-            prev_idx[bases[i]:bases[i + 1]]
-        with tracing.span("decode.k2"):
-            bb = backbone(p["recs"], tails_g, p["fwd9"], isf_t[i],
-                          p["rev9"], p["tat"], p["mins6"], p["cont6"],
-                          order=p["order"], prev=prev)
         seg_m = _dense(segm_t[i], torch.int32)
         with tracing.span("decode.k3"):
-            sidechain(*bb, p["code"], p["sct"],
+            sidechain(*bbs[i], p["code"], p["sct"],
                       nl_outs[i] if i < len(nl_outs) else None,
                       seg_m=seg_m, out=views[i])
     return tuple(views)

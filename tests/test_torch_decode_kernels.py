@@ -257,7 +257,7 @@ def test_wrappers_run_plain_on_cpu_without_launching(corpus):
                     FD.bb_epilogue_plain(*bb, 512)):
         assert torch.equal(a, b)
     assert FD.launch_counts() == {"prep": 0, "prep_bb": 0, "k1": 0, "k2": 0,
-                                 "k2_bb": 0, "k3": 0}
+                                 "k2_classes": 0, "k2_bb": 0, "k3": 0}
 
 
 def test_wrappers_refuse_other_devices():

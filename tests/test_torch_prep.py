@@ -451,7 +451,9 @@ def test_one_prep_launch_a_dispatch(form, packs, cuda):
     counts = FD.launch_counts()
     assert counts["prep"] == 3 and counts["k1"] == 3, counts
     assert counts["prep_bb"] == (3 if form == "bb" else 0), counts
-    assert counts["k3"] == (0 if form == "bb" else counts["k2"]), counts
+    assert counts["k2"] == (0 if form == "bb" else 3), counts
+    assert counts["k3"] == (0 if form == "bb" else counts["k2_classes"]), \
+        counts
 
 
 @pytest.mark.card

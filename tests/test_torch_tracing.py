@@ -251,9 +251,9 @@ def test_compress_fast_spans_once_a_batch(fczs, tmp_path, monkeypatch):
 
 def test_classed_dispatch_one_k1_and_k2_k3_a_class(fczs, monkeypatch):
     """A width-classed batch (wclass "1", the split forced for this small
-    corpus): one decode.dispatch with one decode.prep, one decode.k1 and a
-    decode.k2 and decode.k3 a class inside it; the rows as with recording
-    off."""
+    corpus): one decode.dispatch with one decode.prep, one decode.k1, one
+    decode.k2 (k2 over every class, attribute classes) and a decode.k3 a
+    class inside it; the rows as with recording off."""
     real = H.split_lanes_classes
     monkeypatch.setattr(B, "split_lanes_classes",
                         lambda a, m, min_save: real(a, m, min_save=-100.0))
@@ -270,8 +270,10 @@ def test_classed_dispatch_one_k1_and_k2_k3_a_class(fczs, monkeypatch):
     assert d.attrs["lanes"] == arrays["prev_idx"].shape[0]
     kids = [x for x in s.spans if x.parent == d.id]
     assert sorted(x.name for x in kids if x.name != "python.gc") == \
-        ["decode.k1"] + ["decode.k2"] * n_cls + ["decode.k3"] * n_cls \
+        ["decode.k1", "decode.k2"] + ["decode.k3"] * n_cls \
         + ["decode.prep"]
+    (k2,) = s.named("decode.k2")
+    assert k2.attrs["classes"] == n_cls
 
 
 def test_exporter_writes_the_stream(fczs, tmp_path, monkeypatch):
