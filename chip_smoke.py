@@ -128,8 +128,8 @@ non-zero:
    and encode_long_chain on its first 6,200 residues, bit-identical to
    the one-rank run; then measure_scaling's rows, one world size per
    count of cards, of 2048 entries a rank;
-14. wclass, width-classed lanes (split_lanes_classes and
-   decode_seg_fused_classes; its kernel and device parts run after phase
+14. wclass, width-classed lanes (split_lanes_classes and decode_lanes
+   of several classes; its kernel and device parts run after phase
    11's, its CLI part after phase 5): the classed decode's kernels (k1
    over every class in one launch into the shared tails, k2 seeded
    through prev_idx, k3 into the flat buffer) against
@@ -1153,8 +1153,10 @@ def device_decode(dev, card, uniq, err, entries=8192):
     times["k2"]["order_ms"] = cuda_ms(torch, lambda: FD.lane_order(tat), 10)
     times["prep"] = prep_times(ta, nl_real, err)
     # k3 over every row, the padding's too: what skipping it saves
+    every_row = torch.full_like(ta["seg_m"], int(recs.shape[1]))
     times["k3"]["all_rows_ms"] = cuda_ms(
-        torch, lambda: FD.sidechain(*bb, pr["code"], pr["sct"], nl_out), 10)
+        torch, lambda: FD.sidechain(*bb, pr["code"], pr["sct"], nl_out,
+                                    seg_m=every_row), 10)
     del bb, t9
     ms_kern = min(ms_kern_a, ms_kern_b)
     ms_plain = min(ms_plain_a, ms_plain_b)
@@ -1312,7 +1314,7 @@ def prep_bb_vs_full(ta):
     if bad:
         raise AssertionError(f"k0 bb mode vs full mode: {bad}")
     _, seg, nl = ta["seg_records"].shape
-    ws = {m: FD.prep_class_table([nl], [seg], m == "bb")[1] * 4
+    ws = {m: FD.class_layout([nl], [seg], m).k0_size * 4
           for m in ("full", "bb")}
     ms = {"full": min(queued_ms(torch, lambda: FD.prep(full), 20)
                       for _ in range(2)),
@@ -1628,7 +1630,7 @@ def owned_rows(rows, tat):
 
 
 def hold_classes(label, ta, refine_iters, err):
-    """decode_seg_fused_classes through the kernels against
+    """decode_lanes of width classes through the kernels against
     decode_seg_fused_classes_plain on the same classed inputs, on the rows
     each lane of each class owns (s < seg_m), with k1 (one launch over
     every class into the shared tails) and k2 (one launch over every
@@ -1639,8 +1641,8 @@ def hold_classes(label, ta, refine_iters, err):
     from foldcomp_tpu_torch.kernels import fused_decode as FD
     args, prs, bases = class_inputs(ta)
     prev, nl_outs = ta["prev_idx"], ta["nl_outs"]
-    got = FD.decode_seg_fused_classes(*args, prev, refine_iters=refine_iters,
-                                      nl_outs=nl_outs)
+    got = FD.decode_lanes(*args, prev, refine_iters=refine_iters,
+                          nl_outs=nl_outs)
     want = FD.decode_seg_fused_classes_plain(
         *args, prev, refine_iters=refine_iters, nl_outs=nl_outs)
     d = {"k1": 0.0, "k2": 0.0, "k3_off_units": 0, "k3_ca": 0.0}
@@ -2794,19 +2796,18 @@ def main(argv=None) -> int:
         # expect)
         out2 = work / "pdb_db_main"
         calls = {"single": 0, "classes": []}
-        real = (FD.decode_seg_fused, FD.decode_seg_fused_classes)
+        real = FD.decode_lanes
 
-        def single(*a, **kw):
-            calls["single"] += 1
-            return real[0](*a, **kw)
-
-        def classed(*a, **kw):
-            calls["classes"].append(len(a[0]))
-            return real[1](*a, **kw)
+        def counted(*a, **kw):
+            if len(a[0]) > 1:
+                calls["classes"].append(len(a[0]))
+            else:
+                calls["single"] += 1
+            return real(*a, **kw)
 
         saved = os.environ.get("FOLDCOMP_TPU_WCLASS")
         os.environ["FOLDCOMP_TPU_WCLASS"] = "auto"
-        FD.decode_seg_fused, FD.decode_seg_fused_classes = single, classed
+        FD.decode_lanes = counted
         try:
             FD.reset_launch_counts()
             FE.reset_launch_counts()
@@ -2818,7 +2819,7 @@ def main(argv=None) -> int:
             wall = time.perf_counter() - t0
             counts = {**FD.launch_counts(), **FE.launch_counts()}
         finally:
-            FD.decode_seg_fused, FD.decode_seg_fused_classes = real
+            FD.decode_lanes = real
             if saved is None:
                 os.environ.pop("FOLDCOMP_TPU_WCLASS")
             else:

@@ -61,7 +61,7 @@ _ARRAY_DTYPES = {
     "fwd9": torch.float32, "rev9": torch.float32, "is_first": torch.bool,
     "seg_m": torch.int32}
 # the width classes' keys (split_lanes_classes) -> dtype, in the order of
-# decode_seg_fused_classes' arguments
+# fused_decode.decode_lanes' arguments
 _CLASS_DTYPES = {
     "recs": torch.uint8, "mins": torch.float32, "cont": torch.float32,
     "sct": torch.uint8, "fwd": torch.float32, "rev": torch.float32,
@@ -198,10 +198,11 @@ def arrays_to_torch(arrays, device) -> dict:
 
 def _seg_decode_arrays(arrays, refine_iters=2):
     """Device decode of a ragged-lane tensor dict -> (off, ca) tensors, or
-    ("bb", off, ca) for a bb-wire pack. A width-classed dict goes through
-    decode_seg_fused_classes into one flat buffer, returned as (off [rows,
-    1, 42], ca [rows, 1, 3]): the form the flat-row metas index with SEG
-    1, which one copy per tensor takes to the host. The call is one
+    ("bb", off, ca) for a bb-wire pack; either dict goes to
+    fused_decode.decode_lanes, a single pack as one class. A width-classed
+    dict's rows land in one flat buffer, returned as (off [rows, 1, 42],
+    ca [rows, 1, 3]): the form the flat-row metas index with SEG 1, which
+    one copy per tensor takes to the host. The call is one
     `decode.dispatch` span (attributes `classes`, `lanes`, `wire`), whose
     children are k0's launch (decode.prep, the kernels' inputs of every
     class in one workspace) and the kernels' calls (decode.k1, k2, k3):
@@ -209,30 +210,28 @@ def _seg_decode_arrays(arrays, refine_iters=2):
     from the host or waits for the stream, so the host queues batch after
     batch ahead of the card."""
     with tracing.span("decode.dispatch") as sp:
-        if "classes" in arrays:
+        classed = "classes" in arrays
+        if classed:
             c = arrays["classes"]
-            if sp:
-                sp.set(classes=len(c["recs"]),
-                       lanes=sum(r.shape[2] for r in c["recs"]), wire="full")
+            batch = [c[k] for k in _CLASS_DTYPES] + [arrays["prev_idx"]]
             nl_outs = arrays["nl_outs"]
-            rows = sum(fused_decode.class_rows(c["recs"], nl_outs))
-            dev = c["recs"][0].device
-            off = torch.empty((rows, 42), dtype=torch.int16, device=dev)
-            ca = torch.empty((rows, 3), dtype=torch.float32, device=dev)
-            fused_decode.decode_seg_fused_classes(
-                *(c[k] for k in _CLASS_DTYPES), arrays["prev_idx"],
-                refine_iters=refine_iters, nl_outs=nl_outs, out=(off, ca))
-            return off[:, None], ca[:, None]
+        else:
+            batch = [(arrays[k],) for k in fused_decode.DECODE_ARGS] + [None]
+            nl_outs = (arrays["nl_out"],)
         wire = "bb" if arrays.get("bb_wire") else "full"
         if sp:
-            sp.set(classes=1, lanes=arrays["seg_records"].shape[2],
-                   wire=wire)
-        out = fused_decode.decode_seg_fused(
-            arrays["seg_records"], arrays["mins_lane"], arrays["cont_lane"],
-            arrays["sc_codes_seg"], arrays["fwd9"], arrays["rev9"],
-            arrays["is_first"], arrays["seg_m"], refine_iters=refine_iters,
-            nl_out=arrays["nl_out"], wire=wire)
-        return ("bb",) + out if wire == "bb" else out
+            sp.set(classes=len(batch[0]),
+                   lanes=sum(r.shape[2] for r in batch[0]), wire=wire)
+        outs = fused_decode.decode_lanes(*batch, refine_iters, nl_outs, wire)
+        if wire == "bb":
+            return ("bb",) + outs[0]
+        if not classed:
+            return outs[0]
+        # every class's rows, one after another in one buffer from the
+        # first class's
+        rows = sum(o.shape[0] * o.shape[1] for o, _ in outs)
+        return tuple(t.as_strided((rows, 1, w), (w, w, 1))
+                     for t, w in zip(outs[0], (42, 3)))
 
 
 def _host_bytes(arrays) -> int:

@@ -42,6 +42,7 @@ from .. import tracing
 from ..core.aatable import (ALT_PERM, ATOM_NAMES, MAX_ATOM,
                             N_ATOMS, N_SC_TORSION)
 from ..core.codes import (NUM_AA, THREE_LETTER, three_letter_from_one)
+from ..core.tables import MAX_CLASSES
 from ..io.structure import AtomArray
 from .fcz import FczData, unpack_records
 
@@ -348,7 +349,8 @@ def seg_sort_key(f):
 
 
 def split_lanes_classes(arrays, metas, seg_bucket: int = 8,
-                        max_classes: int = 4, min_save: float = 0.15):
+                        max_classes: int = MAX_CLASSES,
+                        min_save: float = 0.15):
     """Width-classed re-layout of the ragged-lane arrays.
 
     The reference's floored anchor interval hands each protein ONE tail
@@ -359,7 +361,7 @@ def split_lanes_classes(arrays, metas, seg_bucket: int = 8,
     corpus even with width-bucket batching). Here lanes are permuted into
     width CLASSES (each a contiguous range, its own SEG); the re-seed
     coupling becomes an explicit prev-lane index
-    (kernels/fused_decode.decode_seg_fused_classes), and the host
+    (kernels/fused_decode.decode_lanes), and the host
     stitch indices are rewritten to FLAT row numbers over the
     concatenated class outputs (lane_of = row, rec_of = 0, so
     _gather_a14's lane_of*segw+rec_of works verbatim with segw=1).

@@ -37,6 +37,11 @@ SC_MIN = np.float32(-180.0)
 # header's column order (phi, psi, omega, ...) (pallas_decode.py:402)
 FIELD_COLS = np.asarray([1, 2, 0, 3, 4, 5])
 
+# width classes a batch's lanes are split into at most
+# (codec/batch_host.py split_lanes_classes), all of which one launch of
+# k0, k1 or k2 takes (kernels/csrc/fused_decode.cu MAX_CLASSES)
+MAX_CLASSES = 4
+
 N_CODES = 32          # every value of the record's 5-bit residue code
 N_TABLE = 24          # aatable rows
 

@@ -230,9 +230,9 @@ def seed_cache(env) -> str | None:
 def _bind(lib):
     vp, ci = ctypes.c_void_p, ctypes.c_int
     lib.fd_set_tables.argtypes = [vp, vp, vp, vp, ci, ci]
-    lib.fd_prep.argtypes = [ci, ci, vp, vp, vp]
-    lib.fd_tails.argtypes = [ci, vp, vp, vp, ci, vp]
-    lib.fd_backbone.argtypes = [ci, vp, vp, vp, ci, vp]
+    lib.fd_prep.argtypes = [vp, vp, vp]
+    lib.fd_tails.argtypes = [vp, vp, vp, ci, vp]
+    lib.fd_backbone.argtypes = [vp, vp, vp, ci, vp]
     lib.fd_backbone_bb.argtypes = [vp] * 16 + [ci, ci, ci, ci, vp]
     lib.fd_sidechain.argtypes = [vp] * 8 + [ci, ci, ci, vp]
     lib.fe_encode.argtypes = [vp] * 8 + [ci] + [vp] * 6 + [ci, ci, vp]

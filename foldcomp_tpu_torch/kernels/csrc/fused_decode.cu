@@ -243,6 +243,25 @@ __device__ __forceinline__ V3 get_row(const float* __restrict__ ox,
   return v3(ox[i], oy[i], oz[i]);
 }
 
+// A batch's width classes as k0, k1 and k2 take them, laid out once a
+// batch by fused_decode.py class_layout: the classes that have lanes and
+// rows, at most MAX_CLASSES (core/tables.py's, split_lanes_classes' cap),
+// in launch order, the widest SEG first (its walks the longest, so that
+// they start first and the shorter classes fill the SMs behind them; k0's
+// output does not depend on the order). Each kernel's class is a
+// ClassGeom and the kernel's own pointers; the launch takes its table by
+// value (no copy to the device) and read_classes checks the geometry.
+#define MAX_CLASSES 4
+
+struct ClassGeom {
+  int seg, nl;
+  int col0;    // the class's first column of the [9, NL_total] tails
+  int sort0;   // its first sort block of k0
+  int unit0;   // its first unit of k0
+  int block0;  // its first block of k1 and of k2_backbone
+  int copy0;   // its first block of k2_copy_out
+};
+
 // k0: the kernel inputs of every width class of a batch in one launch, what
 // fused_decode.py class_prep and lane_order give (the plain version and
 // the oracle), each class into its slots of one workspace the wrapper
@@ -296,14 +315,13 @@ __device__ __forceinline__ V3 get_row(const float* __restrict__ ox,
 #define K0_UNROLL 4         // rows of 32 lanes loaded at once
 #define K0_RUN 16           // consecutive lanes a thread counts at once
 #define K0_CODE_UNIT 4
-#define K0_MAX_CLASSES 4  // as k1's table
 // decode field order (psi, omega, phi, n_ca_c, ca_c_n, c_n_ca) from the
 // header's column order (phi, psi, omega, ...): core/tables.py FIELD_COLS,
 // which a CPU test holds this to
 #define K0_FIELD_COLS {1, 2, 0, 3, 4, 5}
 __constant__ int c_field_cols[6] = K0_FIELD_COLS;
 
-struct K0Class {
+struct K0Class : ClassGeom {
   const uint8_t* recs;       // [8, seg, nl]; plane 0 holds byte 0
   const float* mins_lane;    // [nl, 6], the header's column order
   const float* cont_lane;    // [nl, 6]
@@ -313,12 +331,9 @@ struct K0Class {
   float* mins6;              // [6, nl]
   float* cont6;              // [6, nl]
   int* order;                // [nl]
-  int seg, nl;
-  int sort0;                 // the class's first sort block
-  int unit0;                 // the class's first unit
 };
 struct K0Table {
-  K0Class c[K0_MAX_CLASSES];  // by sort0 and unit0, ascending; none empty
+  K0Class c[MAX_CLASSES];     // by sort0 and unit0, ascending; none empty
   int n;
   int sort_blocks;
   int units;
@@ -551,7 +566,7 @@ k0_prep(const __grid_constant__ K0Table tab) {
 // give the card all of them at once: a width class alone (a few dozen
 // blocks for the widest class) left most SMs idle, and four class launches
 // ran one after another (~0.20 ms against ~0.09 in one). So one launch
-// takes a table of up to K1_MAX_CLASSES classes by value (no copy to the
+// takes a table of up to MAX_CLASSES classes by value (no copy to the
 // device) and gives each class a range of blocks, the widest class (its
 // lanes the longest walks) the first blocks, so that its walks start first
 // and the shorter classes fill the SMs behind them.
@@ -562,9 +577,8 @@ k0_prep(const __grid_constant__ K0Table tab) {
 // (pallas_decode.py:213-222); k2 gathers its seeds from there through
 // prev.
 #define K1_THREADS 128
-#define K1_MAX_CLASSES 4  // split_lanes_classes makes at most 4
 
-struct K1Class {
+struct K1Class : ClassGeom {
   const uint8_t* recs;  // [8, seg, nl]
   const float* seed;    // [9, nl]
   const float* ranc;    // [9, nl]
@@ -572,12 +586,9 @@ struct K1Class {
   const float* mins6;   // [6, nl]
   const float* cont6;   // [6, nl]
   const int* order;     // [nl], a permutation of the class's lanes
-  int seg, nl;
-  int col0;             // the class's first column of out
-  int block0;           // the class's first block
 };
 struct K1Table {
-  K1Class c[K1_MAX_CLASSES];  // by block0, ascending; none empty
+  K1Class c[MAX_CLASSES];  // by block0, ascending; none empty
   int n;
 };
 
@@ -790,9 +801,9 @@ struct StageRows {
 // 0.105-0.110 ms: 0.60-0.73 ms summed, though the three small classes
 // hold 14% of the rows, against 0.417-0.428 ms for the same batch as one
 // class, whose walks are the same arithmetic. So, as k1 (K1Table), each
-// kernel takes a table of up to K1_MAX_CLASSES classes by value and gives
+// kernel takes a table of up to MAX_CLASSES classes by value and gives
 // each class a range of blocks: k2_backbone the widest class first
-// (fused_decode.py k1_class_table's order and blocks), so that its long
+// (class_layout's order, with k1's blocks), so that its long
 // walks start first and the bulk class fills the SMs behind them. A block
 // finds its class before the walk; the walk itself (k2_seed, k2_lane,
 // StageRows) is a class's launch's, so every row a lane owns is the same
@@ -800,7 +811,7 @@ struct StageRows {
 #define K2_THREADS K1_THREADS  // k2_backbone's block: k1's table's blocks
 #define K2_COPY_THREADS 256
 
-struct K2Class {
+struct K2Class : ClassGeom {
   const uint8_t* recs;       // [8, seg, nl]
   const float* fwd9;         // [9, nl]
   const uint8_t* is_first;   // [nl]
@@ -813,12 +824,9 @@ struct K2Class {
   float *sx, *sy, *sz;       // [3*seg, nl] scratch, at the thread's column
   int* pos;                  // [nl] scratch: the thread that walked lane l
   float *ox, *oy, *oz;       // [3*seg, nl] output planes
-  int seg, nl;
-  int block0;                // the class's first block of k2_backbone
-  int copy0;                 // its first block of k2_copy_out
 };
 struct K2Table {
-  K2Class c[K1_MAX_CLASSES];  // by block0 and copy0, ascending; none empty
+  K2Class c[MAX_CLASSES];     // by block0 and copy0, ascending; none empty
   const float* tails9;        // [9, tails_ld], or null (refine_iters 1)
   int tails_ld;
   int n;
@@ -1327,6 +1335,45 @@ static unsigned blocks_for(size_t n, unsigned threads) {
   return (unsigned)((n + threads - 1) / threads);
 }
 
+// The grids of one batch's classes (read_classes).
+struct ClassGrid {
+  int n, bb;
+  long long sorts, units, blocks, copies;
+};
+
+// Reads one batch's class geometry (fused_decode.py class_layout) into the
+// ClassGeom of c[0 .. n): geo holds n (1 .. MAX_CLASSES), bb (1: k0's bb
+// mode, no code plane), then 7 ints a class (seg, nl, col0, sort0, unit0,
+// block0, copy0) in launch order. Every class has lanes and rows, and each
+// of its ranges starts where the last class's ends: ceil(nl /
+// K0_SORT_LANES) sort blocks and ceil(seg * nl / K0_CODE_UNIT) code units
+// (none in bb mode) then nl lane units of k0, ceil(nl / K1_THREADS) blocks
+// of k1 and k2_backbone, ceil(nl / K2_COPY_THREADS) * seg of k2_copy_out.
+// -> false where that does not hold or a grid passes INT_MAX.
+template <class Class>
+static bool read_classes(const int* geo, Class* c, ClassGrid* g) {
+  *g = ClassGrid{geo[0], geo[1], 0, 0, 0, 0};
+  if (g->n < 1 || g->n > MAX_CLASSES || (g->bb != 0 && g->bb != 1))
+    return false;
+  for (int k = 0; k < g->n; ++k) {
+    const int* v = geo + 2 + 7 * k;
+    ClassGeom& cl = c[k];
+    cl = ClassGeom{v[0], v[1], v[2], v[3], v[4], v[5], v[6]};
+    if (cl.seg < 1 || cl.nl < 1 || cl.col0 < 0 || cl.sort0 != g->sorts ||
+        cl.unit0 != g->units || cl.block0 != g->blocks ||
+        cl.copy0 != g->copies)
+      return false;
+    g->sorts += blocks_for(cl.nl, K0_SORT_LANES);
+    g->units += (g->bb ? 0
+                       : ((long long)cl.seg * cl.nl + K0_CODE_UNIT - 1) /
+                             K0_CODE_UNIT) +
+                cl.nl;
+    g->blocks += blocks_for(cl.nl, K1_THREADS);
+    g->copies += (long long)blocks_for(cl.nl, K2_COPY_THREADS) * cl.seg;
+  }
+  return g->units <= 0x7fffffffLL && g->copies <= 0x7fffffffLL;
+}
+
 extern "C" {
 
 // Fills the current device's __constant__ tables, then derives k3's
@@ -1348,23 +1395,16 @@ cudaError_t fd_set_tables(const int* pred32, const float* blen32,
   return e;
 }
 
-// k0 over n_cls width classes in one launch. bb: 1 for bb mode (no code
-// plane; each class's code pointer null). ptrs: 9 a class (recs,
-// mins_lane, cont_lane, seg_m, then the outputs code, tat, mins6, cont6,
-// order); ints: 4 a class (seg, nl, sort0, unit0), the classes by sort0
-// and unit0, which must follow one another (ceil(nl / K0_SORT_LANES) sort
-// blocks a class; K0_CODE_UNIT code slots a unit, none in bb mode, then
-// one a lane) with no class empty (fused_decode.py prep_class_table). The
-// table goes to the kernel by value.
-cudaError_t fd_prep(int n_cls, int bb, const void* const* ptrs,
-                    const int* ints, cudaStream_t stream) {
-  if (n_cls < 1 || n_cls > K0_MAX_CLASSES || (bb != 0 && bb != 1))
-    return cudaErrorInvalidValue;
+// k0 over a batch's classes in one launch (geo: read_classes). ptrs: 9 a
+// class (recs, mins_lane, cont_lane, seg_m, then the outputs code, tat,
+// mins6, cont6, order; code null in bb mode).
+cudaError_t fd_prep(const void* const* ptrs, const int* geo,
+                    cudaStream_t stream) {
   K0Table tab = {};
-  long long sorts = 0, units = 0;
-  for (int k = 0; k < n_cls; ++k) {
+  ClassGrid g;
+  if (!read_classes(geo, tab.c, &g)) return cudaErrorInvalidValue;
+  for (int k = 0; k < g.n; ++k) {
     const void* const* p = ptrs + 9 * k;
-    const int* v = ints + 4 * k;
     K0Class& c = tab.c[k];
     c.recs = static_cast<const uint8_t*>(p[0]);
     c.mins_lane = static_cast<const float*>(p[1]);
@@ -1375,41 +1415,26 @@ cudaError_t fd_prep(int n_cls, int bb, const void* const* ptrs,
     c.mins6 = static_cast<float*>(const_cast<void*>(p[6]));
     c.cont6 = static_cast<float*>(const_cast<void*>(p[7]));
     c.order = static_cast<int*>(const_cast<void*>(p[8]));
-    c.seg = v[0];
-    c.nl = v[1];
-    c.sort0 = v[2];
-    c.unit0 = v[3];
-    if (c.seg < 1 || c.nl < 1 || c.sort0 != sorts || c.unit0 != units)
-      return cudaErrorInvalidValue;
-    sorts += blocks_for(c.nl, K0_SORT_LANES);
-    units += (bb ? 0
-                 : ((long long)c.seg * c.nl + K0_CODE_UNIT - 1) /
-                       K0_CODE_UNIT) +
-             c.nl;
   }
-  if (units > 0x7fffffffLL) return cudaErrorInvalidValue;
-  tab.n = n_cls;
-  tab.bb = bb;
-  tab.sort_blocks = (int)sorts;
-  tab.units = (int)units;
-  k0_prep<<<(unsigned)sorts + blocks_for((size_t)units, K0_THREADS),
+  tab.n = g.n;
+  tab.bb = g.bb;
+  tab.sort_blocks = (int)g.sorts;
+  tab.units = (int)g.units;
+  k0_prep<<<(unsigned)g.sorts + blocks_for((size_t)g.units, K0_THREADS),
             K0_THREADS, 0, stream>>>(tab);
   return cudaGetLastError();
 }
 
-// k1 over n_cls width classes in one launch. ptrs: 7 a class (recs,
-// seed, ranc, tat, mins6, cont6, order); ints: 4 a class (seg, nl, col0,
-// block0), the classes by block0, which must follow one another with no
-// class empty (fused_decode.py k1_class_table); out [9, *] with row stride
-// out_ld. The table goes to the kernel by value.
-cudaError_t fd_tails(int n_cls, const void* const* ptrs, const int* ints,
-                     float* out, int out_ld, cudaStream_t stream) {
-  if (n_cls < 1 || n_cls > K1_MAX_CLASSES) return cudaErrorInvalidValue;
+// k1 over a batch's classes in one launch (geo: read_classes). ptrs: 7 a
+// class (recs, seed, ranc, tat, mins6, cont6, order); out [9, *] with row
+// stride out_ld.
+cudaError_t fd_tails(const void* const* ptrs, const int* geo, float* out,
+                     int out_ld, cudaStream_t stream) {
   K1Table tab = {};
-  unsigned blocks = 0;
-  for (int k = 0; k < n_cls; ++k) {
+  ClassGrid g;
+  if (!read_classes(geo, tab.c, &g)) return cudaErrorInvalidValue;
+  for (int k = 0; k < g.n; ++k) {
     const void* const* p = ptrs + 7 * k;
-    const int* v = ints + 4 * k;
     K1Class& c = tab.c[k];
     c.recs = static_cast<const uint8_t*>(p[0]);
     c.seed = static_cast<const float*>(p[1]);
@@ -1418,38 +1443,27 @@ cudaError_t fd_tails(int n_cls, const void* const* ptrs, const int* ints,
     c.mins6 = static_cast<const float*>(p[4]);
     c.cont6 = static_cast<const float*>(p[5]);
     c.order = static_cast<const int*>(p[6]);
-    c.seg = v[0];
-    c.nl = v[1];
-    c.col0 = v[2];
-    c.block0 = v[3];
-    if (c.nl < 1 || c.block0 != (int)blocks) return cudaErrorInvalidValue;
-    blocks += blocks_for(c.nl, K1_THREADS);
   }
-  tab.n = n_cls;
-  k1_tails<<<blocks, K1_THREADS, 0, stream>>>(tab, out, out_ld);
+  tab.n = g.n;
+  k1_tails<<<(unsigned)g.blocks, K1_THREADS, 0, stream>>>(tab, out, out_ld);
   return cudaGetLastError();
 }
 
-// k2 over n_cls width classes: k2_backbone, then k2_copy_out, each one
-// launch on the stream. ptrs: 16 a class (recs, fwd9, is_first, ranc, tat,
-// mins6, cont6, order, prev, then the scratch sx, sy, sz, pos and the
-// outputs ox, oy, oz; sx .. oz [3*SEG, NL] float, pos [NL] int); ints: 4 a
-// class (seg, nl, block0, copy0), the classes by block0 and copy0, which
-// must follow one another (ceil(nl / K2_THREADS) blocks a class;
-// ceil(nl / K2_COPY_THREADS) * seg copy blocks) with no class empty
-// (fused_decode.py backbone_classes). tails9 null: the seeds are fwd9
-// (refine_iters 1); else [9, tails_ld], read at column prev[l] (prev given)
-// or l-1 (prev null, one class, tails_ld = NL). The table goes to the
-// kernels by value.
-cudaError_t fd_backbone(int n_cls, const void* const* ptrs, const int* ints,
+// k2 over a batch's classes (geo: read_classes): k2_backbone, then
+// k2_copy_out, each one launch on the stream. ptrs: 16 a class (recs,
+// fwd9, is_first, ranc, tat, mins6, cont6, order, prev, then the scratch
+// sx, sy, sz, pos and the outputs ox, oy, oz; sx .. oz [3*SEG, NL] float,
+// pos [NL] int). tails9 null: the seeds are fwd9 (refine_iters 1); else
+// [9, tails_ld], read at column prev[l] (prev given) or l-1 (prev null,
+// one class, tails_ld = NL).
+cudaError_t fd_backbone(const void* const* ptrs, const int* geo,
                         const float* tails9, int tails_ld,
                         cudaStream_t stream) {
-  if (n_cls < 1 || n_cls > K1_MAX_CLASSES) return cudaErrorInvalidValue;
   K2Table tab = {};
-  long long blocks = 0, copies = 0;
-  for (int k = 0; k < n_cls; ++k) {
+  ClassGrid g;
+  if (!read_classes(geo, tab.c, &g)) return cudaErrorInvalidValue;
+  for (int k = 0; k < g.n; ++k) {
     const void* const* p = ptrs + 16 * k;
-    const int* v = ints + 4 * k;
     K2Class& c = tab.c[k];
     c.recs = static_cast<const uint8_t*>(p[0]);
     c.fwd9 = static_cast<const float*>(p[1]);
@@ -1467,23 +1481,14 @@ cudaError_t fd_backbone(int n_cls, const void* const* ptrs, const int* ints,
     c.ox = static_cast<float*>(const_cast<void*>(p[13]));
     c.oy = static_cast<float*>(const_cast<void*>(p[14]));
     c.oz = static_cast<float*>(const_cast<void*>(p[15]));
-    c.seg = v[0];
-    c.nl = v[1];
-    c.block0 = v[2];
-    c.copy0 = v[3];
-    if (c.seg < 1 || c.nl < 1 || c.block0 != blocks || c.copy0 != copies)
-      return cudaErrorInvalidValue;
-    blocks += blocks_for(c.nl, K2_THREADS);
-    copies += (long long)blocks_for(c.nl, K2_COPY_THREADS) * c.seg;
   }
-  if (copies > 0x7fffffffLL) return cudaErrorInvalidValue;
   tab.tails9 = tails9;
   tab.tails_ld = tails_ld;
-  tab.n = n_cls;
-  k2_backbone<<<(unsigned)blocks, K2_THREADS, 0, stream>>>(tab);
+  tab.n = g.n;
+  k2_backbone<<<(unsigned)g.blocks, K2_THREADS, 0, stream>>>(tab);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return e;
-  k2_copy_out<<<(unsigned)copies, K2_COPY_THREADS, 0, stream>>>(tab);
+  k2_copy_out<<<(unsigned)g.copies, K2_COPY_THREADS, 0, stream>>>(tab);
   return cudaGetLastError();
 }
 

@@ -3,19 +3,19 @@
 24-byte epilogue.
 
 Counterpart of foldcomp_tpu/kernels/pallas_decode.py `decode_seg_fused`
-(wire "full" and "bb") and `decode_seg_fused_classes` (width classes):
-the same inputs (the arrays of codec/batch.py pack_decode_batch_lanes, or
-of batch_host.split_lanes_classes) and the same output contracts. Each
-kernel has
+(wire "full" and "bb") and `decode_seg_fused_classes` (width classes),
+both `decode_lanes` here: the same inputs (the arrays of codec/batch.py
+pack_decode_batch_lanes, or of batch_host.split_lanes_classes) and the
+same output contracts. Each kernel has
 
 - a plain PyTorch version (`*_plain`), operation for operation the Pallas
   kernel's math (the bb epilogue: the XLA epilogue's): the CPU path and
   the CUDA kernel's oracle;
 - a wrapper (`prep`, `tails` and `tails_classes`, `backbone` and
-  `backbone_classes`, `backbone_only`, `sidechain`) that runs the plain version for CPU
-  tensors, and for CUDA tensors checks its inputs and launches the
-  hand-written kernel of csrc/fused_decode.cu, or raises. There is no
-  fallback from a CUDA tensor to the plain version;
+  `backbone_classes`, `backbone_only`, `sidechain`) that runs the plain
+  version for CPU tensors, and for CUDA tensors checks its inputs and
+  launches the hand-written kernel of csrc/fused_decode.cu, or raises.
+  There is no fallback from a CUDA tensor to the plain version;
 - a launch counter, raised by one where the wrapper launches its kernel
   and nowhere else: PREP_LAUNCHES k0_prep (PREP_BB_LAUNCHES those of its
   launches in bb mode, counted in PREP_LAUNCHES too) and K1_LAUNCHES
@@ -24,9 +24,13 @@ kernel has
   the classes of k2's launches), K2BB_LAUNCHES k2_backbone_bb (the bb
   wire's one kernel), K3_LAUNCHES k3_sidechain.
 
-The pipelines (`decode_seg_fused`, `decode_seg_fused_classes`) make each
-wrapper call a span (tracing): `decode.prep` (attribute `wire`, "full" or
-"bb"), `decode.k1`, `decode.k2` (attribute `classes`), `decode.k3`.
+One pipeline, `decode_lanes`, decodes a batch of one or more width
+classes on either wire (`decode_seg_fused` is a call of it with one
+class): it lays the classes out once (`class_layout`), which
+k0, k1 and k2 all read, checks its inputs once, at k0, and launches the
+kernels on the views k0's workspace holds, each step a span (tracing):
+`decode.prep` (attribute `wire`, "full" or "bb"), `decode.k1`,
+`decode.k2` (attribute `classes`), `decode.k3`.
 
 Layouts are lane-minor ([rows, NL]) as in the pack. Nothing here needs
 autograd or randomness.
@@ -35,6 +39,7 @@ from __future__ import annotations
 
 import ctypes
 import math
+from typing import NamedTuple
 
 import torch
 
@@ -307,6 +312,141 @@ def sidechain_plain(bx, by, bz, code, sct, nl_out=None):
     return off, ca
 
 
+
+
+# ---------------------------------------------------------------------------
+# the class layout
+
+# k0's launch (fused_decode.cu k0_prep): K0_THREADS threads a block; a
+# block sorts K0_SORT_LANES lanes of a class, then a thread takes a unit:
+# K0_CODE_UNIT slots of a class's code plane, or one of its lanes
+K0_THREADS = 512
+K0_SORT_LANES = 8192
+K0_CODE_UNIT = 4
+# k1's and k2_backbone's blocks: K1_THREADS lanes; a k2_copy_out block:
+# K2_COPY_THREADS lanes of one residue
+K1_THREADS = 128
+K2_COPY_THREADS = 256
+_SLOT_ALIGN = 32        # elements: each slot starts 128-byte aligned
+# a class's k2 buffers, in their workspace's and fd_backbone's order
+_K2_SLOTS = ("sx", "sy", "sz", "pos", "ox", "oy", "oz")
+_F32_SLOTS = frozenset(("mins6", "cont6", "sx", "sy", "sz", "ox", "oy",
+                        "oz"))
+
+
+class ClassGeom(NamedTuple):
+    """One class's place in the launches of k0, k1 and k2."""
+    c: int          # the class's index in the batch
+    seg: int
+    nl: int
+    col0: int       # its first column of the [9, NL_total] tails
+    sort0: int      # its first sort block of k0
+    unit0: int      # its first unit of k0
+    block0: int     # its first block of k1 and of k2_backbone
+    copy0: int      # its first block of k2_copy_out
+
+
+class ClassLayout(NamedTuple):
+    """A batch's width classes laid out once for k0, k1, k2 and the flat
+    output (class_layout)."""
+    launch: list    # ClassGeom of the classes with lanes and rows
+    bb: bool        # k0's bb mode: no code plane
+    k0: list        # a class: {name: (shape, element)} in k0's workspace
+    k0_size: int    # i32 elements of k0's workspace
+    k2: list        # a class: {name: (shape, element)} in k2's workspace
+    k2_size: int
+    rows: list      # a class: (first row, lanes) of the flat output
+    n_rows: int
+    nl_total: int
+    sorts: int      # k0's sort blocks
+    units: int      # k0's units
+    blocks: int     # k1's and k2_backbone's blocks
+    copies: int     # k2_copy_out's blocks
+    geo: object     # the launchers' geometry: ctypes int array
+
+
+def _slots(at, shapes):
+    """Slots one after another from element `at`, each 128-byte aligned
+    -> ({name: (shape, element)}, the next free element)."""
+    out = {}
+    for name, shape in shapes:
+        out[name] = (shape, at)
+        at += -(-math.prod(shape) // _SLOT_ALIGN) * _SLOT_ALIGN
+    return out, at
+
+
+def class_layout(nls, segs, wire: str = "full", nl_outs=()) -> ClassLayout:
+    """Everything the launches of k0, k1 and k2 need for width classes of
+    nls[c] lanes and SEG segs[c], laid out once a batch.
+
+    `launch`: the classes that have lanes and rows (at most
+    T.MAX_CLASSES), the widest SEG first (ties in class order), each
+    class's ranges where the last one's end: ceil(nl / K0_SORT_LANES) sort
+    blocks and ceil(seg * nl / K0_CODE_UNIT) code units (none on the bb
+    wire) then nl lane units of k0; ceil(nl / K1_THREADS) blocks of k1 and
+    k2_backbone; ceil(nl / K2_COPY_THREADS) * seg blocks of k2_copy_out.
+    A block (or unit) belongs to the last class whose range starts at or
+    before it (fused_decode.cu read_classes and the kernels).
+
+    Every class, in class order: its columns of the tails (the classes'
+    lanes one after another), its k0 outputs in k0's workspace (code
+    [SEG, NL], not on the bb wire, tat [NL], mins6 and cont6 [6, NL],
+    order [NL]), its k2 buffers in k2's (planes [3*SEG, NL] but pos [NL]),
+    and its rows of the flat output: nl_outs[c] lanes (at most nls[c];
+    every lane where nl_outs has no entry or None) of SEG rows, the
+    classes' rows one after another."""
+    if wire not in ("full", "bb"):
+        raise ValueError(f"wire {wire!r}: expected 'full' or 'bb'")
+    bb = wire == "bb"
+    nls, segs = [int(n) for n in nls], [int(s) for s in segs]
+    k0, k2, rows, cols = [], [], [], []
+    k0_at = k2_at = row = col = 0
+    for c, (nl, seg) in enumerate(zip(nls, segs)):
+        cols.append(col)
+        col += nl
+        s, k0_at = _slots(k0_at, [      # the bb wire: no code plane
+            ("code", (seg, nl)), ("tat", (nl,)), ("mins6", (6, nl)),
+            ("cont6", (6, nl)), ("order", (nl,))][bb:])
+        k0.append(s)
+        s, k2_at = _slots(k2_at, [(k, (nl,) if k == "pos" else (3 * seg, nl))
+                                  for k in _K2_SLOTS])
+        k2.append(s)
+        nlo = nl if c >= len(nl_outs) or nl_outs[c] is None \
+            else min(int(nl_outs[c]), nl)
+        rows.append((row, nlo))
+        row += nlo * seg
+    launch = []
+    sorts = units = blocks = copies = 0
+    for c in sorted((c for c in range(len(nls)) if nls[c] and segs[c]),
+                    key=lambda c: -segs[c]):
+        nl, seg = nls[c], segs[c]
+        launch.append(ClassGeom(c, seg, nl, cols[c], sorts, units, blocks,
+                                copies))
+        sorts += -(-nl // K0_SORT_LANES)
+        units += (0 if bb else -(-seg * nl // K0_CODE_UNIT)) + nl
+        blocks += -(-nl // K1_THREADS)
+        copies += -(-nl // K2_COPY_THREADS) * seg
+    if len(launch) > T.MAX_CLASSES:
+        raise ValueError(f"{len(launch)} width classes with lanes: a launch "
+                         f"takes at most {T.MAX_CLASSES}")
+    geo = [len(launch), int(bb)] + [v for g in launch for v in g[1:]]
+    return ClassLayout(launch, bb, k0, k0_at, k2, k2_at, rows, row, col,
+                       sorts, units, blocks, copies,
+                       (ctypes.c_int * len(geo))(*geo))
+
+
+def _views(ws, classes, names=None):
+    """Each class's slots (class_layout's k0 or k2) as views of the i32
+    workspace ws, the f32 ones through the same memory as f32 -> one
+    {name: tensor} a class; names: those slots alone."""
+    wsf = ws.view(F32)
+    return [{k: (wsf if k in _F32_SLOTS else ws).as_strided(
+                 shape, (shape[-1], 1)[-len(shape):], at)
+             for k, (shape, at) in slots.items()
+             if names is None or k in names}
+            for slots in classes]
+
+
 # ---------------------------------------------------------------------------
 # kernel wrappers
 
@@ -333,15 +473,23 @@ def _check(name, t, dtype, shape, device):
         raise ValueError(f"{name}: not contiguous")
 
 
+def _shapes(recs_t):
+    """The classes' lane counts and SEGs from their records, [8, SEG,
+    NL] each -> (nls, segs)."""
+    for recs in recs_t:
+        if recs.dim() != 3 or recs.shape[0] != 8:
+            raise ValueError(f"recs: shape {tuple(recs.shape)}, expected "
+                             "[8, SEG, NL]")
+    return [r.shape[2] for r in recs_t], [r.shape[1] for r in recs_t]
+
+
 def _check_lane_inputs(recs, ranc, tat, mins6, cont6, order, seeds,
                        is_first=None):
     """Check the lane inputs of k1 and k2: seeds, {name: [9, NL] f32};
-    is_first, [NL] bool, where the kernel reads it; order, a LaneOrder.
-    -> (SEG, NL)."""
-    if recs.dim() != 3 or recs.shape[0] != 8:
-        raise ValueError(f"recs: shape {tuple(recs.shape)}, expected "
-                         "[8, SEG, NL]")
-    _, seg, nl = recs.shape
+    is_first, [NL] bool, where the kernel reads it; order, a LaneOrder
+    (None will do on the CPU, whose plain versions take none). -> (SEG,
+    NL)."""
+    (nl,), (seg,) = _shapes([recs])
     dev = recs.device
     _check("recs", recs, torch.uint8, (8, seg, nl), dev)
     for name, t in seeds.items():
@@ -352,15 +500,21 @@ def _check_lane_inputs(recs, ranc, tat, mins6, cont6, order, seeds,
     _check("tat", tat, torch.int32, (nl,), dev)
     _check("mins6", mins6, F32, (6, nl), dev)
     _check("cont6", cont6, F32, (6, nl), dev)
+    if order is None and dev.type == "cpu":
+        return seg, nl
     if not isinstance(order, LaneOrder):
         raise TypeError(f"order: {type(order).__name__}, expected a "
-                        "LaneOrder from lane_order")
+                        "LaneOrder from lane_order or prep")
     _check("order", order.perm, torch.int32, (nl,), dev)
     return seg, nl
 
 
 def _ptrs(*ts):
     return [None if t is None else t.data_ptr() for t in ts]
+
+
+def _pvec(ptrs):
+    return (ctypes.c_void_p * len(ptrs))(*ptrs)
 
 
 def _launch(fn, name, dev, *args):
@@ -383,47 +537,6 @@ def _check_out(name, t, dtype, shape, device):
                          f"{tuple(shape)} on {device}, unit stride in a row")
 
 
-# k1's launch (fused_decode.cu k1_tails): K1_THREADS lanes a block, at most
-# K1_MAX_CLASSES width classes in one launch's table
-K1_THREADS = 128
-K1_MAX_CLASSES = 4
-
-# k0's launch (fused_decode.cu k0_prep): K0_THREADS threads a block; a
-# block sorts K0_SORT_LANES lanes of a class, then a thread takes a unit:
-# K0_CODE_UNIT slots of a class's code plane, or one of its lanes
-K0_THREADS = 512
-K0_SORT_LANES = 8192
-K0_CODE_UNIT = 4
-_SLOT_ALIGN = 32        # elements: each k0 output starts 128-byte aligned
-
-
-def _prep_slots(seg, nl, bb=False):
-    """Each k0 output's shape and offset in one class's part of the
-    workspace (i32 or f32 elements), {name: (shape, element)}: code [SEG,
-    NL] (not in bb mode), tat [NL], mins6 and cont6 [6, NL], order [NL];
-    and the part's elements."""
-    slots, at = {}, 0
-    for name, shape in (("code", (seg, nl)), ("tat", (nl,)),
-                        ("mins6", (6, nl)), ("cont6", (6, nl)),
-                        ("order", (nl,))):
-        if bb and name == "code":
-            continue
-        slots[name] = (shape, at)
-        at += -(-math.prod(shape) // _SLOT_ALIGN) * _SLOT_ALIGN
-    return slots, at
-
-
-def prep_views(ws, wsf, ws0, seg, nl, bb=False):
-    """One class's k0 outputs as views of the workspace (ws, i32, and wsf,
-    the same memory as f32, both from its start), the class's part from
-    element ws0: {name: tensor} (_prep_slots; mins6 and cont6 f32)."""
-    v = {}
-    for name, (shape, off) in _prep_slots(seg, nl, bb)[0].items():
-        t = wsf if name in ("mins6", "cont6") else ws
-        v[name] = t.as_strided(shape, (nl, 1)[-len(shape):], ws0 + off)
-    return v
-
-
 def _dense(t, dtype=None):
     """t where it is contiguous and of dtype (None: its own), else a
     contiguous copy in dtype: no operation on the hot path's tensors."""
@@ -432,32 +545,52 @@ def _dense(t, dtype=None):
     return t.to(dtype or t.dtype).contiguous()
 
 
-def prep_class_table(nls, segs, bb=False):
-    """The table of one k0 launch over width classes of nls[c] lanes and
-    SEG segs[c] -> (entries, size, sorts, units): entries (c, ws0, sort0,
-    unit0) for the classes that have lanes, in class order: ws0 the
-    class's first element of the workspace (its outputs at _prep_slots'
-    offsets after it), sort0 its first sort block, unit0 its first unit,
-    each right after the last class's (ceil(nls[c] / K0_SORT_LANES) sort
-    blocks a class; ceil(segs[c] * nls[c] / K0_CODE_UNIT) code units, none
-    in bb mode, then nls[c] lane units); size the workspace's elements;
-    sorts the sort blocks; units the units. The kernel's rule: block b <
-    sorts orders lanes [q * K0_SORT_LANES, (q + 1) * K0_SORT_LANES) of the
-    last entry whose sort0 <= b, q = b - sort0; thread t of block b >=
-    sorts takes unit u = (b - sorts) * K0_THREADS + t and every
-    grid-stride step after it, for the last entry whose unit0 <= u: unit j
-    = u - unit0 is code slots [K0_CODE_UNIT * j, K0_CODE_UNIT * (j + 1))
-    where j < the class's code units, else lane j - its code units."""
-    entries, size, sorts, units = [], 0, 0, 0
-    for c, (nl, seg) in enumerate(zip(nls, segs)):
-        nl, seg = int(nl), int(seg)
-        if nl <= 0:
-            continue
-        entries.append((c, size, sorts, units))
-        size += _prep_slots(seg, nl, bb)[1]
-        sorts += -(-nl // K0_SORT_LANES)
-        units += (0 if bb else -(-seg * nl // K0_CODE_UNIT)) + nl
-    return entries, size, sorts, units
+def _k0(lay, classes):
+    """k0 over the classes of lay: prep's tuples, checked here on either
+    device (the decode's one check of them) -> prep's dicts."""
+    global PREP_LAUNCHES, PREP_BB_LAUNCHES
+    dev = classes[0][0].device
+    ins = []
+    for (recs, mins, cont, sct, fwd9, rev9, seg_m), nl, seg in zip(
+            classes, *_shapes([c[0] for c in classes])):
+        ins.append((_dense(recs), _dense(mins), _dense(cont),
+                    None if lay.bb or sct is None else _dense(sct),
+                    _dense(fwd9), _dense(rev9), _dense(seg_m, torch.int32)))
+        for name, t, dtype, shape in zip(
+                ("recs", "mins_lane", "cont_lane", "sc_codes_seg", "fwd9",
+                 "rev9", "seg_m"), ins[-1],
+                (torch.uint8, F32, F32, torch.uint8, F32, F32, torch.int32),
+                ((8, seg, nl), (nl, 6), (nl, 6), (seg, 11, nl), (9, nl),
+                 (9, nl), (nl,))):
+            if name != "sc_codes_seg" or not lay.bb:
+                _check(name, t, dtype, shape, dev)
+    wire = "bb" if lay.bb else "full"
+    if dev.type == "cpu":
+        out = [class_prep(*c, wire=wire) for c in ins]
+        for pr in out:
+            pr["order"] = lane_order(pr["tat"])
+        return out
+    lib = _cuda_lib(classes[0][0])
+    ws = torch.empty((lay.k0_size,), dtype=torch.int32, device=dev)
+    out = []
+    for (recs, _, _, sct, fwd9, rev9, _), v in zip(ins, _views(ws, lay.k0)):
+        d = dict(recs=recs, fwd9=fwd9, rev9=rev9, tat=v["tat"],
+                 mins6=v["mins6"], cont6=v["cont6"],
+                 order=LaneOrder(v["order"]))
+        if not lay.bb:
+            d.update(code=v["code"], sct=sct)
+        out.append(d)
+    if lay.launch:
+        ptrs = []
+        for g in lay.launch:
+            recs, mins, cont, _, _, _, seg_m = ins[g.c]
+            d = out[g.c]
+            ptrs += _ptrs(recs, mins, cont, seg_m, d.get("code"), d["tat"],
+                          d["mins6"], d["cont6"], d["order"].perm)
+        _launch(lib.fd_prep, "k0 prep", dev, _pvec(ptrs), lay.geo)
+        PREP_LAUNCHES += 1
+        PREP_BB_LAUNCHES += lay.bb
+    return out
 
 
 def prep(classes, wire: str = "full"):
@@ -471,232 +604,119 @@ def prep(classes, wire: str = "full"):
 
     On the CPU class_prep and lane_order themselves (the plain version).
     On a CUDA device one workspace holds every class's code (not in bb
-    mode), tat, mins6, cont6 and order (_prep_slots), the dicts hold views
-    of it, and k0 writes them; the records, side-chain codes and seeds are
-    the caller's tensors (made contiguous), as class_prep leaves them.
-    Nothing is copied from the host and nothing waits for the stream.
-    Counted as one launch of prep (and of prep_bb in bb mode)."""
-    global PREP_LAUNCHES, PREP_BB_LAUNCHES
-    if wire not in ("full", "bb"):
-        raise ValueError(f"wire {wire!r}: expected 'full' or 'bb'")
-    bb = wire == "bb"
-    dev = classes[0][0].device
-    for c in classes:
-        if c[0].device != dev:
-            raise ValueError(f"recs: on {c[0].device}, expected {dev}")
-    if dev.type == "cpu":
-        out = []
-        for c in classes:
-            pr = class_prep(*c, wire=wire)
-            pr["order"] = lane_order(pr["tat"])
-            out.append(pr)
-        return out
-    lib = _cuda_lib(classes[0][0])
-    ins, segs, nls = [], [], []
-    for recs, mins, cont, sct, fwd9, rev9, seg_m in classes:
-        recs, mins, cont = _dense(recs), _dense(mins), _dense(cont)
-        if recs.dim() != 3 or recs.shape[0] != 8:
-            raise ValueError(f"recs: shape {tuple(recs.shape)}, expected "
-                             "[8, SEG, NL]")
-        _, seg, nl = recs.shape
-        seg_m = _dense(seg_m, torch.int32)
-        _check("recs", recs, torch.uint8, (8, seg, nl), dev)
-        _check("mins_lane", mins, F32, (nl, 6), dev)
-        _check("cont_lane", cont, F32, (nl, 6), dev)
-        _check("seg_m", seg_m, torch.int32, (nl,), dev)
-        ins.append((recs, mins, cont, seg_m, None if bb else _dense(sct),
-                    _dense(fwd9), _dense(rev9)))
-        segs.append(seg)
-        nls.append(nl)
-    entries, size, _, _ = prep_class_table(nls, segs, bb)
-    if len(entries) > K1_MAX_CLASSES:
-        raise ValueError(f"{len(entries)} width classes with lanes: k0 takes "
-                         f"at most {K1_MAX_CLASSES} in a launch")
-    ws = torch.empty((size,), dtype=torch.int32, device=dev)
-    wsf = ws.view(F32)
-    bases = dict((e[0], e[1]) for e in entries)
-    out, flat_p = [], []
-    for c, (recs, mins, cont, seg_m, sct, fwd9, rev9) in enumerate(ins):
-        v = prep_views(ws, wsf, bases.get(c, 0), segs[c], nls[c], bb)
-        d = dict(recs=recs, fwd9=fwd9, rev9=rev9, tat=v["tat"],
-                 mins6=v["mins6"], cont6=v["cont6"],
-                 order=LaneOrder(v["order"]))
-        if not bb:
-            d.update(code=v["code"], sct=sct)
-        out.append(d)
-        if c in bases:
-            flat_p += _ptrs(recs, mins, cont, seg_m, v.get("code"), v["tat"],
-                            v["mins6"], v["cont6"], v["order"])
-    if entries:
-        flat_i = [v for c, _, s0, u0 in entries
-                  for v in (segs[c], nls[c], s0, u0)]
-        _launch(lib.fd_prep, "k0 prep", dev, len(entries), int(bb),
-                (ctypes.c_void_p * len(flat_p))(*flat_p),
-                (ctypes.c_int * len(flat_i))(*flat_i))
-        PREP_LAUNCHES += 1
-        PREP_BB_LAUNCHES += bb
-    return out
+    mode), tat, mins6, cont6 and order (class_layout), the dicts hold
+    views of it, and k0 writes them; the records, side-chain codes and
+    seeds are the caller's tensors (made contiguous), as class_prep leaves
+    them. Nothing is copied from the host and nothing waits for the
+    stream. Counted as one launch of prep (and of prep_bb in bb mode)."""
+    return _k0(class_layout(*_shapes([c[0] for c in classes]), wire),
+               classes)
 
 
-def k1_class_table(nls, segs):
-    """The class table of one k1 launch over width classes of nls[c] lanes
-    and SEG segs[c] (class c's columns of the shared tails buffer follow
-    the classes before it) -> (entries, blocks): entries (c, col0, block0)
-    for the classes that have lanes, the widest SEG first (ties in class
-    order), block0 the entry's first block, each entry's blocks
-    ceil(nls[c] / K1_THREADS) right after the last's; blocks the grid.
-    Block b belongs to the last entry whose block0 <= b, its thread t to
-    that class's lane order[(b - block0) * K1_THREADS + t] where that is <
-    nls[c], written at column col0 + lane (the kernel's rule)."""
-    cols = [0]
-    for n in nls:
-        cols.append(cols[-1] + int(n))
-    entries, blocks = [], 0
-    for c in sorted((c for c in range(len(nls)) if nls[c] > 0),
-                    key=lambda c: -int(segs[c])):
-        entries.append((c, cols[c], blocks))
-        blocks += -(-int(nls[c]) // K1_THREADS)
-    return entries, blocks
-
-
-def tails_classes(classes, out):
-    """k1 over width classes in one launch: classes, one tuple (recs, seed,
-    ranc, tat, mins6, cont6, order) a class, as `tails` takes them (order
-    None: lane_order(tat)); out, the tails of every class, a [9, NL_total]
-    f32 tensor (rows may be rows of a wider buffer) whose columns are the
-    classes' lanes one class after another. Each class's tails are those
-    `tails` gives for it alone. -> out."""
+def _k1(lay, classes, out):
+    """k1 over the classes of lay (tails_classes' tuples, as checked
+    there) into out. -> out."""
     global K1_LAUNCHES
-    nls = [c[0].shape[-1] for c in classes]
-    dev = out.device
-    _check_out("out", out, F32, (9, sum(nls)), dev)
-    for c in classes:
-        if c[0].device != dev:
-            raise ValueError(f"recs: on {c[0].device}, out on {dev}")
-    if dev.type == "cpu":
+    if out.device.type == "cpu":
         base = 0
-        for (recs, seed, ranc, tat, mins6, cont6, _), nl in zip(classes, nls):
+        for recs, seed, ranc, tat, mins6, cont6, _ in classes:
+            nl = recs.shape[-1]
             out[:, base:base + nl] = tails_plain(recs, n_ca_lengths(recs),
                                                  seed, ranc, tat, mins6,
                                                  cont6)
             base += nl
         return out
     lib = _cuda_lib(out)
-    segs, ptrs = [], []
-    for recs, seed, ranc, tat, mins6, cont6, order in classes:
-        if order is None:
-            order = lane_order(tat)
-        seg, _ = _check_lane_inputs(recs, ranc, tat, mins6, cont6, order,
-                                    {"seed": seed})
-        segs.append(seg)
-        ptrs.append(_ptrs(recs, seed, ranc, tat, mins6, cont6, order.perm))
-    entries, _ = k1_class_table(nls, segs)
-    if len(entries) > K1_MAX_CLASSES:
-        raise ValueError(f"{len(entries)} width classes with lanes: k1 takes "
-                         f"at most {K1_MAX_CLASSES} in a launch")
-    if entries:
-        flat_p = [p for c, _, _ in entries for p in ptrs[c]]
-        flat_i = [v for c, col0, b0 in entries
-                  for v in (segs[c], nls[c], col0, b0)]
-        _launch(lib.fd_tails, "k1 tails", dev, len(entries),
-                (ctypes.c_void_p * len(flat_p))(*flat_p),
-                (ctypes.c_int * len(flat_i))(*flat_i), out.data_ptr(),
-                out.stride(0))
+    if lay.launch:
+        ptrs = []
+        for g in lay.launch:
+            recs, seed, ranc, tat, mins6, cont6, order = classes[g.c]
+            ptrs += _ptrs(recs, seed, ranc, tat, mins6, cont6, order.perm)
+        _launch(lib.fd_tails, "k1 tails", out.device, _pvec(ptrs), lay.geo,
+                out.data_ptr(), out.stride(0))
         K1_LAUNCHES += 1
     return out
+
+
+def tails_classes(classes, out):
+    """k1 over width classes in one launch: classes, one tuple (recs, seed,
+    ranc, tat, mins6, cont6, order) a class, as `tails` takes them; out,
+    the tails of every class, a [9, NL_total] f32 tensor (rows may be rows
+    of a wider buffer) whose columns are the classes' lanes one class
+    after another. Each class's tails are those `tails` gives for it
+    alone. -> out."""
+    nls, segs = _shapes([c[0] for c in classes])
+    dev = out.device
+    _check_out("out", out, F32, (9, sum(nls)), dev)
+    for c in classes:
+        if c[0].device != dev:
+            raise ValueError(f"recs: on {c[0].device}, out on {dev}")
+    if dev.type != "cpu":
+        for recs, seed, ranc, tat, mins6, cont6, order in classes:
+            _check_lane_inputs(recs, ranc, tat, mins6, cont6, order,
+                               {"seed": seed})
+    return _k1(class_layout(nls, segs), classes, out)
 
 
 def tails(recs, seed, ranc, tat, mins6, cont6, order=None, out=None):
     """k1 -> [9, NL] blended tails of the forward scan from `seed` ([9,
     NL] rows atom*3 + comp). The N-CA lengths come from the records (the
-    plain version on the CPU takes n_ca_lengths). order (a LaneOrder of
-    these lanes): the order the threads walk the lanes in, lane_order(tat)
-    when None; it changes no value. out: where to write them, a [9, NL]
-    f32 view whose rows may be rows of a wider buffer; None allocates. One
-    launch of tails_classes with one class."""
+    plain version on the CPU takes n_ca_lengths). order: the LaneOrder of
+    these lanes the threads walk them in (lane_order's or prep's; it
+    changes no value), which a CUDA device needs and the CPU does not
+    read. out: where to write them, a [9, NL] f32 view whose rows may be
+    rows of a wider buffer; None allocates. One launch of tails_classes
+    with one class."""
     if out is None:
         out = torch.empty((9, recs.shape[-1]), dtype=F32, device=recs.device)
     return tails_classes([(recs, seed, ranc, tat, mins6, cont6, order)], out)
 
 
-def _k2_inputs(recs, tails9, fwd9, is_first, ranc, tat, mins6, cont6,
-               order, prev=None):
-    """Check k2's lane inputs (tails9 None: refine_iters 1, k2 reads fwd9
-    alone; prev given: tails9 is [9, NL_total] and prev i32 [NL]) ->
-    (order, SEG, NL); order None is lane_order(tat)."""
-    if order is None:
-        order = lane_order(tat)
+def _check_k2(recs, fwd9, is_first, ranc, tat, mins6, cont6, order, prev,
+              tails9):
+    """Check k2's lane inputs, one class (tails9 None: refine_iters 1, k2
+    reads fwd9 alone; prev given: tails9 is [9, NL_total] and prev i32
+    [NL]) -> (SEG, NL)."""
     if tails9 is None:
-        seg, nl = _check_lane_inputs(recs, ranc, tat, mins6, cont6, order,
-                                     {"fwd9": fwd9})
-    elif prev is None:
-        seg, nl = _check_lane_inputs(recs, ranc, tat, mins6, cont6, order,
-                                     {"tails9": tails9, "fwd9": fwd9},
-                                     is_first)
-    else:
-        seg, nl = _check_lane_inputs(recs, ranc, tat, mins6, cont6, order,
-                                     {"fwd9": fwd9}, is_first)
-        _check("tails9", tails9, F32, (9, tails9.shape[-1]), recs.device)
-        _check("prev", prev, torch.int32, (nl,), recs.device)
-    return order, seg, nl
+        return _check_lane_inputs(recs, ranc, tat, mins6, cont6, order,
+                                  {"fwd9": fwd9})
+    if prev is None:
+        return _check_lane_inputs(recs, ranc, tat, mins6, cont6, order,
+                                  {"tails9": tails9, "fwd9": fwd9}, is_first)
+    seg, nl = _check_lane_inputs(recs, ranc, tat, mins6, cont6, order,
+                                 {"fwd9": fwd9}, is_first)
+    _check("tails9", tails9, F32, (9, tails9.shape[-1]), recs.device)
+    _check("prev", prev, torch.int32, (nl,), recs.device)
+    return seg, nl
 
 
-# k2's launches (fused_decode.cu k2_backbone, k2_copy_out): k2_backbone's
-# blocks are k1's (K1_THREADS lanes, k1_class_table); a copy block takes
-# K2_COPY_THREADS lanes of one residue
-K2_COPY_THREADS = 256
-# a class's k2 buffers, in fd_backbone's order
-_K2_BUFFERS = ("sx", "sy", "sz", "pos", "ox", "oy", "oz")
-
-
-def k2_class_table(nls, segs):
-    """The class table of one k2 launch over width classes of nls[c] lanes
-    and SEG segs[c] -> (entries, blocks, copies): entries (c, block0,
-    copy0) for the classes that have lanes and rows, in k1_class_table's
-    order (the widest SEG first) and with its blocks (K1_THREADS lanes a
-    block of k2_backbone), copy0 the entry's first block of k2_copy_out,
-    each entry's ceil(nls[c] / K2_COPY_THREADS) * segs[c] copy blocks
-    right after the last's; blocks and copies the two grids. The copy's
-    rule: block b belongs to the last entry whose copy0 <= b; with xb =
-    ceil(nls[c] / K2_COPY_THREADS), its thread t copies residue (b -
-    copy0) // xb of lane ((b - copy0) % xb) * K2_COPY_THREADS + t where
-    that is < nls[c]."""
-    k1, blocks = k1_class_table(
-        [int(n) if int(s) else 0 for n, s in zip(nls, segs)], segs)
-    entries, copies = [], 0
-    for c, _, b0 in k1:
-        entries.append((c, b0, copies))
-        copies += -(-int(nls[c]) // K2_COPY_THREADS) * int(segs[c])
-    return entries, blocks, copies
-
-
-def k2_slots(nls, segs):
-    """Each width class's k2 buffers in one workspace: the output planes
-    ox, oy, oz and the scratch planes sx, sy, sz, f32 [3*SEG_c, NL_c], and
-    pos, i32 [NL_c], each from a 128-byte aligned element, the classes one
-    after another -> ([{name: (shape, element)}] a class, the workspace's
-    elements)."""
-    slots, at = [], 0
-    for nl, seg in zip(nls, segs):
-        d = {}
-        for name in _K2_BUFFERS:
-            shape = (int(nl),) if name == "pos" else (3 * int(seg), int(nl))
-            d[name] = (shape, at)
-            at += -(-math.prod(shape) // _SLOT_ALIGN) * _SLOT_ALIGN
-        slots.append(d)
-    return slots, at
-
-
-def k2_views(ws, slots, names=_K2_BUFFERS):
-    """One class's k2 buffers `names` as views of the f32 workspace ws
-    (pos through the same memory as i32), its entry of k2_slots ->
-    {name: tensor}."""
-    out = {}
-    for name in names:
-        shape, off = slots[name]
-        t = ws.view(torch.int32) if name == "pos" else ws
-        out[name] = t.as_strided(shape, (shape[-1], 1)[-len(shape):], off)
-    return out
+def _k2(lay, classes, tails9):
+    """k2 over the classes of lay (backbone_classes' tuples, as checked
+    there) -> one (bx, by, bz) a class."""
+    global K2_LAUNCHES, K2_CLASSES
+    if classes[0][0].device.type == "cpu":
+        return [backbone_rolled_plain(recs, tails9, fwd9, is_first, ranc,
+                                      tat, mins6, cont6, prev)
+                for recs, fwd9, is_first, ranc, tat, mins6, cont6, _, prev
+                in classes]
+    dev = classes[0][0].device
+    lib = _cuda_lib(classes[0][0])
+    ws = torch.empty((lay.k2_size,), dtype=torch.int32, device=dev)
+    outs = [tuple(v.values()) for v in _views(ws, lay.k2, ("ox", "oy", "oz"))]
+    if lay.launch:
+        ptrs = []
+        for g in lay.launch:
+            recs, fwd9, is_first, ranc, tat, mins6, cont6, order, prev = \
+                classes[g.c]
+            # the scratch and the outputs by address: 4-byte elements
+            ptrs += _ptrs(recs, fwd9, is_first, ranc, tat, mins6, cont6,
+                          order.perm, prev) + [
+                ws.data_ptr() + 4 * lay.k2[g.c][k][1] for k in _K2_SLOTS]
+        _launch(lib.fd_backbone, "k2 backbone", dev, _pvec(ptrs), lay.geo,
+                *_ptrs(tails9), 0 if tails9 is None else tails9.shape[1])
+        K2_LAUNCHES += 1
+        K2_CLASSES += len(lay.launch)
+    return outs
 
 
 def backbone_classes(classes, tails9=None):
@@ -714,57 +734,21 @@ def backbone_classes(classes, tails9=None):
     The inputs are checked on either device. On the CPU
     backbone_rolled_plain class by class, nothing launched. On a CUDA
     device one allocation holds every class's output planes, scratch
-    planes and pos (k2_slots; the rows are views of it), and k2_backbone
-    and k2_copy_out each run once over every class with lanes (at most
-    K1_MAX_CLASSES), by k2_class_table: the widest SEG first. Counted as
+    planes and pos (class_layout; the rows are views of it), and
+    k2_backbone and k2_copy_out each run once over every class with lanes
+    and rows (at most T.MAX_CLASSES), in class_layout's order. Counted as
     one launch of k2, and its classes in k2_classes."""
-    global K2_LAUNCHES, K2_CLASSES
     dev = classes[0][0].device
     if tails9 is not None and len(classes) > 1 and \
             any(c[8] is None for c in classes):
         raise ValueError("prev: None with several width classes, whose "
                          "lanes take their seeds by prev")
-    segs, nls, orders = [], [], []
-    for recs, fwd9, is_first, ranc, tat, mins6, cont6, order, prev \
-            in classes:
-        if recs.device != dev:
-            raise ValueError(f"recs: on {recs.device}, expected {dev}")
-        order, seg, nl = _k2_inputs(recs, tails9, fwd9, is_first, ranc,
-                                    tat, mins6, cont6, order, prev)
-        segs.append(seg)
-        nls.append(nl)
-        orders.append(order)
-    entries, _, _ = k2_class_table(nls, segs)
-    if len(entries) > K1_MAX_CLASSES:
-        raise ValueError(f"{len(entries)} width classes with lanes: k2 takes "
-                         f"at most {K1_MAX_CLASSES} in a launch")
-    if dev.type == "cpu":
-        return [backbone_rolled_plain(recs, tails9, fwd9, is_first, ranc,
-                                      tat, mins6, cont6, prev)
-                for recs, fwd9, is_first, ranc, tat, mins6, cont6, _, prev
-                in classes]
-    lib = _cuda_lib(classes[0][0])
-    slots, size = k2_slots(nls, segs)
-    ws = torch.empty((size,), dtype=F32, device=dev)
-    outs = [tuple(k2_views(ws, sl, ("ox", "oy", "oz")).values())
-            for sl in slots]
-    if entries:
-        flat_p, flat_i = [], []
-        for c, b0, copy0 in entries:
-            recs, fwd9, is_first, ranc, tat, mins6, cont6, _, prev = \
-                classes[c]
-            # the scratch and the outputs by address: 4-byte elements
-            flat_p += _ptrs(recs, fwd9, is_first, ranc, tat, mins6, cont6,
-                            orders[c].perm, prev) + [
-                ws.data_ptr() + 4 * slots[c][k][1] for k in _K2_BUFFERS]
-            flat_i += [segs[c], nls[c], b0, copy0]
-        _launch(lib.fd_backbone, "k2 backbone", dev, len(entries),
-                (ctypes.c_void_p * len(flat_p))(*flat_p),
-                (ctypes.c_int * len(flat_i))(*flat_i),
-                *_ptrs(tails9), 0 if tails9 is None else tails9.shape[1])
-        K2_LAUNCHES += 1
-        K2_CLASSES += len(entries)
-    return outs
+    for c in classes:
+        if c[0].device != dev:
+            raise ValueError(f"recs: on {c[0].device}, expected {dev}")
+        _check_k2(*c, tails9)
+    return _k2(class_layout(*_shapes([c[0] for c in classes])), classes,
+               tails9)
 
 
 def backbone(recs, tails9, fwd9, is_first, ranc, tat, mins6, cont6,
@@ -789,26 +773,17 @@ def backbone(recs, tails9, fwd9, is_first, ranc, tat, mins6, cont6,
                               order, prev)], tails9)[0]
 
 
-def backbone_only(recs, tails9, fwd9, is_first, ranc, tat, mins6, cont6,
-                  seg_m, nl_out=None, order=None):
-    """k2 and the bb wire's epilogue -> (off i16 [NL_out, SEG, 6], ca f32
-    [NL_out, SEG, 3]): N and C as 0.1 mA offsets from CA, 24 B a residue
-    (_run_backbone_only, pallas_decode.py:529-571).
-
-    Inputs and seeds as for `backbone`; seg_m (i32 [NL]) the lanes'
-    residue counts. On a CUDA device one kernel, k2_backbone_bb, walks the
-    lanes and writes rows s < seg_m[l] of lanes l < nl_out; the other rows
-    of a CUDA result are unspecified. Counted as one launch of k2_bb (not
-    of k2). The plain version on the CPU computes every row."""
+def _k2_bb(k, tails9, seg_m, nl_out):
+    """k2 and the bb wire's epilogue on one class (backbone_classes' tuple
+    k, prev None, as checked by backbone_only)."""
     global K2BB_LAUNCHES
-    _check("seg_m", seg_m, torch.int32, (recs.shape[-1],), recs.device)
+    recs, fwd9, is_first, ranc, tat, mins6, cont6, order, _ = k
     if recs.device.type == "cpu":
         return bb_epilogue_plain(*backbone_rolled_plain(
             recs, tails9, fwd9, is_first, ranc, tat, mins6, cont6), nl_out)
     lib = _cuda_lib(recs)
-    order, seg, nl = _k2_inputs(recs, tails9, fwd9, is_first, ranc, tat,
-                                mins6, cont6, order)
     dev = recs.device
+    _, seg, nl = recs.shape
     nlo = nl if nl_out is None else min(int(nl_out), nl)
     off = torch.empty((nlo, seg, 6), dtype=torch.int16, device=dev)
     ca = torch.empty((nlo, seg, 3), dtype=F32, device=dev)
@@ -826,47 +801,72 @@ def backbone_only(recs, tails9, fwd9, is_first, ranc, tat, mins6, cont6,
     return off, ca
 
 
+def backbone_only(recs, tails9, fwd9, is_first, ranc, tat, mins6, cont6,
+                  seg_m, nl_out=None, order=None):
+    """k2 and the bb wire's epilogue -> (off i16 [NL_out, SEG, 6], ca f32
+    [NL_out, SEG, 3]): N and C as 0.1 mA offsets from CA, 24 B a residue
+    (_run_backbone_only, pallas_decode.py:529-571).
+
+    Inputs and seeds as for `backbone`; seg_m (i32 [NL]) the lanes'
+    residue counts. On a CUDA device one kernel, k2_backbone_bb, walks the
+    lanes and writes rows s < seg_m[l] of lanes l < nl_out; the other rows
+    of a CUDA result are unspecified. Counted as one launch of k2_bb (not
+    of k2). The plain version on the CPU computes every row."""
+    _check("seg_m", seg_m, torch.int32, (recs.shape[-1],), recs.device)
+    k = (recs, fwd9, is_first, ranc, tat, mins6, cont6, order, None)
+    if recs.device.type != "cpu":
+        _cuda_lib(recs)
+        _check_k2(*k, tails9)
+    return _k2_bb(k, tails9, seg_m, nl_out)
+
+
+def _k3(bx, by, bz, code, sct, seg_m, out):
+    """k3 into out, (off, ca) of sidechain's shapes (inputs as checked by
+    sidechain). -> out."""
+    global K3_LAUNCHES
+    off, ca = out
+    nlo, seg = off.shape[:2]
+    if bx.device.type == "cpu":
+        got = sidechain_plain(bx, by, bz, code, sct, nlo)
+        return off.copy_(got[0]), ca.copy_(got[1])
+    if nlo and seg:
+        _launch(_cuda_lib(bx).fd_sidechain, "k3 sidechain", bx.device,
+                *_ptrs(bx, by, bz, code, sct, seg_m, off, ca), seg,
+                bx.shape[1], nlo)
+        K3_LAUNCHES += 1
+    return out
+
+
 def sidechain(bx, by, bz, code, sct, nl_out=None, seg_m=None, out=None):
     """k3 -> (off i16 [NL_out, SEG, 42], ca f32 [NL_out, SEG, 3]).
 
-    seg_m (i32 [NL], the lanes' residue counts) names the real rows: the
-    kernel computes and writes rows s < seg_m[l] only, and the other rows
-    of a CUDA result are unspecified (the host stitch reads none of them).
-    None means every row is real. The plain version on the CPU computes
-    every row. out: contiguous (off, ca) of those shapes to write into (a
-    width class's rows of one flat buffer); None allocates."""
-    global K3_LAUNCHES
+    seg_m (i32 [NL], the lanes' residue counts, which a CUDA device needs)
+    names the real rows: the kernel computes and writes rows s < seg_m[l]
+    only, and the other rows of a CUDA result are unspecified (the host
+    stitch reads none of them). The plain version on the CPU computes
+    every row and reads no seg_m. out: contiguous (off, ca) of those
+    shapes to write into (a width class's rows of one flat buffer); None
+    allocates."""
     t, nl = bx.shape
     if t % 3:
         raise ValueError(f"backbone rows {t}: not a multiple of 3")
     seg = t // 3
     nlo = nl if nl_out is None else min(int(nl_out), nl)
-    if out is not None:
-        for name, o, dt, w in (("off", out[0], torch.int16, 42),
-                               ("ca", out[1], F32, 3)):
-            _check(f"out {name}", o, dt, (nlo, seg, w), bx.device)
-    if bx.device.type == "cpu":
-        got = sidechain_plain(bx, by, bz, code, sct, nl_out)
-        if out is None:
-            return got
-        return out[0].copy_(got[0]), out[1].copy_(got[1])
-    lib = _cuda_lib(bx)
     dev = bx.device
-    for name, p in (("bx", bx), ("by", by), ("bz", bz)):
-        _check(name, p, F32, (t, nl), dev)
-    _check("code", code, torch.int32, (seg, nl), dev)
-    _check("sct", sct, torch.uint8, (seg, 11, nl), dev)
-    if seg_m is None:
-        seg_m = torch.full((nl,), seg, dtype=torch.int32, device=dev)
-    _check("seg_m", seg_m, torch.int32, (nl,), dev)
-    off, ca = out if out is not None else (
-        torch.empty((nlo, seg, 42), dtype=torch.int16, device=dev),
-        torch.empty((nlo, seg, 3), dtype=F32, device=dev))
-    if nlo and seg:
-        _launch(lib.fd_sidechain, "k3 sidechain", dev,
-                *_ptrs(bx, by, bz, code, sct, seg_m, off, ca), seg, nl, nlo)
-        K3_LAUNCHES += 1
-    return off, ca
+    if out is None:
+        out = (torch.empty((nlo, seg, 42), dtype=torch.int16, device=dev),
+               torch.empty((nlo, seg, 3), dtype=F32, device=dev))
+    for name, o, dt, w in (("off", out[0], torch.int16, 42),
+                           ("ca", out[1], F32, 3)):
+        _check(f"out {name}", o, dt, (nlo, seg, w), dev)
+    if dev.type != "cpu":
+        _cuda_lib(bx)
+        for name, p in (("bx", bx), ("by", by), ("bz", bz)):
+            _check(name, p, F32, (t, nl), dev)
+        _check("code", code, torch.int32, (seg, nl), dev)
+        _check("sct", sct, torch.uint8, (seg, 11, nl), dev)
+        _check("seg_m", seg_m, torch.int32, (nl,), dev)
+    return _k3(bx, by, bz, code, sct, seg_m, out)
 
 
 # ---------------------------------------------------------------------------
@@ -878,144 +878,109 @@ DECODE_ARGS = ("seg_records", "mins_lane", "cont_lane", "sc_codes_seg",
                "fwd9", "rev9", "is_first", "seg_m")
 
 
-def decode_seg_fused(seg_records, mins_lane, cont_lane, sc_codes_seg,
-                     fwd9, rev9, is_first, seg_m, refine_iters: int = 2,
-                     nl_out: int | None = None, wire: str = "full"):
-    """Fused ragged-lane decode of pack_decode_batch_lanes tensors.
+def decode_lanes(recs_t, mins_t, cont_t, sct_t, fwd_t, rev_t, isf_t, segm_t,
+                 prev_idx=None, refine_iters: int = 2, nl_outs=(),
+                 wire: str = "full"):
+    """The fused ragged-lane decode of a batch of one or more width
+    classes (pallas_decode.py decode_seg_fused and, :619-678,
+    decode_seg_fused_classes): the arrays of pack_decode_batch_lanes (one
+    class) or of batch_host.split_lanes_classes, one tuple entry a class,
+    each class at its own SEG.
 
-    wire "full" returns per-lane compact rows (off i16 [NL, SEG, 42], ca
-    f32 [NL, SEG, 3]), sliced to nl_out lanes: row [42] is the residue's
-    [14, 3] milli-angstrom offsets from its CA. wire "bb" skips the side
-    chains and returns backbone_only's (off i16 [NL, SEG, 6], ca f32
-    [NL, SEG, 3]): N and C as 0.1 mA offsets from CA. Rows s >= seg_m[l]
-    are pack padding; on a CUDA device they are left unspecified. The
-    tensors' device picks the path: CUDA kernels on a CUDA device, the
-    plain versions on the CPU. k0 (`prep`) makes the kernels' inputs and
-    the lane order, which k1 and k2 walk the lanes in; k2 takes k1's
-    tails, fwd9 and is_first and rolls the seeds itself. On the bb wire
-    k0 runs in bb mode and sc_codes_seg is not read (None will do)."""
-    if wire not in ("full", "bb"):
-        raise ValueError(f"wire {wire!r}: expected 'full' or 'bb'")
-    if wire == "full" and sc_codes_seg is None:
-        raise ValueError("sc_codes_seg: None, but the full wire's k3 reads "
-                         "it")
+    class_layout lays the classes out once; k0 (`prep`) makes every
+    class's kernel inputs and lane order in one launch, checking the
+    inputs; k1 runs once over every class into one [9, NL_total] tails
+    buffer, class c at its columns; k2 once over every class seeds lane l
+    of class c from column prev_idx[base_c + l] of that buffer unless
+    isf_t[c][l] (a protein's lanes may lie in different classes; prev_idx
+    None, one class alone: from lane l-1, lane 0 from NL-1), or from its
+    own fwd9 when refine_iters < 2; then k3 once a class. Per-lane math
+    is the same whatever the classes, so a lane's rows are bit-equal
+    across forms. Each step is a span: `decode.prep` (attribute `wire`),
+    `decode.k1`, `decode.k2` (attribute `classes`), `decode.k3` a class.
+
+    wire "full" returns a tuple of per-class (off i16 [nl_out_c, SEG_c,
+    42], ca f32 [nl_out_c, SEG_c, 3]): row [42] is the residue's [14, 3]
+    milli-angstrom offsets from its CA. Each is a view of one flat pair
+    (off [rows, 42], ca [rows, 3]; the classes' rows one after another,
+    class_layout), so one copy takes the batch to the host. nl_outs[c]
+    (None or no entry: every lane) cuts class c's lanes. wire "bb" takes
+    one class, skips the side chains (sct_t's entry is not read, None
+    will do) and returns a one-tuple of backbone_only's (off i16 [nl_out,
+    SEG, 6], ca f32 [nl_out, SEG, 3]): N and C as 0.1 mA offsets from CA;
+    k0 runs in bb mode and k2_backbone_bb in place of k2 and k3. Rows s >=
+    seg_m[l] are pack padding; on a CUDA device they are left unspecified.
+    The tensors' device picks the path: CUDA kernels on a CUDA device,
+    the plain versions on the CPU."""
+    n = len(recs_t)
+    if wire == "bb" and n != 1:
+        raise ValueError(f"the bb wire takes one class, not {n}")
+    if prev_idx is None and n > 1:
+        raise ValueError("prev_idx: None with several width classes, whose "
+                         "lanes take their seeds by it")
+    nls, segs = _shapes(recs_t)
+    lay = class_layout(nls, segs, wire, nl_outs)
+    dev = recs_t[0].device
+    segm = [_dense(s, torch.int32) for s in segm_t]
+    for f, nl in zip(isf_t, nls):
+        _check("is_first", f, torch.bool, (nl,), dev)
+    if prev_idx is not None:
+        _check("prev_idx", prev_idx, torch.int32, (lay.nl_total,), dev)
     with tracing.span("decode.prep") as sp:
         if sp:
             sp.set(wire=wire)
-        (pr,) = prep([(seg_records, mins_lane, cont_lane, sc_codes_seg,
-                       fwd9, rev9, seg_m)], wire=wire)
-    order = pr["order"]
-    rest = (pr["rev9"], pr["tat"], pr["mins6"], pr["cont6"])
+        prs = _k0(lay, list(zip(recs_t, mins_t, cont_t, sct_t, fwd_t, rev_t,
+                                segm)))
     tails9 = None
     if refine_iters >= 2:
+        tails9 = torch.empty((9, lay.nl_total), dtype=F32, device=dev)
         with tracing.span("decode.k1"):
-            tails9 = tails(pr["recs"], pr["fwd9"], *rest, order=order)
-    seg_m = _dense(seg_m, torch.int32)
-    if wire == "bb":
-        with tracing.span("decode.k2") as sp:
-            if sp:
-                sp.set(classes=1)
-            return backbone_only(pr["recs"], tails9, pr["fwd9"], is_first,
-                                 *rest, seg_m, nl_out, order=order)
+            _k1(lay, [(p["recs"], p["fwd9"], p["rev9"], p["tat"],
+                       p["mins6"], p["cont6"], p["order"]) for p in prs],
+                tails9)
+    k2_in, base = [], 0
+    for p, f, nl in zip(prs, isf_t, nls):
+        k2_in.append((p["recs"], p["fwd9"], f, p["rev9"], p["tat"],
+                      p["mins6"], p["cont6"], p["order"],
+                      None if tails9 is None or prev_idx is None
+                      else prev_idx[base:base + nl]))
+        base += nl
     with tracing.span("decode.k2") as sp:
         if sp:
-            sp.set(classes=1)
-        bx, by, bz = backbone(pr["recs"], tails9, pr["fwd9"], is_first,
-                              *rest, order=order)
-    with tracing.span("decode.k3"):
-        return sidechain(bx, by, bz, pr["code"], pr["sct"], nl_out,
-                         seg_m=seg_m)
-
-
-def class_rows(recs_t, nl_outs=()):
-    """Output rows of each width class, nl_out_c * SEG_c (nl_out_c the
-    class's lane count where nl_outs has no entry), in the order the
-    classes' rows follow one another in the flat output."""
-    return [min(int(nl_outs[i]), r.shape[2]) * r.shape[1]
-            if i < len(nl_outs) else r.shape[2] * r.shape[1]
-            for i, r in enumerate(recs_t)]
-
-
-def _class_views(flat, recs_t, nl_outs, width):
-    """Each class's [nl_out_c, SEG_c, width] rows of the flat [rows,
-    width] buffer, at the class's row base."""
-    views, base = [], flat.storage_offset()
-    for i, n in enumerate(class_rows(recs_t, nl_outs)):
-        seg = recs_t[i].shape[1]
-        views.append(flat.as_strided((n // seg, seg, width),
-                                     (seg * width, width, 1), base))
-        base += n * width
-    return views
-
-
-def decode_seg_fused_classes(recs_t, mins_t, cont_t, sct_t, fwd_t, rev_t,
-                             isf_t, segm_t, prev_idx, refine_iters: int = 2,
-                             nl_outs=(), out=None):
-    """Width-classed fused decode (pallas_decode.py:619-678
-    decode_seg_fused_classes): the arrays of batch_host.split_lanes_classes,
-    one tuple entry per class, each class at its own SEG.
-
-    k0 makes every class's kernel inputs and lane order in one launch
-    (prep); k1 runs once over every class (tails_classes) into one [9,
-    NL_total] tails buffer, class c at its columns; then k2 once over
-    every class (backbone_classes) seeds lane l of class c from column
-    prev_idx[base_c + l] of that buffer unless isf_t[c][l] (a protein's
-    lanes may lie in different classes), or from its own fwd9 when
-    refine_iters < 2; then k3 per class. Per-lane math is that of
-    decode_seg_fused, so the rows are bit-equal lane for lane.
-
-    Returns JAX's tuple of per-class (off i16 [nl_out_c, SEG_c, 42], ca f32
-    [nl_out_c, SEG_c, 3]); each is a view of one flat pair (off [rows, 42],
-    ca [rows, 3]; the classes' rows one after another, class_rows), so one
-    copy takes the batch to the host. out: that flat pair to write into;
-    None allocates it. On a CUDA device rows past a lane's seg_m are left
-    unspecified; on the CPU the wrappers run the plain versions."""
-    dev = recs_t[0].device
-    rows = sum(class_rows(recs_t, nl_outs))
-    if out is None:
-        out = (torch.empty((rows, 42), dtype=torch.int16, device=dev),
-               torch.empty((rows, 3), dtype=F32, device=dev))
-    _check("out off", out[0], torch.int16, (rows, 42), dev)
-    _check("out ca", out[1], F32, (rows, 3), dev)
-    views = list(zip(_class_views(out[0], recs_t, nl_outs, 42),
-                     _class_views(out[1], recs_t, nl_outs, 3)))
-    with tracing.span("decode.prep") as sp:
-        if sp:
-            sp.set(wire="full")
-        prs = prep(list(zip(recs_t, mins_t, cont_t, sct_t, fwd_t, rev_t,
-                            segm_t)))
-    bases = [0]
-    for p in prs:
-        bases.append(bases[-1] + p["recs"].shape[2])
-    tails_g = None
-    if refine_iters >= 2:
-        k1_in = [(p["recs"], p["fwd9"], p["rev9"], p["tat"], p["mins6"],
-                  p["cont6"], p["order"]) for p in prs]
-        tails_g = torch.empty((9, bases[-1]), dtype=F32, device=dev)
-        with tracing.span("decode.k1"):
-            tails_classes(k1_in, tails_g)
-    k2_in = [(p["recs"], p["fwd9"], isf_t[i], p["rev9"], p["tat"],
-              p["mins6"], p["cont6"], p["order"],
-              None if tails_g is None else prev_idx[bases[i]:bases[i + 1]])
-             for i, p in enumerate(prs)]
-    with tracing.span("decode.k2") as sp:
-        if sp:
-            sp.set(classes=len(prs))
-        bbs = backbone_classes(k2_in, tails_g)
-    for i, p in enumerate(prs):
-        seg_m = _dense(segm_t[i], torch.int32)
+            sp.set(classes=n)
+        if lay.bb:
+            return (_k2_bb(k2_in[0], tails9, segm[0], lay.rows[0][1]),)
+        bbs = _k2(lay, k2_in, tails9)
+    off = torch.empty((lay.n_rows, 42), dtype=torch.int16, device=dev)
+    ca = torch.empty((lay.n_rows, 3), dtype=F32, device=dev)
+    views = []
+    for p, bb, s, (row0, nlo), seg in zip(prs, bbs, segm, lay.rows, segs):
+        views.append(tuple(t.as_strided((nlo, seg, w), (seg * w, w, 1),
+                                        row0 * w)
+                           for t, w in ((off, 42), (ca, 3))))
         with tracing.span("decode.k3"):
-            sidechain(*bbs[i], p["code"], p["sct"],
-                      nl_outs[i] if i < len(nl_outs) else None,
-                      seg_m=seg_m, out=views[i])
+            _k3(*bb, p["code"], p["sct"], s, views[-1])
     return tuple(views)
+
+
+def decode_seg_fused(seg_records, mins_lane, cont_lane, sc_codes_seg,
+                     fwd9, rev9, is_first, seg_m, refine_iters: int = 2,
+                     nl_out: int | None = None, wire: str = "full"):
+    """Fused ragged-lane decode of pack_decode_batch_lanes tensors
+    (pallas_decode.py decode_seg_fused): decode_lanes of one class. wire
+    "full" returns (off i16 [NL, SEG, 42], ca f32 [NL, SEG, 3]), sliced
+    to nl_out lanes; wire "bb" backbone_only's (off i16 [NL, SEG, 6], ca
+    f32 [NL, SEG, 3]), sc_codes_seg not read (None will do)."""
+    return decode_lanes(*((t,) for t in (
+        seg_records, mins_lane, cont_lane, sc_codes_seg, fwd9, rev9,
+        is_first, seg_m)), None, refine_iters, (nl_out,), wire)[0]
 
 
 def decode_seg_fused_classes_plain(recs_t, mins_t, cont_t, sct_t, fwd_t,
                                    rev_t, isf_t, segm_t, prev_idx,
                                    refine_iters: int = 2, nl_outs=()):
-    """decode_seg_fused_classes through the plain versions alone (the
-    kernels' oracle on the card): every class's tails, the seeds gathered
+    """decode_lanes of width classes through the plain versions alone
+    (the kernels' oracle on the card): every class's tails, the seeds gathered
     through prev_idx, backbone and side chains. -> the tuple of per-class
     (off, ca), each its own tensor."""
     prs = [class_prep(recs_t[i], mins_t[i], cont_t[i], sct_t[i], fwd_t[i],

@@ -1,12 +1,13 @@
 """k1 over every width class of a batch in one launch
-(foldcomp_tpu_torch/kernels/fused_decode.py tails_classes, k1_class_table)
-against the JAX package, on CPU.
+(foldcomp_tpu_torch/kernels/fused_decode.py tails_classes) against the
+JAX package, on CPU.
 
 The launch takes a table of the classes: each class a range of blocks,
 the widest SEG first, and its columns of the shared [9, NL_total] tails
-buffer. The table is pure Python and is held here to the kernel's rule
-(fused_decode.cu k1_tails): every lane of every class taken by exactly one
-thread and written at its own column. The CUDA kernel runs only on the
+buffer, by the one class layout (class_layout, which
+tests/test_torch_class_layout.py holds to the kernel's rule: every lane
+of every class taken by exactly one thread and written at its own
+column). The CUDA kernel runs only on the
 card (chip_smoke.py phase 14 holds it bit-equal to tails_plain of each
 class there); on the CPU tails_classes runs tails_plain class by class,
 launches nothing, and is held to JAX `_run_tails` in Pallas interpret
@@ -32,56 +33,6 @@ TOL_A = 1e-3
 MIXED = (26, 60, 151, 240, 60)
 
 
-def _kernel_cover(nls, segs):
-    """Run the kernel's rule over the table of k1_class_table: block b to
-    the last entry whose block0 <= b, thread t to lane order[(b - block0)
-    * threads + t] of that class, each class's order a random permutation.
-    -> ({(class, lane): times taken}, {column: times written}, entries)."""
-    rng = np.random.default_rng(len(nls))
-    orders = [rng.permutation(n) for n in nls]
-    threads = FD.K1_THREADS
-    entries, blocks = FD.k1_class_table(nls, segs)
-    taken, cols = {}, {}
-    for b in range(blocks):
-        c, col0, b0 = [e for e in entries if e[2] <= b][-1]
-        for t in range(threads):
-            i = (b - b0) * threads + t
-            if i < nls[c]:
-                lane = int(orders[c][i])
-                taken[c, lane] = taken.get((c, lane), 0) + 1
-                cols[col0 + lane] = cols.get(col0 + lane, 0) + 1
-    return taken, cols, entries
-
-
-@pytest.mark.parametrize("seed", range(6))
-def test_class_table_covers_every_lane_once(seed):
-    """Random class sizes (one class empty, NL not a multiple of 128 but in
-    one case) and widths: each lane of each class once, each column of
-    [0, NL_total) once, the widest class first, no empty class."""
-    rng = np.random.default_rng(seed)
-    n_cls = int(rng.integers(1, FD.K1_MAX_CLASSES + 1))
-    nls = [int(rng.integers(1, 700)) for _ in range(n_cls)]
-    if seed == 0:
-        nls = [1024, 512, 256, 128][:n_cls]
-    if seed % 2 and n_cls > 1:
-        nls[int(rng.integers(n_cls))] = 0
-    segs = [8 * int(rng.integers(1, 13)) for _ in range(n_cls)]
-    taken, cols, entries = _kernel_cover(nls, segs)
-    assert taken == {(c, l): 1 for c in range(n_cls) for l in range(nls[c])}
-    assert cols == {j: 1 for j in range(sum(nls))}
-    assert [c for c, _, _ in entries] == sorted(
-        (c for c in range(n_cls) if nls[c]), key=lambda c: -segs[c])
-    assert all(nls[c] for c, _, _ in entries)
-
-
-def test_class_table_empty_and_single():
-    assert FD.k1_class_table([0, 0], [8, 16]) == ([], 0)
-    assert FD.k1_class_table([300], [48]) == ([(0, 0, 0)], 3)
-    # ties keep the class order; blocks follow one another
-    assert FD.k1_class_table([129, 1, 128], [24, 48, 24]) == \
-        ([(1, 129, 0), (0, 0, 1), (2, 130, 3)], 4)
-
-
 @pytest.fixture(scope="module")
 def classed():
     fczs = [encode(synthesize(n, seed=i)) for i, n in enumerate(MIXED)]
@@ -93,7 +44,7 @@ def classed():
 
 def _jax_tails(a):
     """JAX _run_tails (interpret mode) of each class, its lanes' columns,
-    concatenated: the tails decode_seg_fused_classes gathers its seeds
+    concatenated: the tails the classed decode gathers its seeds
     from (pallas_decode.py:654-656)."""
     c = a["classes"]
     out = []

@@ -92,7 +92,8 @@ def test_lane_order_warps_walk_real_rows(mixed512):
 def test_wrappers_take_only_a_lane_order(small):
     """The kernels index the lanes by the order, so the wrappers' checks
     take a LaneOrder of these lanes (lane_order's, or k0's from prep) and
-    refuse a bare tensor; the pack order is the identity."""
+    refuse a bare tensor, and off the CPU a missing order; the pack order
+    is the identity."""
     _, ta = small["mixed"]
     prep = FD.class_prep(*(ta[k] for k in PACK_KEYS[:6]), ta["seg_m"])
     lane = (prep["rev9"], prep["tat"], prep["mins6"], prep["cont6"])
@@ -117,6 +118,13 @@ def test_wrappers_take_only_a_lane_order(small):
     with pytest.raises(TypeError):
         FD._check_lane_inputs(prep["recs"], *lane, pack, seeds,
                               is_first=ta["is_first"].to(torch.uint8))
+    # no order: the CPU's plain versions read none; any other device's
+    # kernels need one
+    assert FD._check_lane_inputs(prep["recs"], *lane, None, seeds) \
+        == (seg, nl)
+    meta = [t.to("meta") for t in (prep["recs"], *lane, prep["fwd9"])]
+    with pytest.raises(TypeError):
+        FD._check_lane_inputs(*meta[:5], None, {"fwd9": meta[5]})
 
 
 @pytest.mark.parametrize("corpus", ["mixed512", "mixed", "wide"])

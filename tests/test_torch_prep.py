@@ -1,13 +1,13 @@
 """k0, the decode's kernel inputs and lane order in one launch a batch
-(foldcomp_tpu_torch/kernels/fused_decode.py prep, prep_class_table;
-csrc/fused_decode.cu k0_prep).
+(foldcomp_tpu_torch/kernels/fused_decode.py prep; csrc/fused_decode.cu
+k0_prep).
 
 On the CPU `prep` is class_prep and lane_order themselves, class by class:
-held here on a classed, a single and a bb-wire pack, with its class table
-(pure Python) held to the kernel's rule and the kernel's constants to the
-tables they copy. The tests marked `card` need a CUDA card and skip
-without one; on the card (this file imports no JAX; the suite's conftest
-does, so skip it), from the repository's root:
+held here on a classed, a single and a bb-wire pack, and the kernel's
+constants to the tables they copy (tests/test_torch_class_layout.py holds
+the class layout to the kernel's rule). The tests marked `card` need a
+CUDA card and skip without one; on the card (this file imports no JAX;
+the suite's conftest does, so skip it), from the repository's root:
 
     python -m pytest --noconftest -p no:cacheprovider -m card \
         tests/test_torch_prep.py
@@ -130,145 +130,19 @@ def test_prep_cpu_is_class_prep_and_lane_order(form, packs):
     _hold_prep(got, classes, _wire(ta))
 
 
-def _kernel_cover(nls, segs, bb=False):
-    """Run the kernel's rule over prep_class_table's table: the sort blocks
-    (K0_SORT_LANES lanes of a class each), then every unit of the grid,
-    code slots (none in bb mode) or a lane. -> (per class: times each code
-    slot is written, times each lane's outputs are written, times each
-    lane is sorted; entries, size)."""
-    entries, size, sorts, units = FD.prep_class_table(nls, segs, bb)
-    code = [np.zeros(s * n, int) for s, n in zip(segs, nls)]
-    lanes = [np.zeros(n, int) for n in nls]
-    sorted_ = [np.zeros(n, int) for n in nls]
-    for b in range(sorts):
-        c, _, s0, _ = [e for e in entries if e[2] <= b][-1]
-        lo = (b - s0) * FD.K0_SORT_LANES
-        sorted_[c][lo:lo + FD.K0_SORT_LANES] += 1
-    blocks = sorts - (-units // FD.K0_THREADS)
-    stride = (blocks - sorts) * FD.K0_THREADS
-    first = np.arange(stride)     # (b - sorts) * K0_THREADS + t
-    unit0 = np.array([e[3] for e in entries])
-    for step in range(0, max(units, 1), max(stride, 1)):
-        u = first + step
-        u = u[u < units]
-        for i, (c, _, _, u0) in enumerate(entries):
-            mine = u[np.searchsorted(unit0, u, side="right") - 1 == i] - u0
-            quads = 0 if bb else -(-segs[c] * nls[c] // FD.K0_CODE_UNIT)
-            for j in mine[mine < quads]:
-                code[c][j * FD.K0_CODE_UNIT:(j + 1) * FD.K0_CODE_UNIT] += 1
-            np.add.at(lanes[c], mine[mine >= quads] - quads, 1)
-    return code, lanes, sorted_, entries, size
-
-
-@pytest.mark.parametrize("seed", range(6))
-def test_prep_class_table_covers_every_lane_once(seed):
-    """Random class sizes and widths (a class empty in odd seeds, a
-    one-lane class in even ones): every code slot and every lane of every
-    class written once, every lane sorted once, each class's outputs in
-    slots of the workspace that are 128-byte aligned, inside it and
-    disjoint."""
-    rng = np.random.default_rng(seed)
-    n_cls = int(rng.integers(1, FD.K1_MAX_CLASSES + 1))
-    nls = [int(rng.integers(1, 700)) for _ in range(n_cls)]
-    if seed == 0:       # classes over several sort blocks
-        nls = [3 * FD.K0_SORT_LANES + 5, FD.K0_SORT_LANES, 1,
-               2 * FD.K0_SORT_LANES - 1][:n_cls]
-    segs = [int(rng.integers(1, 50)) for _ in range(n_cls)]
-    if seed % 2 and n_cls > 1:
-        nls[int(rng.integers(n_cls))] = 0
-    if seed % 2 == 0:
-        nls[int(rng.integers(n_cls))] = 1
-    code, lanes, sorted_, entries, size = _kernel_cover(nls, segs)
-    assert [e[0] for e in entries] == [c for c in range(n_cls) if nls[c]]
-    for c in range(n_cls):
-        assert (code[c] == 1).all() and (lanes[c] == 1).all() \
-            and (sorted_[c] == 1).all(), c
-    # the views the wrapper hands the kernels: their shapes and types,
-    # 128-byte aligned, inside the workspace and disjoint
-    ws = torch.zeros(size, dtype=torch.int32)
-    used = np.zeros(size, int)
-    for c, ws0, _, _ in entries:
-        seg, nl = segs[c], nls[c]
-        assert ws0 % 32 == 0 and FD._prep_slots(seg, nl)[1] % 32 == 0
-        v = FD.prep_views(ws, ws.view(torch.float32), ws0, seg, nl)
-        assert {k: (tuple(t.shape), t.dtype) for k, t in v.items()} == {
-            "code": ((seg, nl), torch.int32), "tat": ((nl,), torch.int32),
-            "mins6": ((6, nl), torch.float32),
-            "cont6": ((6, nl), torch.float32),
-            "order": ((nl,), torch.int32)}
-        for t in v.values():
-            at = (t.data_ptr() - ws.data_ptr()) // 4
-            assert t.is_contiguous() and at % 32 == 0
-            used[at:at + t.numel()] += 1
-    assert used.max() <= 1
-
-
-@pytest.mark.parametrize("seed", range(3))
-def test_prep_class_table_bb_covers_every_lane_once(seed):
-    """k0's bb mode: no code units and no code slot in the workspace;
-    every lane of every class written and sorted once, each class's
-    outputs 128-byte aligned and disjoint; the workspace smaller by the
-    code planes alone."""
-    rng = np.random.default_rng(100 + seed)
-    n_cls = int(rng.integers(1, FD.K1_MAX_CLASSES + 1))
-    nls = [int(rng.integers(1, 3 * FD.K0_SORT_LANES)) for _ in range(n_cls)]
-    segs = [int(rng.integers(1, 50)) for _ in range(n_cls)]
-    code, lanes, sorted_, entries, size = _kernel_cover(nls, segs, bb=True)
-    for c in range(n_cls):
-        assert not code[c].any()
-        assert (lanes[c] == 1).all() and (sorted_[c] == 1).all(), c
-    full = FD.prep_class_table(nls, segs)
-    _, size_bb, sorts_bb, units_bb = FD.prep_class_table(nls, segs, True)
-    assert sorts_bb == full[2] and units_bb == sum(nls)
-    assert size_bb == full[1] - sum(
-        -(-s * n // 32) * 32 for s, n in zip(segs, nls))
-    ws = torch.zeros(size, dtype=torch.int32)
-    used = np.zeros(size, int)
-    for c, ws0, _, _ in entries:
-        v = FD.prep_views(ws, ws.view(torch.float32), ws0, segs[c], nls[c],
-                          bb=True)
-        assert set(v) == {"tat", "mins6", "cont6", "order"}
-        for t in v.values():
-            at = (t.data_ptr() - ws.data_ptr()) // 4
-            assert t.is_contiguous() and at % 32 == 0
-            used[at:at + t.numel()] += 1
-    assert used.max() <= 1
-
-
-def test_prep_class_table_empty_and_single():
-    assert FD.prep_class_table([0, 0], [8, 16]) == ([], 0, 0, 0)
-    u = FD.K0_CODE_UNIT
-    # one lane: 1 sort block, 8 code slots, then the lane; 5 slots of 32
-    assert FD.prep_class_table([1], [8]) == ([(0, 0, 0, 0)], 160, 1,
-                                             -(-8 // u) + 1)
-    assert FD._prep_slots(8, 1)[0] == {
-        "code": ((8, 1), 0), "tat": ((1,), 32), "mins6": ((6, 1), 64),
-        "cont6": ((6, 1), 96), "order": ((1,), 128)}
-    # an empty class between two: the classes follow one another
-    entries, size, sorts, units = FD.prep_class_table([3, 0, 40],
-                                                      [24, 48, 16])
-    u0 = -(-24 * 3 // u) + 3
-    assert entries == [(0, 0, 0, 0), (2, FD._prep_slots(24, 3)[1], 1, u0)]
-    assert sorts == 2 and units == u0 + -(-16 * 40 // u) + 40 and \
-        size == FD._prep_slots(24, 3)[1] + FD._prep_slots(16, 40)[1]
-    # an empty class's outputs: empty views of the right shapes
-    ws = torch.zeros(0, dtype=torch.int32)
-    v = FD.prep_views(ws, ws.view(torch.float32), 0, 48, 0)
-    assert {k: tuple(t.shape) for k, t in v.items()} == {
-        "code": (48, 0), "tat": (0,), "mins6": (6, 0), "cont6": (6, 0),
-        "order": (0,)}
-
-
 def test_kernel_constants_match():
-    """k0's constants in the CUDA source: the field columns are
-    core/tables.py FIELD_COLS, and the launch's shape the wrapper's."""
+    """The decode's constants in the CUDA source: k0's field columns are
+    core/tables.py FIELD_COLS, the class cap is its MAX_CLASSES, and the
+    launches' shapes are the class layout's."""
     cols = _cu_define("K0_FIELD_COLS")
     assert [int(x) for x in cols.strip("{}").split(",")] == \
         list(T.FIELD_COLS)
     assert int(_cu_define("K0_THREADS")) == FD.K0_THREADS
     assert int(_cu_define("K0_SORT_LANES")) == FD.K0_SORT_LANES
     assert int(_cu_define("K0_CODE_UNIT")) == FD.K0_CODE_UNIT
-    assert int(_cu_define("K0_MAX_CLASSES").split()[0]) == FD.K1_MAX_CLASSES
+    assert int(_cu_define("MAX_CLASSES")) == T.MAX_CLASSES
+    assert int(_cu_define("K1_THREADS")) == FD.K1_THREADS
+    assert int(_cu_define("K2_COPY_THREADS")) == FD.K2_COPY_THREADS
     assert _k0_buckets() * 32 % FD.K0_THREADS == 0
 
 
@@ -361,12 +235,13 @@ def test_k0_matches_plain_bit_for_bit(case, cuda):
             assert g[k].data_ptr() == t.data_ptr(), k
 
 
-def _torch_glue(classes, wire="full"):
-    """The kernels' inputs as the decode made them before k0: class_prep
-    and lane_order of each class, by torch's operations on the card."""
+def _torch_glue(lay, classes):
+    """The kernels' inputs as the decode made them before k0, in the
+    place of its k0 step (fused_decode._k0): class_prep and lane_order of
+    each class, by torch's operations on the card."""
     out = []
     for c in classes:
-        pr = FD.class_prep(*c, wire=wire)
+        pr = FD.class_prep(*c, wire="bb" if lay.bb else "full")
         pr["order"] = FD.lane_order(pr["tat"])
         out.append(pr)
     return out
@@ -403,7 +278,7 @@ def test_dispatch_bit_equal_to_torch_glue(form, packs, cuda, monkeypatch):
     ta = B.arrays_to_torch(packs[form], cuda)
     got = B._seg_decode_arrays(ta)
     with monkeypatch.context() as m:
-        m.setattr(FD, "prep", _torch_glue)
+        m.setattr(FD, "_k0", _torch_glue)
         want = B._seg_decode_arrays(ta)
     assert len(got) == len(want) == (3 if form == "bb" else 2)
     if form == "bb":
@@ -432,7 +307,7 @@ def test_dispatch_never_synchronizes(form, packs, cuda, monkeypatch):
     try:
         B._seg_decode_arrays(ta)
         with monkeypatch.context() as m:
-            m.setattr(FD, "prep", _torch_glue)
+            m.setattr(FD, "_k0", _torch_glue)
             with pytest.raises(RuntimeError):
                 B._seg_decode_arrays(ta)
     finally:
