@@ -20,7 +20,8 @@ non-zero:
    without the 8-row bucket, so that SEG is not a multiple of 4; then the
    mixed batch with lane 0 a continuation, so that k2's seed roll wraps;
    offsets within 1 i16 unit (1 mA), f32 coordinates within 1e-3 A on
-   the rows each lane owns; then the
+   the rows each lane owns (k3 on the rows k2 staged on the card, 0 units
+   and 0.0 A); then the
    whole device decode against the plain versions on every visible card
    (card 0 alone on a one-card machine), since each card holds its own
    copy of the kernels' constant tables;
@@ -31,8 +32,9 @@ non-zero:
    exact encoder (foldcomp_tpu_torch/verify.py);
 4. device: decode of B=8192 entries of bench.py's 8 synthetic lengths
    (~4.1M residues) through the kernels and through the plain versions,
-   timed with CUDA events, with each kernel's time beside its plain
-   version's; k1 and k2 also with the lanes in pack order
+   timed with CUDA events, the kernels' output byte-identical to the
+   plain versions' on every real row, with each kernel's time beside its
+   plain version's; k1 and k2 also with the lanes in pack order
    (`pack_order_ms`), the lane order's own time (`k2.order_ms`), k0 (the
    kernels' inputs and the lane order in one launch, `prep`): its outputs
    against its plain version's (class_prep and lane_order) bit for bit,
@@ -142,8 +144,8 @@ non-zero:
    classes in one launch beside the same kernel launched once a class;
    k0 over the classes in one launch against class_prep and lane_order a
    class, every field and the order bit for bit; each class's k1, k2 and
-   k3 and the glue; the launches of a batch (k0 and k1 once); then phase
-   5's
+   k3 and the glue; the launches of a batch (k0, k1 and k2 once,
+   k3 once a class, every k3 on k2's staged rows); then phase 5's
    `decompress --fast` again with FOLDCOMP_TPU_WCLASS=1, 0 and 1 (after
    phase 5's auto run: the classed route through the CLI, which auto does
    not take at cli.FAST_BATCH), every output byte-identical to phase 5's;
@@ -354,7 +356,7 @@ def ptxas_report(log):
                       r"for) '?(\w+)", line)
         if m:
             cur = next((k for k in ("k0_prep", "k1_tails", "k2_backbone_bb",
-                                    "k2_backbone", "k2_copy_out",
+                                    "k2_backbone",
                                     "k3_sidechain", "k3_tables",
                                     "k4_fused_encode", "k4_acos")
                         if k in m.group(1)), m.group(1))
@@ -970,8 +972,9 @@ def e2e_compress(work, card, uniq):
 def decode_kernels(dev, uniq, err):
     """Phase 2: k1, k2 and k3 against their plain versions on `dev`, on
     the same inputs (kernel_cases). k1 and k2 within TOL_A on the rows each
-    lane owns, k3 within TOL_I16 and TOL_A on its residues. err keeps each
-    kernel's largest difference; raises past a tolerance."""
+    lane owns, k3 (on the rows k2 staged) within TOL_CLASSES, byte-equal,
+    on its residues. err keeps each kernel's largest difference; raises
+    past a tolerance."""
     import torch
 
     from foldcomp_tpu_torch.kernels import fused_decode as FD
@@ -986,12 +989,15 @@ def decode_kernels(dev, uniq, err):
             tp = FD.tails_plain(recs, FD.n_ca_lengths(recs), fwd9, *lane)
             got["k1"] = (tails9 - tp).abs().max().item()
         bk = FD.backbone(recs, tails9, fwd9, is_first, *lane, order=order)
-        got["k2"] = owned_max(bk, FD.backbone_rolled_plain(
+        rows = bk.rows()
+        got["k2"] = owned_max(rows, FD.backbone_rolled_plain(
             recs, tails9, fwd9, is_first, *lane), pr["tat"])
         nl_out = arrays["nl_out"]
-        ok_, ck = FD.sidechain(*bk, pr["code"], pr["sct"], nl_out,
+        # k3 on the staged rows k2 left on the card, against the plain
+        # version on the same rows in lane columns
+        ok_, ck = FD.sidechain(bk, pr["code"], pr["sct"], nl_out,
                                seg_m=ta["seg_m"])
-        op, cp = FD.sidechain_plain(*bk, pr["code"], pr["sct"], nl_out)
+        op, cp = FD.sidechain_plain(*rows, pr["code"], pr["sct"], nl_out)
         own_res = torch.arange(ok_.shape[1], device=dev)[None, :] \
             < ta["seg_m"][:ok_.shape[0], None]
         d_off = (ok_.int() - op.int()).abs()[own_res].max().item()
@@ -1002,7 +1008,8 @@ def decode_kernels(dev, uniq, err):
         for k in ("k1", "k2"):
             if k in got and not got[k] <= TOL_A:
                 raise AssertionError(f"{k} vs plain: {got[k]} A")
-        if not (d_off <= TOL_I16 and d_ca <= TOL_A):
+        if not (d_off <= TOL_CLASSES["i16_units"]
+                and d_ca <= TOL_CLASSES["f32_A"]):
             raise AssertionError(f"k3 vs plain: off {d_off} units, "
                                  f"ca {d_ca} A")
         for k in ("k1", "k2", "k3"):
@@ -1017,7 +1024,9 @@ def decode_kernels(dev, uniq, err):
              lane0_wraps=first is not ta["is_first"],
              seg=int(arrays["seg_records"].shape[1]),
              lanes=int(arrays["seg_records"].shape[2]),
-             max_abs=got, tol={"f32_A": TOL_A, "i16_units": TOL_I16})
+             max_abs=got, tol={"k1_k2_f32_A": TOL_A,
+                               "k3_f32_A": TOL_CLASSES["f32_A"],
+                               "k3_i16_units": TOL_CLASSES["i16_units"]})
 
 
 def phase2_corpora(uniq):
@@ -1093,7 +1102,9 @@ def device_decode(dev, card, uniq, err, entries=8192):
         < ta["seg_m"][:ko.shape[0], None]
     d_off = (ko.int() - po.int()).abs()[own_res].max().item()
     d_ca = (kc - pc).abs()[own_res].max().item()
-    if not (d_off <= TOL_I16 and d_ca <= TOL_A):
+    # byte-identical on every real row
+    if not (d_off <= TOL_CLASSES["i16_units"]
+            and d_ca <= TOL_CLASSES["f32_A"]):
         raise AssertionError(f"B={entries} kernel vs plain decode: off "
                              f"{d_off}, ca {d_ca}")
     del ko, kc, po, pc
@@ -1105,8 +1116,9 @@ def device_decode(dev, card, uniq, err, entries=8192):
     t9 = FD.tails(recs, fwd9, *lane, order=order)
     t9p = FD.tails_plain(recs, FD.n_ca_lengths(recs), fwd9, *lane)
     bb = FD.backbone(recs, t9, fwd9, first, *lane, order=order)
+    bb_rows = bb.rows()
     diffs = {"k1": (t9 - t9p).abs().max().item(),
-             "k2": owned_max(bb, FD.backbone_rolled_plain(
+             "k2": owned_max(bb_rows, FD.backbone_rolled_plain(
                  recs, t9, fwd9, first, *lane), tat)}
     del t9p
     for k, d in diffs.items():
@@ -1125,9 +1137,9 @@ def device_decode(dev, card, uniq, err, entries=8192):
                                           *lane)),
         "k2": (k2, lambda: FD.backbone_rolled_plain(recs, t9, fwd9, first,
                                                     *lane)),
-        "k3": (lambda: FD.sidechain(*bb, pr["code"], pr["sct"], nl_out,
+        "k3": (lambda: FD.sidechain(bb, pr["code"], pr["sct"], nl_out,
                                     seg_m=ta["seg_m"]),
-               lambda: FD.sidechain_plain(*bb, pr["code"], pr["sct"],
+               lambda: FD.sidechain_plain(*bb_rows, pr["code"], pr["sct"],
                                           nl_out)),
     }
     # the work each kernel must do: the real lanes, their residue rows and
@@ -1155,9 +1167,9 @@ def device_decode(dev, card, uniq, err, entries=8192):
     # k3 over every row, the padding's too: what skipping it saves
     every_row = torch.full_like(ta["seg_m"], int(recs.shape[1]))
     times["k3"]["all_rows_ms"] = cuda_ms(
-        torch, lambda: FD.sidechain(*bb, pr["code"], pr["sct"], nl_out,
+        torch, lambda: FD.sidechain(bb, pr["code"], pr["sct"], nl_out,
                                     seg_m=every_row), 10)
-    del bb, t9
+    del bb, bb_rows, t9
     ms_kern = min(ms_kern_a, ms_kern_b)
     ms_plain = min(ms_plain_a, ms_plain_b)
     emit("device", gpu=card, entries=len(big), residues=n_res,
@@ -1430,7 +1442,7 @@ def d2h(outs):
 def bb_device(dev, card, uniq, err, entries=8192):
     """Phase 11, device: the B=8192 batch of phase 4 on the bb wire.
     backbone_only (one kernel, k2_backbone_bb) against its plain version;
-    the bb call beside the full wire's k2 (k2_backbone + k2_copy_out) and
+    the bb call beside the full wire's k2 (k2_backbone) and
     its plain version, and the whole device decode on each wire, all by
     CUDA events in turns; the D2H seconds and bytes of each wire's output;
     the link probe. -> k2_bb's times and bound."""
@@ -1661,7 +1673,7 @@ def hold_classes(label, ta, refine_iters, err):
         d["k1"] = (tails_g - tp).abs().max().item()
     k2_in = k2_inputs(prs, bases, prev, tails_g)
     for c, bk in zip(k2_in, FD.backbone_classes(k2_in, tails_g)):
-        d["k2"] = max(d["k2"], owned_max(bk, FD.backbone_rolled_plain(
+        d["k2"] = max(d["k2"], owned_max(bk.rows(), FD.backbone_rolled_plain(
             c[0], tails_g, c[1], c[2], *c[3:7], c[8]), c[4]))
     if not (d["k3_off_units"] <= TOL_CLASSES["i16_units"]
             and max(d["k1"], d["k2"], d["k3_ca"]) <= TOL_CLASSES["f32_A"]):
@@ -1708,13 +1720,14 @@ def class_device(dev, card, uniq, err, entries=8192):
     classed decode against the single-class one, gathered per protein
     through each pack's metas, bit-equal on every row; each form's slots,
     output bytes, D2H seconds (pageable, as the stream copies), device
-    decode time in turns and peak device memory; k1, and k2 with its
-    copy-out, over every class in one launch beside the same kernel
-    launched once a class (a one-entry table each; bit-equal on every row
-    a lane owns), in turns; each class's k1, k2 and k3 by CUDA events and
-    the glue; the launches of a batch (k0, k1 and k2 once, classed or
-    not, k2 over every class); the host seconds of the pack alone and of
-    the pack with the split."""
+    decode time in turns and peak device memory; k1 and k2 over every
+    class in one launch beside the same kernel launched once a class (a
+    one-entry table each; bit-equal on every row a lane owns), in turns;
+    each class's k1, k2 and k3 by CUDA events and the glue, k3 also with
+    its groups in k0's lane order; the launches of a batch (k0, k1 and k2 once,
+    classed or not, k2 over every class, k3 once a class on k2's staged
+    rows); the host seconds of the pack alone and of the pack with the
+    split."""
     import numpy as np
     import torch
 
@@ -1820,7 +1833,8 @@ def class_device(dev, card, uniq, err, entries=8192):
     for c, one in zip(k2_in, k2_one):
         each = FD.backbone_classes([c], tails_g)[0]
         if not all(torch.equal(a, b) for a, b in zip(
-                owned_rows(one, c[4]), owned_rows(each, c[4]))):
+                owned_rows(one.rows(), c[4]),
+                owned_rows(each.rows(), c[4]))):
             raise AssertionError(f"B={entries}: k2 in one launch and once a "
                                  f"class differ (SEG {c[0].shape[1]})")
     del k2_one, each
@@ -1846,7 +1860,7 @@ def class_device(dev, card, uniq, err, entries=8192):
         bb = k2()
 
         def k3(pr=pr, bb=bb, i=i):
-            return FD.sidechain(*bb, pr["code"], pr["sct"], nl_outs[i],
+            return FD.sidechain(bb, pr["code"], pr["sct"], nl_outs[i],
                                 seg_m=pr["segm"])
         t = {k: min(cuda_ms(torch, fn, 10), cuda_ms(torch, fn, 10))
              for k, fn in (("k1", k1_each[i]), ("k2", k2), ("k3", k3))}
@@ -1878,8 +1892,11 @@ def class_device(dev, card, uniq, err, entries=8192):
     if any(launches[f][k] != 1 for f in ("classed", "single")
            for k in ("prep", "k1", "k2")) or \
             launches["classed"]["k2_classes"] != len(per_class) or \
-            launches["single"]["k2_classes"] != 1:
-        raise AssertionError(f"B={entries}: k0, k1 and k2 launches "
+            launches["single"]["k2_classes"] != 1 or \
+            any(launches[f]["k3_staged"] != launches[f]["k3"]
+                or launches[f]["k3"] != launches[f]["k2_classes"]
+                for f in forms):
+        raise AssertionError(f"B={entries}: k0, k1, k2 and k3 launches "
                              f"{launches}")
     return ms
 
@@ -2673,14 +2690,17 @@ def main(argv=None) -> int:
     global SINCOS_OPS
     step = k1_step_sass(path)
     SINCOS_OPS = (step["float_instructions"] - K1_STEP_OTHER_OPS) / 6
+    ptxas = ptxas_report(build.BUILD_LOG) \
+        if build.BUILD_LOG is not None else "library built before"
     emit("setup", describe=desc, library=path, cache=cache_dir(),
          nvcc_seconds=build.BUILD_SECONDS,
          build_and_load_seconds=time.perf_counter() - t0,
-         nvcc_flags=" ".join(build.NVCC_FLAGS),
-         ptxas=ptxas_report(build.BUILD_LOG)
-         if build.BUILD_LOG is not None else "library built before",
+         nvcc_flags=" ".join(build.NVCC_FLAGS), ptxas=ptxas,
          k1_step_sass={**step, "other_operations": K1_STEP_OTHER_OPS,
                        "sincosf_operations": SINCOS_OPS})
+    # k3 reads k2's rows where k2 staged them: no kernel copies them
+    if any("copy" in k for k in (ptxas if isinstance(ptxas, dict) else {})):
+        raise AssertionError(f"a copy kernel in the build: {sorted(ptxas)}")
     if args.ptxas:
         emit("ptxas_of", source=args.ptxas, ptxas=ptxas_of(args.ptxas))
 
@@ -2830,6 +2850,7 @@ def main(argv=None) -> int:
         expect["prep"] = expect["k2"] = expect["k1"]
         expect["prep_bb"] = 0           # the full wire: k0 in full mode
         expect["k3"] = expect["k2_classes"]
+        expect["k3_staged"] = expect["k3"]  # every k3 on k2's staged rows
         # the batches the stream formed, replayed: which the auto rule
         # splits (its lane count and savings share)
         from foldcomp_tpu_torch import bench_routing

@@ -234,7 +234,7 @@ def _bind(lib):
     lib.fd_tails.argtypes = [vp, vp, vp, ci, vp]
     lib.fd_backbone.argtypes = [vp, vp, vp, ci, vp]
     lib.fd_backbone_bb.argtypes = [vp] * 16 + [ci, ci, ci, ci, vp]
-    lib.fd_sidechain.argtypes = [vp] * 8 + [ci, ci, ci, vp]
+    lib.fd_sidechain.argtypes = [vp] * 9 + [ci, ci, ci, vp]
     lib.fe_encode.argtypes = [vp] * 8 + [ci] + [vp] * 6 + [ci, ci, vp]
     lib.fe_acos.argtypes = [vp, vp, ci, vp]
     for fn in (lib.fd_set_tables, lib.fd_prep, lib.fd_tails,

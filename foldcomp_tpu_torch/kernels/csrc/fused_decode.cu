@@ -13,9 +13,8 @@
 //                       with the seed roll of :596-610 (or, for width
 //                       classes, the prev_idx gather of :654-670) and the
 //                       N-CA lengths of _class_prep (:405-437); every width
-//                       class of a batch in one launch of k2_backbone and
-//                       one of k2_copy_out (_run_backbone_sc once a class,
-//                       :675-677)
+//                       class of a batch in one launch of k2_backbone
+//                       (_run_backbone_sc once a class, :675-677)
 //   k3 fd_sidechain  <- _make_sidechain_kernel  (pallas_decode.py:338)
 //   fd_backbone_bb   <- _run_backbone_only      (pallas_decode.py:529):
 //                       k2 with its XLA epilogue (:561-570) in one kernel,
@@ -29,15 +28,15 @@
 // pack_decode_batch_lanes): row-major [rows, NL]. k1 and k2 take one
 // thread per lane in the order lane_order gives (by row count, longest
 // first), so that a warp's lanes have one length; k2 stages its rows at
-// the thread's column and copies them to the lane's (k2_copy_out), or on
-// the bb wire turns its blended rows into the wire's 24 B rows as it goes
-// (k2_backbone_bb); k3 walks groups of 32 neighbouring lanes. Each walks a
-// lane's own rows only (r < tat = 3*seg_m); the rest is pack padding and
-// is left unwritten. What bounds each on an H100 (PERF.md §6; chip_smoke.py
-// counts the operations, a full-precision sincosf at the float
-// instructions of its compiled fast path, at 33.5 T float instructions/s,
-// since -fmad=false leaves no FMA): k1, k2 and k2_backbone_bb their float
-// operations, k3 its loads and stores.
+// the thread's column (pos[l]), or on the bb wire turns its blended rows
+// into the wire's 24 B rows as it goes (k2_backbone_bb); k3 walks groups
+// of 32 neighbouring lanes and reads lane l's rows there, at pos[l]. Each
+// walks a lane's own rows only (r < tat = 3*seg_m); the rest is pack
+// padding and is left unwritten. What bounds each on an H100 (PERF.md §6;
+// chip_smoke.py counts the operations, a full-precision sincosf at the
+// float instructions of its compiled fast path, at 33.5 T float
+// instructions/s, since -fmad=false leaves no FMA): k1, k2 and
+// k2_backbone_bb their float operations, k3 its loads and stores.
 //
 // Float rules (nvcc -fmad=false, no --use_fast_math; build.py):
 //  - no FMA contraction, so every expression rounds in the JAX order;
@@ -259,7 +258,6 @@ struct ClassGeom {
   int sort0;   // its first sort block of k0
   int unit0;   // its first unit of k0
   int block0;  // its first block of k1 and of k2_backbone
-  int copy0;   // its first block of k2_copy_out
 };
 
 // k0: the kernel inputs of every width class of a batch in one launch, what
@@ -645,10 +643,9 @@ k1_tails(const __grid_constant__ K1Table tab, float* __restrict__ out,
 // (_make_backbone_kernel, pallas_decode.py:227-296, after the seed roll of
 // :596-610). k2_lane is one lane's walk; the two wires differ only in
 // where its blended rows go (the Out policy): on the full wire
-// (k2_backbone, StageRows) into scratch planes at its thread's column,
-// which k2_copy_out then moves to the lane's column of the output planes
-// ox/oy/oz [3*SEG, NL]; on the bb wire (k2_backbone_bb, BbRuns) straight
-// into the wire's 24 B rows.
+// (k2_backbone, StageRows) into the planes sx/sy/sz [3*SEG, NL] at its
+// thread's column, where k3 reads them; on the bb wire (k2_backbone_bb,
+// BbRuns) straight into the wire's 24 B rows.
 //
 // One thread per lane, the lanes in the order `order` gives (lane_order:
 // by tat, longest first, stable), so that a warp's lanes have one length
@@ -780,17 +777,19 @@ struct StageRows {
   __device__ __forceinline__ void residue(int) {}
 };
 
-// k2_backbone, the full wire, in two launches over every width class of a
-// batch: the lane walks into scratch planes at each thread's column, then
-// k2_copy_out to the lanes' columns.
+// k2_backbone, the full wire, in one launch over every width class of a
+// batch: the lane walks into the planes at each thread's column i, and
+// pos[l] = i records where lane l went. The rows stay there: k3 reads
+// them in the same column order (k3_sidechain).
 //
 // Bound (PERF.md §6): operations, the forward's as k1's (k1 is the same
 // loop without the stores) and the reverse's placements, its 3 sincosf a
 // residue and its divisions, with its loads and stores behind them. The
 // blend's stores cost ~0.31 ms when they went straight to the lanes'
-// columns of the output planes, ~0.04 ms in place at the thread's; so they
-// are staged, and the copy moves the 36 B a row at ~2 TB/s with every
-// store a whole line.
+// columns, ~0.04 ms in place at the thread's; so they stay at the thread's
+// column, every warp store a whole line (a second kernel that copied them
+// to the lanes' columns took 8-9% of the card's time in the full-wire
+// resident cells, until k3 read them where they are).
 //
 // Why one launch takes every class: a thread walks its lane's residues in
 // order, so a class's launch lasts as long as its longest walks however
@@ -800,16 +799,15 @@ struct StageRows {
 // and its copy-out took 0.088-0.140, 0.321-0.333, 0.090-0.143 and
 // 0.105-0.110 ms: 0.60-0.73 ms summed, though the three small classes
 // hold 14% of the rows, against 0.417-0.428 ms for the same batch as one
-// class, whose walks are the same arithmetic. So, as k1 (K1Table), each
+// class, whose walks are the same arithmetic. So, as k1 (K1Table), the
 // kernel takes a table of up to MAX_CLASSES classes by value and gives
-// each class a range of blocks: k2_backbone the widest class first
-// (class_layout's order, with k1's blocks), so that its long
-// walks start first and the bulk class fills the SMs behind them. A block
+// each class a range of blocks, the widest class first (class_layout's
+// order, with k1's blocks), so that its long walks start first and the
+// bulk class fills the SMs behind them. A block
 // finds its class before the walk; the walk itself (k2_seed, k2_lane,
 // StageRows) is a class's launch's, so every row a lane owns is the same
 // float. The bound is unchanged: the same operations and bytes.
 #define K2_THREADS K1_THREADS  // k2_backbone's block: k1's table's blocks
-#define K2_COPY_THREADS 256
 
 struct K2Class : ClassGeom {
   const uint8_t* recs;       // [8, seg, nl]
@@ -821,12 +819,11 @@ struct K2Class : ClassGeom {
   const float* cont6;        // [6, nl]
   const int* order;          // [nl], a permutation of the class's lanes
   const int* prev;           // [nl] columns of tails9, or null: lane l-1
-  float *sx, *sy, *sz;       // [3*seg, nl] scratch, at the thread's column
-  int* pos;                  // [nl] scratch: the thread that walked lane l
-  float *ox, *oy, *oz;       // [3*seg, nl] output planes
+  float *sx, *sy, *sz;       // [3*seg, nl] out, at the thread's column
+  int* pos;                  // [nl] out: the column (thread) of lane l
 };
 struct K2Table {
-  K2Class c[MAX_CLASSES];     // by block0 and copy0, ascending; none empty
+  K2Class c[MAX_CLASSES];     // by block0, ascending; none empty
   const float* tails9;        // [9, tails_ld], or null (refine_iters 1)
   int tails_ld;
   int n;
@@ -855,49 +852,6 @@ k2_backbone(const __grid_constant__ K2Table tab) {
   float* __restrict__ sz = cl.sz;
   StageRows out{sx, sy, sz, nl, i};
   k2_lane(ln, a, b, c, cl.ranc, sx, sy, sz, tat, nl, l, i, out);
-}
-
-// k2's copy-out: residue s (rows 3s .. 3s+2) of lane l, s < seg_m, from
-// the scratch column pos[l] (the thread that walked the lane) to the
-// lane's column of the class's output planes; one thread per (residue,
-// lane), so a warp stores 32 neighbouring lanes, and loads before it
-// stores. A class's blocks are its ceil(nl / K2_COPY_THREADS) lane blocks
-// for each of its SEG residues, residue-major from copy0, so no block lies
-// past a class's SEG.
-__global__ void __launch_bounds__(K2_COPY_THREADS)
-k2_copy_out(const __grid_constant__ K2Table tab) {
-  int ci = 0;
-  for (int k = 1; k < tab.n; ++k)
-    if ((int)blockIdx.x >= tab.c[k].copy0) ci = k;
-  const K2Class& cl = tab.c[ci];
-  const int nl = cl.nl;
-  const int xb = (nl + K2_COPY_THREADS - 1) / K2_COPY_THREADS;
-  const int b = (int)blockIdx.x - cl.copy0;
-  const int l = (b % xb) * K2_COPY_THREADS + threadIdx.x;
-  const int r = 3 * (b / xb);
-  if (l >= nl || r >= min(cl.tat[l], 3 * cl.seg)) return;
-  const float* __restrict__ sx = cl.sx;
-  const float* __restrict__ sy = cl.sy;
-  const float* __restrict__ sz = cl.sz;
-  const int p = cl.pos[l];
-  float v[9];
-#pragma unroll
-  for (int k = 0; k < 3; ++k) {
-    const size_t src = (size_t)(r + k) * nl + p;
-    v[3 * k] = sx[src];
-    v[3 * k + 1] = sy[src];
-    v[3 * k + 2] = sz[src];
-  }
-  float* __restrict__ ox = cl.ox;
-  float* __restrict__ oy = cl.oy;
-  float* __restrict__ oz = cl.oz;
-#pragma unroll
-  for (int k = 0; k < 3; ++k) {
-    const size_t dst = (size_t)(r + k) * nl + l;
-    ox[dst] = v[3 * k];
-    oy[dst] = v[3 * k + 1];
-    oz[dst] = v[3 * k + 2];
-  }
 }
 
 // The bb wire's Out (the XLA epilogue of _run_backbone_only,
@@ -1070,20 +1024,30 @@ __global__ void k3_tables() {
 
 // k3: side chains and the compact int16 wire.
 //
-// Work: one thread per real residue row (lane l, row s < seg_m[l]); rows
-// s >= seg_m[l] are pack padding, neither computed nor written (their
-// output rows are left as allocated; the host stitch reads none of them).
-// A persistent grid of a few blocks per SM walks groups of K3_TL = 32
-// neighbouring lanes; each block copies the tables into shared memory
-// once. Lanes carry ~25 rows but SEG is the widest lane's (48 at the
-// default anchor interval), so a group's rows are split at m, the median
-// of its lanes' row counts:
+// Work: one thread per real residue row (lane l < nl_out, row s <
+// seg_m[l]); rows s >= seg_m[l] and lanes l >= nl_out are pack padding,
+// neither computed nor written (their output rows are left as allocated;
+// the host stitch reads none of them). The backbone rows are k2's, where
+// k2_backbone left them: lane l's at column pos[l] of the planes, the
+// columns in k0's lane order. A persistent grid of a few blocks per SM
+// walks groups of K3_TL = 32 neighbouring lanes in pack order, reading
+// lane l's rows at pos[l]; each block copies the tables into shared
+// memory once. Groups of 32 neighbouring columns in k0's lane order
+// (column i taking lane order[i], its backbone reads whole lines) took
+// 0.5527 ms at B=8192 on an H100 80GB HBM3 (700 W) against the pack
+// order's 0.5307 (0.5894 against 0.5841 summed over the four classes of
+// the classed batch; PERF.md §6), so k3 has the pack order's groups only.
+// Lanes carry ~25 rows but SEG is the widest lane's (48 at the default
+// anchor interval), so a group's rows are split at m, the median of its
+// lanes' row counts:
 //  - dense steps, rows s < m, K3_TS = 4 rows at a time, one thread per
-//    (lane, row), a warp on 32 neighbouring lanes of one row: the reads of
-//    the backbone rows, codes and torsion codes are coalesced, and each
-//    lane's run of up to 4 rows is copied out with 16-byte stores when it
-//    starts 16-byte aligned (SEG % 4 == 0, as the pack's 8-row bucket
-//    gives; 84 * 4 = 336 = 21 * 16), else with 4-byte ones;
+//    (lane, row), a warp on the 32 lanes of one row: the reads of codes
+//    and torsion codes are coalesced, those of the backbone rows nearly
+//    so (a protein's interior lanes, of one length, lie in consecutive
+//    columns), and each lane's run of up to 4 rows is copied out with
+//    16-byte stores when it starts 16-byte aligned (SEG % 4 == 0, as the
+//    pack's 8-row bucket gives; 84 * 4 = 336 = 21 * 16), else with 4-byte
+//    ones;
 //  - sparse steps, the rows m <= s < seg_m[l] of the longer lanes (the
 //    anchor tails), packed lane by lane onto consecutive threads, 128 at
 //    a time, and copied out row by row with 4-byte stores.
@@ -1098,7 +1062,7 @@ __global__ void k3_tables() {
 // in the final [NL_out, SEG, 42] / [NL_out, SEG, 3] layout. So the TPU
 // path's epilogue transpose (pallas_decode.py:517-525) is gone.
 //
-// Bound: bytes. Per real row 36 B of backbone, 4 B of code and 11 B of
+// Bound: bytes. Per real row 36 B of k2's rows, 4 B of code and 11 B of
 // torsion codes in, 84 B of offsets and 12 B of CA out (147 B); the 11
 // placements are ~66 flops and 2 rsqrtf each. The kernel's previous tiled
 // form took 1.41 ms at B=8192 on an H100 80GB HBM3 (700 W power limit):
@@ -1111,17 +1075,18 @@ __global__ void k3_tables() {
 #define K3_T (K3_TL * K3_TS)
 #define K3_ROW (3 * MAX_ATOM)
 
-// Side chain and int16 offsets of row s of lane l: the thread's atom
-// column `col` (stride K3_T) ends up holding the 14 atoms; packed[w] holds
-// offsets 2w and 2w + 1, and ca the CA.
+// Side chain and int16 offsets of row s of lane l, whose backbone rows
+// are at column bc of the planes: the thread's atom column `col` (stride
+// K3_T) ends up holding the 14 atoms; packed[w] holds offsets 2w and
+// 2w + 1, and ca the CA.
 __device__ __forceinline__ void k3_row(
     const float* __restrict__ bx, const float* __restrict__ by,
     const float* __restrict__ bz, const int* __restrict__ code,
     const uint8_t* __restrict__ sct, const K3Tables& tab, float* col,
-    int l, int s, int nl, uint32_t* packed, float* ca) {
+    int bc, int l, int s, int nl, uint32_t* packed, float* ca) {
 #pragma unroll
   for (int a = 0; a < 3; ++a) {
-    const size_t row = (size_t)(3 * s + a) * nl + l;
+    const size_t row = (size_t)(3 * s + a) * nl + bc;
     col[(3 * a) * K3_T] = bx[row];
     col[(3 * a + 1) * K3_T] = by[row];
     col[(3 * a + 2) * K3_T] = bz[row];
@@ -1185,7 +1150,8 @@ __device__ __forceinline__ void k3_stage(int16_t* s_off, float* s_ca,
 
 __global__ void __launch_bounds__(K3_T, 6)
 k3_sidechain(const float* __restrict__ bx, const float* __restrict__ by,
-             const float* __restrict__ bz, const int* __restrict__ code,
+             const float* __restrict__ bz, const int* __restrict__ pos,
+             const int* __restrict__ code,
              const uint8_t* __restrict__ sct, const int* __restrict__ seg_m,
              int16_t* __restrict__ off, float* __restrict__ ca, int seg,
              int nl, int nl_out) {
@@ -1194,6 +1160,8 @@ k3_sidechain(const float* __restrict__ bx, const float* __restrict__ by,
   // output stage: int16 [K3_T][42] then float [K3_T][3]
   __shared__ __align__(16) float s_at[K3_ROW * K3_T];
   __shared__ int s_rows[K3_TL];      // rows of each lane of the group
+  __shared__ int s_lane[K3_TL];      // the lanes (0 where none)
+  __shared__ int s_col[K3_TL];       // their columns of the planes (pos)
   __shared__ int s_pre[K3_TL + 1];   // prefix of the lanes' sparse rows
   __shared__ int s_med;              // m, the group's dense row count
   __shared__ int s_dst[K3_T];        // output row of each sparse slot
@@ -1213,14 +1181,15 @@ k3_sidechain(const float* __restrict__ bx, const float* __restrict__ by,
   float cav[3];
 
   for (int grp = blockIdx.x; grp < n_groups; grp += gridDim.x) {
-    const int l0 = grp * K3_TL;
+    const int c0 = grp * K3_TL;  // its first lane
     __syncthreads();  // the previous group's copy-out is done
     if (threadIdx.x < K3_TL) {
-      // warp 0: each lane's row count, their median m, and the prefix of
-      // the rows past m
-      const int lane = l0 + threadIdx.x;
-      const int r = lane < nl_out ? min(seg_m[lane], seg) : 0;
+      // warp 0: each lane's column and row count, their median m, and
+      // the prefix of the rows past m
+      const int lane = c0 + threadIdx.x;
       const bool valid = lane < nl_out;
+      const int bc = valid ? pos[lane] : 0;
+      const int r = valid ? min(seg_m[lane], seg) : 0;
       int below = 0, same = 0, nv = 0;
       for (int o = 0; o < K3_TL; ++o) {
         const int ro = __shfl_sync(0xffffffffu, r, o);
@@ -1235,6 +1204,8 @@ k3_sidechain(const float* __restrict__ bx, const float* __restrict__ by,
       const int m = __shfl_sync(0xffffffffu, r, __ffs(who) - 1);
       int e = max(r - m, 0);
       s_rows[threadIdx.x] = r;
+      s_lane[threadIdx.x] = valid ? lane : 0;
+      s_col[threadIdx.x] = bc;
       for (int o = 1; o < K3_TL; o <<= 1) {  // inclusive scan
         const int v = __shfl_up_sync(0xffffffffu, e, o);
         if ((int)threadIdx.x >= o) e += v;
@@ -1250,11 +1221,11 @@ k3_sidechain(const float* __restrict__ bx, const float* __restrict__ by,
 
     // dense steps: rows s0 .. s0 + 3 of every lane, s < min(m, rows)
     for (int s0 = 0; s0 < m; s0 += K3_TS) {
-      const int l = l0 + tl, s = s0 + ts;
+      const int s = s0 + ts;
       const bool real = s < min(s_rows[tl], m);
       __syncthreads();  // the previous step's copy-out is done
-      if (real) k3_row(bx, by, bz, code, sct, s_tab, col, l, s, nl, packed,
-                       cav);
+      if (real) k3_row(bx, by, bz, code, sct, s_tab, col, s_col[tl],
+                       s_lane[tl], s, nl, packed, cav);
       __syncthreads();  // every column read before the stage overwrites it
       if (real) k3_stage(s_off, s_ca, tl * K3_TS + ts, packed, cav);
       __syncthreads();
@@ -1268,7 +1239,7 @@ k3_sidechain(const float* __restrict__ bx, const float* __restrict__ by,
           const int lc = i / (c16 + 3), j = i - lc * (c16 + 3);
           const int n = min(max(min(s_rows[lc], m) - s0, 0), K3_TS);
           const int nc = n * K3_ROW * 2 / 16;
-          int16_t* dst = off + ((size_t)(l0 + lc) * seg + s0) * K3_ROW;
+          int16_t* dst = off + ((size_t)s_lane[lc] * seg + s0) * K3_ROW;
           const int16_t* src = s_off + lc * K3_TS * K3_ROW;
           if (j < nc) {
             reinterpret_cast<int4*>(dst)[j] =
@@ -1286,7 +1257,7 @@ k3_sidechain(const float* __restrict__ bx, const float* __restrict__ by,
           const int n = min(max(min(s_rows[lc], m) - s0, 0), K3_TS);
           if (j < n * K3_ROW / 2)
             reinterpret_cast<uint32_t*>(
-                off + ((size_t)(l0 + lc) * seg + s0) * K3_ROW)[j] =
+                off + ((size_t)s_lane[lc] * seg + s0) * K3_ROW)[j] =
                 reinterpret_cast<const uint32_t*>(
                     s_off + lc * K3_TS * K3_ROW)[j];
         }
@@ -1295,7 +1266,7 @@ k3_sidechain(const float* __restrict__ bx, const float* __restrict__ by,
         const int lc = i / (K3_TS * 3), j = i - lc * (K3_TS * 3);
         const int n = min(max(min(s_rows[lc], m) - s0, 0), K3_TS);
         if (j < n * 3)
-          ca[((size_t)(l0 + lc) * seg + s0) * 3 + j] =
+          ca[((size_t)s_lane[lc] * seg + s0) * 3 + j] =
               s_ca[lc * K3_TS * 3 + j];
       }
     }
@@ -1309,12 +1280,12 @@ k3_sidechain(const float* __restrict__ bx, const float* __restrict__ by,
         while (s_pre[lc + 1] <= j) ++lc;
       const int s = m + j - s_pre[lc];
       __syncthreads();  // the previous step's copy-out is done
-      if (real) k3_row(bx, by, bz, code, sct, s_tab, col, l0 + lc, s, nl,
-                       packed, cav);
+      if (real) k3_row(bx, by, bz, code, sct, s_tab, col, s_col[lc],
+                       s_lane[lc], s, nl, packed, cav);
       __syncthreads();
       if (real) {
         k3_stage(s_off, s_ca, threadIdx.x, packed, cav);
-        s_dst[threadIdx.x] = (l0 + lc) * seg + s;
+        s_dst[threadIdx.x] = s_lane[lc] * seg + s;
       }
       __syncthreads();
       // consecutive slots of one lane are consecutive output rows
@@ -1338,30 +1309,28 @@ static unsigned blocks_for(size_t n, unsigned threads) {
 // The grids of one batch's classes (read_classes).
 struct ClassGrid {
   int n, bb;
-  long long sorts, units, blocks, copies;
+  long long sorts, units, blocks;
 };
 
 // Reads one batch's class geometry (fused_decode.py class_layout) into the
 // ClassGeom of c[0 .. n): geo holds n (1 .. MAX_CLASSES), bb (1: k0's bb
-// mode, no code plane), then 7 ints a class (seg, nl, col0, sort0, unit0,
-// block0, copy0) in launch order. Every class has lanes and rows, and each
-// of its ranges starts where the last class's ends: ceil(nl /
-// K0_SORT_LANES) sort blocks and ceil(seg * nl / K0_CODE_UNIT) code units
-// (none in bb mode) then nl lane units of k0, ceil(nl / K1_THREADS) blocks
-// of k1 and k2_backbone, ceil(nl / K2_COPY_THREADS) * seg of k2_copy_out.
-// -> false where that does not hold or a grid passes INT_MAX.
+// mode, no code plane), then 6 ints a class (seg, nl, col0, sort0, unit0,
+// block0) in launch order. Every class has lanes and rows, and each of its
+// ranges starts where the last class's ends: ceil(nl / K0_SORT_LANES) sort
+// blocks and ceil(seg * nl / K0_CODE_UNIT) code units (none in bb mode)
+// then nl lane units of k0, ceil(nl / K1_THREADS) blocks of k1 and
+// k2_backbone. -> false where that does not hold or a grid passes INT_MAX.
 template <class Class>
 static bool read_classes(const int* geo, Class* c, ClassGrid* g) {
-  *g = ClassGrid{geo[0], geo[1], 0, 0, 0, 0};
+  *g = ClassGrid{geo[0], geo[1], 0, 0, 0};
   if (g->n < 1 || g->n > MAX_CLASSES || (g->bb != 0 && g->bb != 1))
     return false;
   for (int k = 0; k < g->n; ++k) {
-    const int* v = geo + 2 + 7 * k;
+    const int* v = geo + 2 + 6 * k;
     ClassGeom& cl = c[k];
-    cl = ClassGeom{v[0], v[1], v[2], v[3], v[4], v[5], v[6]};
+    cl = ClassGeom{v[0], v[1], v[2], v[3], v[4], v[5]};
     if (cl.seg < 1 || cl.nl < 1 || cl.col0 < 0 || cl.sort0 != g->sorts ||
-        cl.unit0 != g->units || cl.block0 != g->blocks ||
-        cl.copy0 != g->copies)
+        cl.unit0 != g->units || cl.block0 != g->blocks)
       return false;
     g->sorts += blocks_for(cl.nl, K0_SORT_LANES);
     g->units += (g->bb ? 0
@@ -1369,9 +1338,8 @@ static bool read_classes(const int* geo, Class* c, ClassGrid* g) {
                              K0_CODE_UNIT) +
                 cl.nl;
     g->blocks += blocks_for(cl.nl, K1_THREADS);
-    g->copies += (long long)blocks_for(cl.nl, K2_COPY_THREADS) * cl.seg;
   }
-  return g->units <= 0x7fffffffLL && g->copies <= 0x7fffffffLL;
+  return g->units <= 0x7fffffffLL;
 }
 
 extern "C" {
@@ -1449,13 +1417,12 @@ cudaError_t fd_tails(const void* const* ptrs, const int* geo, float* out,
   return cudaGetLastError();
 }
 
-// k2 over a batch's classes (geo: read_classes): k2_backbone, then
-// k2_copy_out, each one launch on the stream. ptrs: 16 a class (recs,
-// fwd9, is_first, ranc, tat, mins6, cont6, order, prev, then the scratch
-// sx, sy, sz, pos and the outputs ox, oy, oz; sx .. oz [3*SEG, NL] float,
-// pos [NL] int). tails9 null: the seeds are fwd9 (refine_iters 1); else
-// [9, tails_ld], read at column prev[l] (prev given) or l-1 (prev null,
-// one class, tails_ld = NL).
+// k2 over a batch's classes in one launch of k2_backbone (geo:
+// read_classes). ptrs: 13 a class (recs, fwd9, is_first, ranc, tat, mins6,
+// cont6, order, prev, then the outputs sx, sy, sz [3*SEG, NL] float, lane
+// l's rows at column pos[l], and pos [NL] int). tails9 null: the seeds are
+// fwd9 (refine_iters 1); else [9, tails_ld], read at column prev[l] (prev
+// given) or l-1 (prev null, one class, tails_ld = NL).
 cudaError_t fd_backbone(const void* const* ptrs, const int* geo,
                         const float* tails9, int tails_ld,
                         cudaStream_t stream) {
@@ -1463,7 +1430,7 @@ cudaError_t fd_backbone(const void* const* ptrs, const int* geo,
   ClassGrid g;
   if (!read_classes(geo, tab.c, &g)) return cudaErrorInvalidValue;
   for (int k = 0; k < g.n; ++k) {
-    const void* const* p = ptrs + 16 * k;
+    const void* const* p = ptrs + 13 * k;
     K2Class& c = tab.c[k];
     c.recs = static_cast<const uint8_t*>(p[0]);
     c.fwd9 = static_cast<const float*>(p[1]);
@@ -1478,17 +1445,11 @@ cudaError_t fd_backbone(const void* const* ptrs, const int* geo,
     c.sy = static_cast<float*>(const_cast<void*>(p[10]));
     c.sz = static_cast<float*>(const_cast<void*>(p[11]));
     c.pos = static_cast<int*>(const_cast<void*>(p[12]));
-    c.ox = static_cast<float*>(const_cast<void*>(p[13]));
-    c.oy = static_cast<float*>(const_cast<void*>(p[14]));
-    c.oz = static_cast<float*>(const_cast<void*>(p[15]));
   }
   tab.tails9 = tails9;
   tab.tails_ld = tails_ld;
   tab.n = g.n;
   k2_backbone<<<(unsigned)g.blocks, K2_THREADS, 0, stream>>>(tab);
-  cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return e;
-  k2_copy_out<<<(unsigned)g.copies, K2_COPY_THREADS, 0, stream>>>(tab);
   return cudaGetLastError();
 }
 
@@ -1513,11 +1474,14 @@ cudaError_t fd_backbone_bb(const uint8_t* recs, const float* tails9,
 }
 
 // k3 on a persistent grid: as many blocks as fit on the device at once,
-// at most one per group of 32 lanes.
+// at most one per group of 32 lanes. bx, by, bz: [3*SEG, NL] float, lane
+// l's rows at column pos[l] (k2's staged rows); off [NL_out, SEG, 42]
+// int16, ca [NL_out, SEG, 3] float.
 cudaError_t fd_sidechain(const float* bx, const float* by, const float* bz,
-                         const int* code, const uint8_t* sct,
-                         const int* seg_m, int16_t* off, float* ca, int seg,
-                         int nl, int nl_out, cudaStream_t stream) {
+                         const int* pos, const int* code,
+                         const uint8_t* sct, const int* seg_m, int16_t* off,
+                         float* ca, int seg, int nl, int nl_out,
+                         cudaStream_t stream) {
   int dev = 0, sms = 0, per_sm = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e == cudaSuccess)
@@ -1529,8 +1493,8 @@ cudaError_t fd_sidechain(const float* bx, const float* by, const float* bz,
   const size_t groups = blocks_for(nl_out, K3_TL);
   const size_t fit = (size_t)sms * (per_sm > 0 ? per_sm : 1);
   k3_sidechain<<<(unsigned)(groups < fit ? groups : fit), K3_T, 0,
-                 stream>>>(bx, by, bz, code, sct, seg_m, off, ca, seg, nl,
-                           nl_out);
+                 stream>>>(bx, by, bz, pos, code, sct, seg_m, off, ca,
+                           seg, nl, nl_out);
   return cudaGetLastError();
 }
 

@@ -19,10 +19,15 @@ same output contracts. Each kernel has
 - a launch counter, raised by one where the wrapper launches its kernel
   and nowhere else: PREP_LAUNCHES k0_prep (PREP_BB_LAUNCHES those of its
   launches in bb mode, counted in PREP_LAUNCHES too) and K1_LAUNCHES
-  k1_tails and K2_LAUNCHES k2_backbone with its copy-out, the full wire
-  (each one launch over every width class of a batch; K2_CLASSES adds up
-  the classes of k2's launches), K2BB_LAUNCHES k2_backbone_bb (the bb
-  wire's one kernel), K3_LAUNCHES k3_sidechain.
+  k1_tails and K2_LAUNCHES k2_backbone, the full wire (each one launch
+  over every width class of a batch; K2_CLASSES adds up the classes of
+  k2's launches), K2BB_LAUNCHES k2_backbone_bb (the bb wire's one
+  kernel), K3_LAUNCHES k3_sidechain (K3_STAGED those of its launches that
+  read k2's rows where k2 staged them, counted in K3_LAUNCHES too).
+
+k2 hands k3 its rows as k2_backbone left them (`Staged`): each lane's
+rows at its thread's column, in k0's lane order; k3 reads them there, and
+nothing copies them to the lanes' columns.
 
 One pipeline, `decode_lanes`, decodes a batch of one or more width
 classes on either wire (`decode_seg_fused` is a call of it with one
@@ -56,6 +61,7 @@ K2_LAUNCHES = 0
 K2_CLASSES = 0          # the classes k2's launches took, one or more each
 K2BB_LAUNCHES = 0       # the bb call, one kernel: not counted in K2
 K3_LAUNCHES = 0
+K3_STAGED = 0           # k3 on k2's staged rows: also counted in K3
 
 _C_TO_N = float(T.C_TO_N)
 _CA_TO_C = float(T.CA_TO_C)
@@ -66,15 +72,16 @@ _SC_MIN = float(T.SC_MIN)
 
 def reset_launch_counts() -> None:
     global PREP_LAUNCHES, PREP_BB_LAUNCHES, K1_LAUNCHES, K2_LAUNCHES, \
-        K2_CLASSES, K2BB_LAUNCHES, K3_LAUNCHES
+        K2_CLASSES, K2BB_LAUNCHES, K3_LAUNCHES, K3_STAGED
     PREP_LAUNCHES = PREP_BB_LAUNCHES = K1_LAUNCHES = K2_LAUNCHES = \
-        K2_CLASSES = K2BB_LAUNCHES = K3_LAUNCHES = 0
+        K2_CLASSES = K2BB_LAUNCHES = K3_LAUNCHES = K3_STAGED = 0
 
 
 def launch_counts() -> dict:
     return {"prep": PREP_LAUNCHES, "prep_bb": PREP_BB_LAUNCHES,
             "k1": K1_LAUNCHES, "k2": K2_LAUNCHES, "k2_classes": K2_CLASSES,
-            "k2_bb": K2BB_LAUNCHES, "k3": K3_LAUNCHES}
+            "k2_bb": K2BB_LAUNCHES, "k3": K3_LAUNCHES,
+            "k3_staged": K3_STAGED}
 
 
 # ---------------------------------------------------------------------------
@@ -123,6 +130,29 @@ class LaneOrder:
 
     def __init__(self, perm):
         self.perm = perm
+
+
+class Staged:
+    """One class's backbone rows as k2 leaves them for k3: planes x, y, z
+    [3*SEG, NL] f32 holding lane l's rows at column pos[l] (pos i32 [NL];
+    None: at column l). On a CUDA device k2 writes the planes at its
+    threads' columns, in k0's lane order, and pos is k2's; on the CPU the
+    planes are the plain version's lane rows and pos is None. rows()
+    gives the rows in lane columns, for the checks; no pipeline path
+    calls it."""
+    __slots__ = ("x", "y", "z", "pos")
+
+    def __init__(self, x, y, z, pos=None):
+        self.x, self.y, self.z = x, y, z
+        self.pos = pos
+
+    def rows(self):
+        """The blended rows [3*SEG, NL] x3 with lane l at column l."""
+        planes = (self.x, self.y, self.z)
+        if self.pos is None:
+            return planes
+        p = self.pos.long()
+        return tuple(t.index_select(1, p) for t in planes)
 
 
 def lane_order(tat, by_length: bool = True) -> LaneOrder:
@@ -323,15 +353,12 @@ def sidechain_plain(bx, by, bz, code, sct, nl_out=None):
 K0_THREADS = 512
 K0_SORT_LANES = 8192
 K0_CODE_UNIT = 4
-# k1's and k2_backbone's blocks: K1_THREADS lanes; a k2_copy_out block:
-# K2_COPY_THREADS lanes of one residue
+# k1's and k2_backbone's blocks: K1_THREADS lanes
 K1_THREADS = 128
-K2_COPY_THREADS = 256
 _SLOT_ALIGN = 32        # elements: each slot starts 128-byte aligned
-# a class's k2 buffers, in their workspace's and fd_backbone's order
-_K2_SLOTS = ("sx", "sy", "sz", "pos", "ox", "oy", "oz")
-_F32_SLOTS = frozenset(("mins6", "cont6", "sx", "sy", "sz", "ox", "oy",
-                        "oz"))
+# a class's k2 outputs, in their workspace's and fd_backbone's order
+_K2_SLOTS = ("sx", "sy", "sz", "pos")
+_F32_SLOTS = frozenset(("mins6", "cont6", "sx", "sy", "sz"))
 
 
 class ClassGeom(NamedTuple):
@@ -343,7 +370,6 @@ class ClassGeom(NamedTuple):
     sort0: int      # its first sort block of k0
     unit0: int      # its first unit of k0
     block0: int     # its first block of k1 and of k2_backbone
-    copy0: int      # its first block of k2_copy_out
 
 
 class ClassLayout(NamedTuple):
@@ -361,7 +387,6 @@ class ClassLayout(NamedTuple):
     sorts: int      # k0's sort blocks
     units: int      # k0's units
     blocks: int     # k1's and k2_backbone's blocks
-    copies: int     # k2_copy_out's blocks
     geo: object     # the launchers' geometry: ctypes int array
 
 
@@ -384,15 +409,15 @@ def class_layout(nls, segs, wire: str = "full", nl_outs=()) -> ClassLayout:
     class's ranges where the last one's end: ceil(nl / K0_SORT_LANES) sort
     blocks and ceil(seg * nl / K0_CODE_UNIT) code units (none on the bb
     wire) then nl lane units of k0; ceil(nl / K1_THREADS) blocks of k1 and
-    k2_backbone; ceil(nl / K2_COPY_THREADS) * seg blocks of k2_copy_out.
-    A block (or unit) belongs to the last class whose range starts at or
-    before it (fused_decode.cu read_classes and the kernels).
+    k2_backbone. A block (or unit) belongs to the last class whose range
+    starts at or before it (fused_decode.cu read_classes and the
+    kernels).
 
     Every class, in class order: its columns of the tails (the classes'
     lanes one after another), its k0 outputs in k0's workspace (code
     [SEG, NL], not on the bb wire, tat [NL], mins6 and cont6 [6, NL],
-    order [NL]), its k2 buffers in k2's (planes [3*SEG, NL] but pos [NL]),
-    and its rows of the flat output: nl_outs[c] lanes (at most nls[c];
+    order [NL]), its k2 outputs in k2's (sx, sy, sz [3*SEG, NL], pos
+    [NL]), and its rows of the flat output: nl_outs[c] lanes (at most nls[c];
     every lane where nl_outs has no entry or None) of SEG rows, the
     classes' rows one after another."""
     if wire not in ("full", "bb"):
@@ -416,22 +441,20 @@ def class_layout(nls, segs, wire: str = "full", nl_outs=()) -> ClassLayout:
         rows.append((row, nlo))
         row += nlo * seg
     launch = []
-    sorts = units = blocks = copies = 0
+    sorts = units = blocks = 0
     for c in sorted((c for c in range(len(nls)) if nls[c] and segs[c]),
                     key=lambda c: -segs[c]):
         nl, seg = nls[c], segs[c]
-        launch.append(ClassGeom(c, seg, nl, cols[c], sorts, units, blocks,
-                                copies))
+        launch.append(ClassGeom(c, seg, nl, cols[c], sorts, units, blocks))
         sorts += -(-nl // K0_SORT_LANES)
         units += (0 if bb else -(-seg * nl // K0_CODE_UNIT)) + nl
         blocks += -(-nl // K1_THREADS)
-        copies += -(-nl // K2_COPY_THREADS) * seg
     if len(launch) > T.MAX_CLASSES:
         raise ValueError(f"{len(launch)} width classes with lanes: a launch "
                          f"takes at most {T.MAX_CLASSES}")
     geo = [len(launch), int(bb)] + [v for g in launch for v in g[1:]]
     return ClassLayout(launch, bb, k0, k0_at, k2, k2_at, rows, row, col,
-                       sorts, units, blocks, copies,
+                       sorts, units, blocks,
                        (ctypes.c_int * len(geo))(*geo))
 
 
@@ -692,23 +715,24 @@ def _check_k2(recs, fwd9, is_first, ranc, tat, mins6, cont6, order, prev,
 
 def _k2(lay, classes, tails9):
     """k2 over the classes of lay (backbone_classes' tuples, as checked
-    there) -> one (bx, by, bz) a class."""
+    there) -> one Staged a class."""
     global K2_LAUNCHES, K2_CLASSES
     if classes[0][0].device.type == "cpu":
-        return [backbone_rolled_plain(recs, tails9, fwd9, is_first, ranc,
-                                      tat, mins6, cont6, prev)
+        return [Staged(*backbone_rolled_plain(recs, tails9, fwd9, is_first,
+                                              ranc, tat, mins6, cont6, prev))
                 for recs, fwd9, is_first, ranc, tat, mins6, cont6, _, prev
                 in classes]
     dev = classes[0][0].device
     lib = _cuda_lib(classes[0][0])
     ws = torch.empty((lay.k2_size,), dtype=torch.int32, device=dev)
-    outs = [tuple(v.values()) for v in _views(ws, lay.k2, ("ox", "oy", "oz"))]
+    outs = [Staged(v["sx"], v["sy"], v["sz"], v["pos"])
+            for v in _views(ws, lay.k2)]
     if lay.launch:
         ptrs = []
         for g in lay.launch:
             recs, fwd9, is_first, ranc, tat, mins6, cont6, order, prev = \
                 classes[g.c]
-            # the scratch and the outputs by address: 4-byte elements
+            # the outputs by address: 4-byte elements
             ptrs += _ptrs(recs, fwd9, is_first, ranc, tat, mins6, cont6,
                           order.perm, prev) + [
                 ws.data_ptr() + 4 * lay.k2[g.c][k][1] for k in _K2_SLOTS]
@@ -720,9 +744,9 @@ def _k2(lay, classes, tails9):
 
 
 def backbone_classes(classes, tails9=None):
-    """k2 over width classes in one launch -> one (bx, by, bz) a class:
-    its blended backbone rows [3*SEG_c, NL_c], those `backbone` gives for
-    it alone.
+    """k2 over width classes in one launch -> one Staged a class: its
+    blended backbone rows [3*SEG_c, NL_c] (Staged.rows()), those
+    `backbone` gives for it alone.
 
     classes: one tuple (recs, fwd9, is_first, ranc, tat, mins6, cont6,
     order, prev) a class, as `backbone` takes them. tails9 None: every
@@ -732,12 +756,13 @@ def backbone_classes(classes, tails9=None):
     only with one class, as `backbone` has it.
 
     The inputs are checked on either device. On the CPU
-    backbone_rolled_plain class by class, nothing launched. On a CUDA
-    device one allocation holds every class's output planes, scratch
-    planes and pos (class_layout; the rows are views of it), and
-    k2_backbone and k2_copy_out each run once over every class with lanes
-    and rows (at most T.MAX_CLASSES), in class_layout's order. Counted as
-    one launch of k2, and its classes in k2_classes."""
+    backbone_rolled_plain class by class, nothing launched, each class's
+    rows in lane columns. On a CUDA device one allocation holds every
+    class's planes and pos (class_layout; each Staged holds views of it),
+    and k2_backbone runs once over every class with lanes and rows (at
+    most T.MAX_CLASSES), in class_layout's order, each lane's rows at its
+    thread's column. Counted as one launch of k2, and its classes in
+    k2_classes."""
     dev = classes[0][0].device
     if tails9 is not None and len(classes) > 1 and \
             any(c[8] is None for c in classes):
@@ -753,7 +778,7 @@ def backbone_classes(classes, tails9=None):
 
 def backbone(recs, tails9, fwd9, is_first, ranc, tat, mins6, cont6,
              order=None, prev=None):
-    """k2 -> blended backbone rows [3*SEG, NL] x3.
+    """k2 -> a Staged of the blended backbone rows [3*SEG, NL] x3.
 
     Seeds: lane l starts from lane l-1's k1 tail (tails9 [9, NL], rows
     comp*3 + atom; lane -1 is lane NL-1) unless is_first[l], and from its
@@ -765,10 +790,9 @@ def backbone(recs, tails9, fwd9, is_first, ranc, tat, mins6, cont6,
     from the records. On a CUDA device the kernels compute and write rows
     r < tat[l] only: rows >= tat (pack padding) of a CUDA result are
     unspecified. The plain version on the CPU computes every row. order:
-    as for `tails`. The CUDA path is two launches, k2_backbone into
-    scratch planes at each thread's column and k2_copy_out to the lanes'
-    columns, counted as one launch of k2: backbone_classes with one
-    class."""
+    as for `tails`. The CUDA path is one launch of k2_backbone, each
+    lane's rows at its thread's column, counted as one launch of k2:
+    backbone_classes with one class."""
     return backbone_classes([(recs, fwd9, is_first, ranc, tat, mins6, cont6,
                               order, prev)], tails9)[0]
 
@@ -820,39 +844,44 @@ def backbone_only(recs, tails9, fwd9, is_first, ranc, tat, mins6, cont6,
     return _k2_bb(k, tails9, seg_m, nl_out)
 
 
-def _k3(bx, by, bz, code, sct, seg_m, out):
-    """k3 into out, (off, ca) of sidechain's shapes (inputs as checked by
-    sidechain). -> out."""
-    global K3_LAUNCHES
+def _k3(bb, code, sct, seg_m, out):
+    """k3 on the Staged bb into out, (off, ca) of sidechain's shapes
+    (inputs as checked by sidechain). -> out."""
+    global K3_LAUNCHES, K3_STAGED
     off, ca = out
     nlo, seg = off.shape[:2]
-    if bx.device.type == "cpu":
-        got = sidechain_plain(bx, by, bz, code, sct, nlo)
+    if bb.x.device.type == "cpu":
+        got = sidechain_plain(*bb.rows(), code, sct, nlo)
         return off.copy_(got[0]), ca.copy_(got[1])
     if nlo and seg:
-        _launch(_cuda_lib(bx).fd_sidechain, "k3 sidechain", bx.device,
-                *_ptrs(bx, by, bz, code, sct, seg_m, off, ca), seg,
-                bx.shape[1], nlo)
+        _launch(_cuda_lib(bb.x).fd_sidechain, "k3 sidechain", bb.x.device,
+                *_ptrs(bb.x, bb.y, bb.z, bb.pos, code, sct, seg_m, off, ca),
+                seg, bb.x.shape[1], nlo)
         K3_LAUNCHES += 1
+        K3_STAGED += 1
     return out
 
 
-def sidechain(bx, by, bz, code, sct, nl_out=None, seg_m=None, out=None):
-    """k3 -> (off i16 [NL_out, SEG, 42], ca f32 [NL_out, SEG, 3]).
+def sidechain(bb, code, sct, nl_out=None, seg_m=None, out=None):
+    """k3 on the backbone rows of a Staged (backbone's) -> (off i16
+    [NL_out, SEG, 42], ca f32 [NL_out, SEG, 3]).
 
-    seg_m (i32 [NL], the lanes' residue counts, which a CUDA device needs)
-    names the real rows: the kernel computes and writes rows s < seg_m[l]
-    only, and the other rows of a CUDA result are unspecified (the host
-    stitch reads none of them). The plain version on the CPU computes
-    every row and reads no seg_m. out: contiguous (off, ca) of those
-    shapes to write into (a width class's rows of one flat buffer); None
-    allocates."""
-    t, nl = bx.shape
+    On a CUDA device k3 takes the lanes in pack order, 32 to a group, and
+    reads lane l's rows at column bb.pos[l], where k2 left them (bb.pos,
+    which a CUDA device needs). seg_m (i32 [NL], the
+    lanes' residue counts, which a CUDA device
+    needs) names the real rows: the kernel computes and writes rows s <
+    seg_m[l] only, and the other rows of a CUDA result are unspecified
+    (the host stitch reads none of them). The plain version on the CPU
+    computes every row of bb.rows() and reads no seg_m. out: contiguous
+    (off, ca) of those shapes to write into (a width class's rows of one
+    flat buffer); None allocates."""
+    t, nl = bb.x.shape
     if t % 3:
         raise ValueError(f"backbone rows {t}: not a multiple of 3")
     seg = t // 3
     nlo = nl if nl_out is None else min(int(nl_out), nl)
-    dev = bx.device
+    dev = bb.x.device
     if out is None:
         out = (torch.empty((nlo, seg, 42), dtype=torch.int16, device=dev),
                torch.empty((nlo, seg, 3), dtype=F32, device=dev))
@@ -860,13 +889,14 @@ def sidechain(bx, by, bz, code, sct, nl_out=None, seg_m=None, out=None):
                            ("ca", out[1], F32, 3)):
         _check(f"out {name}", o, dt, (nlo, seg, w), dev)
     if dev.type != "cpu":
-        _cuda_lib(bx)
-        for name, p in (("bx", bx), ("by", by), ("bz", bz)):
+        _cuda_lib(bb.x)
+        for name, p in (("bb.x", bb.x), ("bb.y", bb.y), ("bb.z", bb.z)):
             _check(name, p, F32, (t, nl), dev)
+        _check("bb.pos", bb.pos, torch.int32, (nl,), dev)
         _check("code", code, torch.int32, (seg, nl), dev)
         _check("sct", sct, torch.uint8, (seg, 11, nl), dev)
         _check("seg_m", seg_m, torch.int32, (nl,), dev)
-    return _k3(bx, by, bz, code, sct, seg_m, out)
+    return _k3(bb, code, sct, seg_m, out)
 
 
 # ---------------------------------------------------------------------------
@@ -894,8 +924,9 @@ def decode_lanes(recs_t, mins_t, cont_t, sct_t, fwd_t, rev_t, isf_t, segm_t,
     of class c from column prev_idx[base_c + l] of that buffer unless
     isf_t[c][l] (a protein's lanes may lie in different classes; prev_idx
     None, one class alone: from lane l-1, lane 0 from NL-1), or from its
-    own fwd9 when refine_iters < 2; then k3 once a class. Per-lane math
-    is the same whatever the classes, so a lane's rows are bit-equal
+    own fwd9 when refine_iters < 2; then k3 once a class, on k2's rows
+    where k2 left them (Staged: no copy to the lanes' columns). Per-lane
+    math is the same whatever the classes, so a lane's rows are bit-equal
     across forms. Each step is a span: `decode.prep` (attribute `wire`),
     `decode.k1`, `decode.k2` (attribute `classes`), `decode.k3` a class.
 
@@ -959,7 +990,7 @@ def decode_lanes(recs_t, mins_t, cont_t, sct_t, fwd_t, rev_t, isf_t, segm_t,
                                         row0 * w)
                            for t, w in ((off, 42), (ca, 3))))
         with tracing.span("decode.k3"):
-            _k3(*bb, p["code"], p["sct"], s, views[-1])
+            _k3(bb, p["code"], p["sct"], s, views[-1])
     return tuple(views)
 
 

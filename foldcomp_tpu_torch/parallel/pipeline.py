@@ -12,9 +12,9 @@ the ranks' quality statistics into the global RMSD, the JAX step's `psum`.
 Each rank's step runs the port's production kernels on its card: the
 batched encode (codec/batch.encode_tensor_batch: k4_fused_encode and the
 host rescue, FCZ byte-identical to the exact encoder), then the decode of
-those FCZ records on the full wire (k1_tails, k2_backbone + k2_copy_out,
-k3_sidechain) and the host stitch. On the CPU the same calls run the
-kernels' plain versions.
+those FCZ records on the full wire (k0_prep, k1_tails, k2_backbone, and
+k3_sidechain on k2's rows where k2 staged them) and the host stitch. On
+the CPU the same calls run the kernels' plain versions.
 
 A gloo group cannot run every collective on CUDA tensors; a Mesh whose
 group is gloo and whose device is CUDA (two ranks on one card, which NCCL

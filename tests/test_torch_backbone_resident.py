@@ -154,7 +154,7 @@ def test_plain_prep_bb_mode_is_full_mode_less_the_code_plane(corpus):
     (got,) = FD.prep([cls[:3] + (None,) + cls[4:]], wire="bb")
     assert FD.launch_counts() == {"prep": 0, "prep_bb": 0, "k1": 0,
                                   "k2": 0, "k2_classes": 0, "k2_bb": 0,
-                                  "k3": 0}
+                                  "k3": 0, "k3_staged": 0}
     assert "code" in want and "sct" in want
     assert set(got) == set(want) - {"code", "sct"}
     for k in ("recs", "fwd9", "rev9", "tat", "mins6", "cont6"):

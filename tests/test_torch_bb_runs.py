@@ -75,7 +75,8 @@ def test_backbone_only_matches_jax_run_backbone_only(mixed, refine_iters):
     got = [x.numpy() for x in FD.backbone_only(
         *_port_args(arrays, tails, refine_iters), nl_out)]
     assert FD.launch_counts() == {"prep": 0, "prep_bb": 0, "k1": 0, "k2": 0,
-                                 "k2_classes": 0, "k2_bb": 0, "k3": 0}
+                                 "k2_classes": 0, "k2_bb": 0, "k3": 0,
+                                 "k3_staged": 0}
     assert [(g.dtype, g.shape) for g in got] == \
         [(w.dtype, w.shape) for w in want]
     own = np.arange(got[0].shape[1])[None, :] \

@@ -1,10 +1,10 @@
 """The one class layout of a decode batch (foldcomp_tpu_torch/kernels/
 fused_decode.py class_layout), which k0, k1 and k2 read: held here, pure
 Python on the CPU, to the kernels' rules (csrc/fused_decode.cu k0_prep,
-k1_tails, k2_backbone, k2_copy_out): every code slot, lane and sort taken
-once, in the blocks of the classes' launch order (the widest SEG first);
-every view of the workspaces aligned, inside them and disjoint; empty and
-one-lane classes; the bb wire without code planes. The kernels run only
+k1_tails, k2_backbone): every code slot, lane and sort taken once, in the
+blocks of the classes' launch order (the widest SEG first); every view of
+the workspaces aligned, inside them and disjoint; empty and one-lane
+classes; the bb wire without code planes. The kernels run only
 on the card (tests/test_torch_prep.py's card tests and chip_smoke.py).
 """
 import numpy as np
@@ -113,24 +113,6 @@ def _cover_k1(lay, nls):
     return taken, cols
 
 
-def _cover_k2_copy(lay):
-    """k2_copy_out's rule over the layout: block b to its class, thread t
-    to residue (b - copy0) // xb of lane ((b - copy0) % xb) *
-    K2_COPY_THREADS + t. -> {(class, residue, lane): copies}."""
-    copy0 = [g.copy0 for g in lay.launch]
-    copied = {}
-    for b in range(lay.copies):
-        g = lay.launch[_owner(copy0, b)]
-        xb = -(-g.nl // FD.K2_COPY_THREADS)
-        s, x = divmod(b - g.copy0, xb)
-        for t in range(FD.K2_COPY_THREADS):
-            lane = x * FD.K2_COPY_THREADS + t
-            if lane < g.nl:
-                key = (g.c, s, lane)
-                copied[key] = copied.get(key, 0) + 1
-    return copied
-
-
 def _hold_k0_views(lay, nls, segs):
     """Each class's k0 outputs as the wrapper hands them to the kernel:
     their shapes and types, contiguous, 128-byte aligned, inside the
@@ -164,9 +146,9 @@ def test_layout_covers_every_lane_once(kernel, seed):
     and sorts every lane once (on the bb wire no code slot, and the
     workspace smaller by the code planes alone); k1 takes each lane once
     and writes each column of [0, NL_total) once; k2_backbone walks each
-    lane once and k2_copy_out copies each residue of each lane once, none
-    past its class's SEG. The launch holds the classes with lanes, the
-    widest first."""
+    lane once, and each class's k2 outputs are sx, sy, sz and pos alone,
+    disjoint and 128-byte aligned. The launch holds the classes with
+    lanes, the widest first."""
     nls, segs = _sizes(kernel, seed)
     n_cls = len(nls)
     lay = FD.class_layout(nls, segs, "bb" if kernel == "k0_bb" else "full")
@@ -195,12 +177,18 @@ def test_layout_covers_every_lane_once(kernel, seed):
         walked, _ = _cover_k1(lay, nls)
         assert walked == {(c, l): 1 for c in range(n_cls)
                           for l in range(nls[c])}
-        assert _cover_k2_copy(lay) == {
-            (c, s, l): 1 for c in range(n_cls) for s in range(segs[c])
-            for l in range(nls[c])}
         assert lay.blocks == sum(-(-n // FD.K1_THREADS) for n in nls)
-        assert lay.copies == sum(-(-n // FD.K2_COPY_THREADS) * s
-                                 for n, s in zip(nls, segs))
+        spans = []
+        for c, slots in enumerate(lay.k2):
+            assert list(slots) == ["sx", "sy", "sz", "pos"]
+            for name, (shape, at) in slots.items():
+                assert shape == ((nls[c],) if name == "pos"
+                                 else (3 * segs[c], nls[c]))
+                assert at % 32 == 0
+                spans.append((at, at + int(np.prod(shape))))
+        spans.sort()
+        assert all(a[1] <= b[0] for a, b in zip(spans, spans[1:]))
+        assert spans[-1][1] <= lay.k2_size
 
 
 def _small_k0():
@@ -209,7 +197,7 @@ def _small_k0():
     u = FD.K0_CODE_UNIT
     # one lane: 1 sort block, 8 code slots, then the lane; 5 slots of 32
     lay = FD.class_layout([1], [8])
-    assert lay.launch == [FD.ClassGeom(0, 8, 1, 0, 0, 0, 0, 0)]
+    assert lay.launch == [FD.ClassGeom(0, 8, 1, 0, 0, 0, 0)]
     assert (lay.k0_size, lay.sorts, lay.units) == (160, 1, -(-8 // u) + 1)
     assert lay.k0[0] == {
         "code": ((8, 1), 0), "tat": ((1,), 32), "mins6": ((6, 1), 64),
@@ -242,26 +230,25 @@ def _small_k1():
         [(1, 129, 0), (0, 0, 1), (2, 130, 3)]
     assert lay.blocks == 4
     # the launchers' geometry: n, bb, then (seg, nl, col0, sort0, unit0,
-    # block0, copy0) a class in launch order
+    # block0) a class in launch order
     assert list(lay.geo)[:2] == [3, 0]
     assert list(lay.geo)[2:] == [v for g in lay.launch for v in g[1:]]
 
 
 def _small_k2(nls, segs, want):
     lay = FD.class_layout(nls, segs)
-    assert ([(g.c, g.block0, g.copy0) for g in lay.launch], lay.blocks,
-            lay.copies) == want
+    assert ([(g.c, g.block0) for g in lay.launch], lay.blocks) == want
 
 
 SMALL = {
     "k0_empty_and_single": _small_k0,
     "k1_empty_and_single": _small_k1,
-    "k2_empty": lambda: _small_k2([0, 0], [8, 16], ([], 0, 0)),
-    "k2_one": lambda: _small_k2([300], [48], ([(0, 0, 0)], 3, 2 * 48)),
+    "k2_empty": lambda: _small_k2([0, 0], [8, 16], ([], 0)),
+    "k2_one": lambda: _small_k2([300], [48], ([(0, 0)], 3)),
     # ties keep the class order; a class of no rows takes no block
     "k2_ties_no_rows": lambda: _small_k2(
         [129, 1, 128, 64], [24, 48, 24, 0],
-        ([(1, 0, 0), (0, 1, 48), (2, 3, 48 + 24)], 4, 48 + 24 + 24)),
+        ([(1, 0), (0, 1), (2, 3)], 4)),
 }
 
 
@@ -272,15 +259,15 @@ def test_layout_small(case):
 
 @pytest.mark.parametrize("seed", range(4))
 def test_layout_k2_views_disjoint_and_shaped(seed):
-    """Every class's k2 output planes, scratch planes and pos are views of
-    one workspace: each of its class's shape, contiguous, 128-byte
-    aligned, inside the workspace and disjoint from every other."""
+    """Every class's k2 planes and pos are views of one workspace: each of
+    its class's shape, contiguous, 128-byte aligned, inside the workspace
+    and disjoint from every other."""
     nls, segs = _sizes("k2", seed)
     lay = FD.class_layout(nls, segs)
     ws = torch.zeros((lay.k2_size,), dtype=torch.int32)
     spans = []
     for nl, seg, v in zip(nls, segs, FD._views(ws, lay.k2)):
-        assert set(v) == {"ox", "oy", "oz", "sx", "sy", "sz", "pos"}
+        assert set(v) == {"sx", "sy", "sz", "pos"}
         for name, t in v.items():
             want = (nl,) if name == "pos" else (3 * seg, nl)
             assert tuple(t.shape) == want, name
@@ -302,4 +289,4 @@ def test_layout_k2_views_disjoint_and_shaped(seed):
     for i, t in enumerate(views):
         assert bool((t == i + 1).all())
     assert lay.k2_size == sum(-(-n // 32) * 32 for nl, seg in zip(nls, segs)
-                              for n in [3 * seg * nl] * 6 + [nl])
+                              for n in [3 * seg * nl] * 3 + [nl])

@@ -245,19 +245,22 @@ def test_wrappers_run_plain_on_cpu_without_launching(corpus):
     bb = FD.backbone(prep["recs"], tails9, prep["fwd9"],
                      corpus["ta"]["is_first"], *lane)
     seeds = FD.refine_seeds(tails9, prep["fwd9"], corpus["ta"]["is_first"])
-    for a, b in zip(bb, FD.backbone_plain(*_lane_args(prep, seeds))):
+    rows = bb.rows()
+    for a, b in zip(rows, FD.backbone_plain(*_lane_args(prep, seeds))):
         assert torch.equal(a, b)
-    for a, b in zip(FD.sidechain(*bb, prep["code"], prep["sct"], 512),
-                    FD.sidechain_plain(*bb, prep["code"], prep["sct"], 512)):
+    for a, b in zip(FD.sidechain(bb, prep["code"], prep["sct"], 512),
+                    FD.sidechain_plain(*rows, prep["code"], prep["sct"],
+                                       512)):
         assert torch.equal(a, b)
     seg_m = (prep["tat"] // 3).to(torch.int32)
     for a, b in zip(FD.backbone_only(prep["recs"], tails9, prep["fwd9"],
                                      corpus["ta"]["is_first"], *lane, seg_m,
                                      512),
-                    FD.bb_epilogue_plain(*bb, 512)):
+                    FD.bb_epilogue_plain(*rows, 512)):
         assert torch.equal(a, b)
     assert FD.launch_counts() == {"prep": 0, "prep_bb": 0, "k1": 0, "k2": 0,
-                                 "k2_classes": 0, "k2_bb": 0, "k3": 0}
+                                 "k2_classes": 0, "k2_bb": 0, "k3": 0,
+                                 "k3_staged": 0}
 
 
 def test_wrappers_refuse_other_devices():

@@ -1,17 +1,16 @@
 """k2 over every width class of a batch in one launch
 (foldcomp_tpu_torch/kernels/fused_decode.py backbone_classes), on CPU.
 
-One launch of k2_backbone and one of k2_copy_out take a table of the
-classes, laid out with k0's and k1's by the one class layout
-(class_layout, which tests/test_torch_class_layout.py holds to the
-kernels' rules: k2_backbone's blocks are k1's, the widest SEG first,
-K1_THREADS lanes a block; k2_copy_out's a range of ceil(NL_c /
-K2_COPY_THREADS) * SEG_c blocks a class; one allocation holds every
-class's output planes, scratch planes and pos). The CUDA kernels run only
-on the card (chip_smoke.py phase 14 holds one launch bit-equal to a
-launch a class, and to backbone_rolled_plain); on the CPU
-backbone_classes runs backbone_rolled_plain class by class and launches
-nothing. The decode (decode_lanes) stays bit-equal to the single-class
+One launch of k2_backbone takes a table of the classes, laid out with
+k0's and k1's by the one class layout (class_layout, which
+tests/test_torch_class_layout.py holds to the kernels' rules: k2's blocks
+are k1's, the widest SEG first, K1_THREADS lanes a block; one allocation
+holds every class's planes and pos, each lane's rows at its thread's
+column, where k3 reads them). The CUDA kernels run only on the card
+(chip_smoke.py phase 14 holds one launch bit-equal to a launch a class,
+and to backbone_rolled_plain); on the CPU backbone_classes runs
+backbone_rolled_plain class by class and launches nothing, each class's
+rows in lane columns. The decode (decode_lanes) stays bit-equal to the single-class
 decode (tests/test_torch_wclass.py
 test_classes_bit_equal_to_single_class).
 """
@@ -76,10 +75,11 @@ def test_backbone_classes_cpu_is_plain_class_by_class(refine_iters,
     assert FD.launch_counts()["k2"] == 0
     assert FD.launch_counts()["k2_classes"] == 0
     assert len(got) == len(k2_in)
-    for c, rows in zip(k2_in, got):
+    for c, staged in zip(k2_in, got):
         want = FD.backbone_rolled_plain(c[0], tails, *c[1:7], c[8])
         one = FD.backbone(c[0], tails, *c[1:])
-        for g, w, o in zip(rows, want, one):
+        assert staged.pos is None
+        for g, w, o in zip(staged.rows(), want, one.rows()):
             assert g.shape == (3 * c[0].shape[1], c[0].shape[2])
             assert torch.equal(g, w) and torch.equal(g, o)
 

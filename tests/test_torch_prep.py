@@ -142,7 +142,6 @@ def test_kernel_constants_match():
     assert int(_cu_define("K0_CODE_UNIT")) == FD.K0_CODE_UNIT
     assert int(_cu_define("MAX_CLASSES")) == T.MAX_CLASSES
     assert int(_cu_define("K1_THREADS")) == FD.K1_THREADS
-    assert int(_cu_define("K2_COPY_THREADS")) == FD.K2_COPY_THREADS
     assert _k0_buckets() * 32 % FD.K0_THREADS == 0
 
 
@@ -329,6 +328,7 @@ def test_one_prep_launch_a_dispatch(form, packs, cuda):
     assert counts["k2"] == (0 if form == "bb" else 3), counts
     assert counts["k3"] == (0 if form == "bb" else counts["k2_classes"]), \
         counts
+    assert counts["k3_staged"] == counts["k3"], counts
 
 
 @pytest.mark.card

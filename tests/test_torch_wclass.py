@@ -244,7 +244,7 @@ def test_backbone_prev_forms_match_the_roll(mixed):
         assert all(torch.equal(g, w) for g, w in zip(got, want))
     # the wrapper on the CPU takes prev as well
     got = FD.backbone(pr["recs"], t9, pr["fwd9"], first, *lane, prev=prev)
-    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    assert all(torch.equal(g, w) for g, w in zip(got.rows(), want))
 
 
 def test_arrays_to_torch_checks_classes(mixed):
